@@ -6,18 +6,41 @@
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. device: the card's name and power limit from nvidia-smi;
   2. build: the CUDA kernels of magnet_tpu_torch/kernels/csrc with nvcc;
-  3. kernels: each kernel against its plain PyTorch version on the card,
-     at the shapes the D-Net main path gives it at 480x640 (ScanNet eval),
-     in f32 (TF32 off, tolerance 1e-4 * max|ref|) and bf16 (2e-2 * max|ref|);
+  3. kernels: each kernel against its plain PyTorch version on the card, at
+     the shapes the main paths give it at 480x640 (ScanNet eval; coarse map
+     120x160, batch 1 on the D-Net path and 5 frames on the MaGNet path), in
+     f32 (TF32 off, tolerance 1e-4 * max|ref|) and bf16 (2e-2 * max|ref|;
+     the G-Net update in bf16 on out - prev, the update itself);
      each kernel's time, its plain version's, one cuDNN convolution over the
-     same contraction, and the least time the card could take (bound);
-  4. main path: D-Net inference through the entry point's code path
+     same contraction where there is one (device times: calls captured in a
+     CUDA graph, the replay timed with events, so the host's time to enqueue
+     is left out), and the least time the card could take (bound). The cost
+     volume is held to 1e-4 * max|ref| in both types (both accumulate exact
+     products in f32) on the elements that do not sit within 1e-4 of its
+     consistency threshold (at most 1 % may), also at a roll of 0.9 rad
+     about the optical axis and with one view invalid. The F-Net's kernels
+     run at the shapes of its one pass over the 5 frames: every chain of the
+     residual stages, both transition blocks, the tail;
+  4. D-Net path: D-Net inference through the entry point's code path
      (magnet_tpu_torch.test_dnet) at 480x640, bf16, seeded random weights,
      on synthetic frames; every kernel's launch count must rise as the
      path predicts; outputs finite with variance > 0; frames/s;
-  5. reference: one f32 forward on the card against the same forward on the
-     CPU (the kernels' plain versions), tolerance 1e-5 * max|ref| (f32
-     on both sides, TF32 off: only the order of the sums differs).
+  5. D-Net reference: one f32 forward on the card against the same forward
+     on the CPU (the kernels' plain versions), tolerance 1e-5 * max|ref|
+     (f32 on both sides, TF32 off: only the order of the sums differs);
+  6. MaGNet main path: the whole pipeline through the entry point's code
+     path (magnet_tpu_torch.test_magnet) at 480x640, cost volume 120x160, 4
+     source views, 5 candidates, 3 iterations, bf16, seeded random weights
+     in a trained network's depth regime, on synthetic samples; launch
+     counts as predicted; outputs finite with sigma > 0; a cost volume that
+     is not all zero; ms per frame;
+  7. MaGNet reference: one f32 forward on the card against the same forward
+     on the CPU, each iteration's map held to 1e-4 * max|ref| on all but at
+     most 1 % of the pixels (a sample on the consistency threshold may flip
+     and move its pixel by a G-Net update); then the bf16 forward on the
+     card, on the same weights (whose fusion does move the map), against
+     that f32 reference: iteration i to i bf16 ulp of the map plus 2e-2 of
+     the reference map's range, on all but at most 1 % of the pixels.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
@@ -36,22 +59,58 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from magnet_tpu_torch import test_dnet
+from magnet_tpu_torch import test_dnet, test_magnet
 from magnet_tpu_torch.core import config
-from magnet_tpu_torch.data.synthetic import SyntheticSingleView
+from magnet_tpu_torch.data.synthetic import (SyntheticMultiView,
+                                             SyntheticSingleView)
 from magnet_tpu_torch.kernels import build
 from magnet_tpu_torch.kernels import conv3x3_bnact as cb
+from magnet_tpu_torch.kernels import cost_volume_cw as cvk
+from magnet_tpu_torch.kernels import gnet_update as gk
 from magnet_tpu_torch.kernels import head_chain as hc
-from magnet_tpu_torch.models.build import build_dnet
-from magnet_tpu_torch.profile_dnet import cuda_ms
+from magnet_tpu_torch.kernels import psm_blocks as pb
+from magnet_tpu_torch.kernels import spp_tail as st
+from magnet_tpu_torch.kernels import upsample_mask as uk
+from magnet_tpu_torch.models.build import (build_dnet, build_magnet,
+                                           cast_for_inference,
+                                           realistic_depth_init_)
+from magnet_tpu_torch.profile_dnet import cuda_ms, graph_ms
+from magnet_tpu_torch.profile_magnet import eval_args
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FORWARD_TOL = 1e-5
+MAGNET_TOL = 1e-4          # per iteration map, all but MAGNET_FLIPS of it
+MAGNET_FLIPS = 0.01
+BF16_FORWARD_TOL = 2e-2    # of the f32 map's range, on top of the rounding
 H, W = 480, 640
-FRAMES = 4
+HC, WC = H // 4, W // 4    # the coarse map of the heads and the fusion
+VIEWS, SAMPLES, ITERS, FEAT = 4, 5, 3, 64
+DNET_FRAMES = 2
+MAGNET_FRAMES = 3
+WRAPPERS = {"conv3x3_bnact": cb.conv3x3_bnact, "head_chain": hc.head_chain,
+            "cost_volume_cw": cvk.cost_volume_cw,
+            "gnet_update": gk.gnet_update, "upsample_mask": uk.upsample_mask,
+            "fused_residual_stage": pb.fused_residual_stage,
+            "downsample_block": pb.downsample_block,
+            "expand_block": pb.expand_block, "spp_tail": st.spp_tail}
+# launches per MaGNet frame of the F-Net's kernels (one pass over the 5
+# frames): chains of 2 (stem), 6 (layer1), 30 (layer2 after its first
+# block), 4 (layer3 after its first block) and 6 (layer4) convs; three convs
+# in each transition block; one tail
+FNET_LAUNCHES = dict(fused_residual_stage=2 + 6 + 30 + 4 + 6,
+                     downsample_block=3, expand_block=3, spp_tail=1)
+
+
+def reset_counts() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: w.launches for name, w in WRAPPERS.items()}
 
 
 def log(msg: str) -> None:
@@ -66,6 +125,11 @@ def bound_ms(n_bytes: int, flops: float) -> tuple:
     t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def plain_time(fn) -> float:
+    """A plain version's time: fewer repeats, it is no yardstick of speed."""
+    return graph_ms(fn, iters=5, warmup=1)
 
 
 def check_close(name: str, out: torch.Tensor, ref: torch.Tensor,
@@ -84,20 +148,27 @@ def check_close(name: str, out: torch.Tensor, ref: torch.Tensor,
 # ---- phase 3: kernels against their plain versions -------------------------
 
 def conv_sites():
-    """(site, x shape, skip channels, Cout, upsample) of the conv kernel on
-    the main path at 480x640: decoder stages up2 and up3."""
-    return [("up2.conv_a", (1, 30, 40, 1024), 64, 512, True),
-            ("up2.conv_b", (1, 60, 80, 512), 0, 512, False),
-            ("up3.conv_a", (1, 60, 80, 512), 40, 256, True),
-            ("up3.conv_b", (1, 120, 160, 256), 0, 256, False)]
+    """(site, path, x shape, skip channels, Cout, upsample) of the conv
+    kernel at 480x640: decoder stages up2 and up3, one frame on the D-Net
+    path and the 5 frames of ``encode`` on the MaGNet path."""
+    return [(f"{stage}.{conv} N={n}", path, (n,) + hw, cs, cout, ups)
+            for n, path in ((1, "dnet"), (1 + VIEWS, "magnet"))
+            for stage, conv, hw, cs, cout, ups in (
+                ("up2", "conv_a", (30, 40, 1024), 64, 512, True),
+                ("up2", "conv_b", (60, 80, 512), 0, 512, False),
+                ("up3", "conv_a", (60, 80, 512), 40, 256, True),
+                ("up3", "conv_b", (120, 160, 256), 0, 256, False))]
 
 
 def head_sites():
-    """(site, x shape, widths after the 3x3, on the D-Net main path)."""
-    return [("depth_head", (1, 120, 160, 256), (128, 128, 2), True),
-            ("mask_head", (1, 120, 160, 256), (128, 128, 144), True),
-            ("magnet_mask_head", (1, 120, 160, 256), (128, 128, 128, 144),
-             False)]
+    """(site, path, x shape, widths after the 3x3)."""
+    return [("depth_head N=1", "dnet", (1, HC, WC, 256), (128, 128, 2)),
+            ("mask_head N=1", "dnet", (1, HC, WC, 256), (128, 128, 144)),
+            ("depth_head N=5", "magnet", (1 + VIEWS, HC, WC, 256),
+             (128, 128, 2)),
+            ("gnet_feature_term", "magnet", (1, HC, WC, 256), (128,)),
+            ("magnet_mask_head", "magnet", (1, HC, WC, 256),
+             (128, 128, 128, 144))]
 
 
 def _randn(g, *shape, scale=1.0):
@@ -107,7 +178,7 @@ def _randn(g, *shape, scale=1.0):
 def check_conv_kernel(dev):
     g = torch.Generator().manual_seed(0)
     rows = []
-    for site, xs, cs, cout, ups in conv_sites():
+    for site, path, xs, cs, cout, ups in conv_sites():
         n, hs, ws, cx = xs
         h, w = (2 * hs, 2 * ws) if ups else (hs, ws)
         k = 9 * (cx + cs)
@@ -144,10 +215,10 @@ def check_conv_kernel(dev):
                                   a16["w_skip"], a16["scale"], a16["shift"],
                                   out), flops)
         rows.append(dict(
-            site=site, err_f32=err32, err_bf16=err16,
-            ms=cuda_ms(lambda: cb.conv3x3_bnact(**a16)),
-            plain_ms=cuda_ms(lambda: cb.conv3x3_bnact_ref(**a16)),
-            library_ms=cuda_ms(lambda: F.conv2d(xin, wlib, padding=1)),
+            site=site, path=path, frame=path == "magnet", err_f32=err32,
+            err_bf16=err16, ms=graph_ms(lambda: cb.conv3x3_bnact(**a16)),
+            plain_ms=plain_time(lambda: cb.conv3x3_bnact_ref(**a16)),
+            library_ms=graph_ms(lambda: F.conv2d(xin, wlib, padding=1)),
             bound_ms=bms, bound_by=by, gflop=flops / 1e9))
     return rows
 
@@ -155,7 +226,7 @@ def check_conv_kernel(dev):
 def check_head_kernel(dev):
     g = torch.Generator().manual_seed(1)
     rows = []
-    for site, xs, widths, on_path in head_sites():
+    for site, path, xs, widths in head_sites():
         n, h, w, c0 = xs
         convs, cin = [], c0
         for i, co in enumerate(widths):
@@ -181,15 +252,267 @@ def check_head_kernel(dev):
         bms, by = bound_ms(nbytes(x16, out, *[k for k, _, _ in c16],
                                   *[b for _, b, _ in c16]), flops)
         rows.append(dict(
-            site=site, on_path=on_path, err_f32=err32, err_bf16=err16,
-            ms=cuda_ms(lambda: hc.head_chain(x16, c16)),
-            plain_ms=cuda_ms(lambda: hc.head_chain_ref(x16, c16)),
-            library_ms=cuda_ms(lambda: F.conv2d(xin, w0, padding=1)),
+            site=site, path=path, frame=path == "magnet", err_f32=err32,
+            err_bf16=err16, ms=graph_ms(lambda: hc.head_chain(x16, c16)),
+            plain_ms=plain_time(lambda: hc.head_chain_ref(x16, c16)),
+            library_ms=graph_ms(lambda: F.conv2d(xin, w0, padding=1)),
             bound_ms=bms, bound_by=by, gflop=flops / 1e9))
     return rows
 
 
-# ---- phases 4 and 5: the main path -----------------------------------------
+def cv_case(g, roll: float = 0.0, invalid: bool = False) -> list:
+    """Cost-volume inputs at the main-path shape, on the CPU in f32: depths
+    around 2 m, small camera motion (as the synthetic dataset makes it),
+    plus ``roll`` radians about the optical axis for every view."""
+    hw = HC * WC
+    fx = 0.9 * WC
+    K = torch.tensor([[fx, 0, WC / 2], [0, fx, HC / 2], [0, 0, 1.0]])
+    ys, xs = torch.meshgrid(torch.arange(HC) + 0.5, torch.arange(WC) + 0.5,
+                            indexing="ij")
+    rays = torch.stack([(xs - K[0, 2]) / fx, (ys - K[1, 2]) / fx,
+                        torch.ones_like(xs)]).reshape(1, 3, hw)
+    R = torch.empty(1, VIEWS, 3, 3)
+    for v in range(VIEWS):
+        ang = roll + 0.02 * float(_randn(g, 1))
+        c, s = np.cos(ang), np.sin(ang)
+        R[0, v] = torch.tensor([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
+    valid = torch.ones(1, VIEWS)
+    if invalid:
+        valid[0, 1] = 0.0
+    mu = 2.0 + 0.3 * _randn(g, 1, HC, WC, 1)
+    return [mu + 0.22 * torch.linspace(-1.5, 1.5, SAMPLES),       # d_volume
+            _randn(g, 1, HC, WC, FEAT), _randn(g, 1, VIEWS, HC, WC, FEAT),
+            2.0 + 0.3 * _randn(g, 1, VIEWS, HC, WC),             # src mu
+            0.1 + 0.3 * torch.rand(1, VIEWS, HC, WC, generator=g),
+            R, _randn(g, 1, VIEWS, 3, scale=0.05), valid, K[None], rays]
+
+
+def gather_bytes(a: list, elem: int) -> int:
+    """Bytes the gather requests for these inputs: every in-image corner of
+    every (sample, valid view) reads C features and the (mu, sigma) pair."""
+    d, R, t, valid, K, rays = a[0], a[5], a[6], a[7], a[8], a[9]
+    n = 0
+    for v in range(VIEWS):
+        if valid[0, v] == 0:
+            continue
+        x, y, _ = cvk.project(K[0], R[0, v], t[0, v], rays[0],
+                              d[0].reshape(HC * WC, -1), HC, WC)
+        x0, y0 = torch.floor(x), torch.floor(y)
+        for cy in (0, 1):
+            for cx in (0, 1):
+                n += int((((x0 + cx) >= 0) & ((x0 + cx) < WC)
+                          & ((y0 + cy) >= 0) & ((y0 + cy) < HC)).sum())
+    return n * (FEAT + 2) * elem
+
+
+def check_cost_volume_kernel(dev):
+    g = torch.Generator().manual_seed(2)
+    rows = []
+    for site, kw in (("main path", {}), ("roll 0.9 rad", dict(roll=0.9)),
+                     ("one view invalid", dict(invalid=True))):
+        a32 = [t.to(dev) for t in cv_case(g, **kw)]
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            a = a32[:1] + [t.to(dtype) for t in a32[1:3]] + a32[3:]
+            out = cvk.cost_volume_cw(*a, 5.0)
+            torch.cuda.synchronize()
+            ref, margin = cvk.cost_volume_cw_ref(*a, 5.0, return_margin=True)
+            err, lim, excluded = cvk.compare(out, ref, margin,
+                                             KERNEL_TOL[torch.float32])
+            if not ref.abs().max() > 0.1:
+                raise RuntimeError("cost volume: degenerate inputs")
+            log(f"  cost_volume_cw ({site}) {str(dtype)[6:]}: max_abs_err "
+                f"{err:.3e} (limit {lim:.3e}), {excluded:.5f} of the "
+                f"elements within {cvk.MARGIN} of the threshold left out")
+            errs[dtype] = err
+        n_valid = int(a[7].sum())
+        # each input once, the output once; an invalid view's maps are not
+        # needed; mu and sigma are read packed in the features' type
+        packed = (a[3].numel() + a[4].numel()) * a[2].element_size()
+        need = (nbytes(a[0], a[1], *a[5:], out)
+                + (nbytes(a[2]) + packed) * n_valid // VIEWS)
+        samples = HC * WC * SAMPLES * n_valid
+        flops = samples * (2.0 * 4 * (FEAT + 2) + 60)
+        bms, by = bound_ms(need, flops)
+        rows.append(dict(
+            site=f"cost_volume_cw ({site})", path="magnet",
+            frame=site == "main path", err_f32=errs[torch.float32],
+            err_bf16=errs[torch.bfloat16],
+            ms=graph_ms(lambda: cvk.cost_volume_cw(*a, 5.0)),
+            plain_ms=plain_time(lambda: cvk.cost_volume_cw_ref(*a, 5.0)),
+            library_ms=None, bound_ms=bms, bound_by=by, gflop=flops / 1e9,
+            compulsory_mb=need / 1e6,
+            gather_mb=gather_bytes([t.cpu() for t in a32], 2) / 1e6))
+    return rows
+
+
+def check_gnet_kernel(dev):
+    g = torch.Generator().manual_seed(3)
+    cv = _randn(g, 1, HC, WC, SAMPLES).to(dev)
+    feat = _randn(g, 1, HC, WC, 128, scale=0.5).to(dev)
+    prev = torch.stack([2.0 + 0.3 * _randn(g, 1, HC, WC),
+                        0.1 + 0.3 * torch.rand(1, HC, WC, generator=g)],
+                       -1).to(dev)
+    convs = [(_randn(g, 3, 3, SAMPLES, 128,
+                     scale=(9 * SAMPLES) ** -0.5).to(dev), None)]
+    for co in (128, 128, 2):
+        convs.append((_randn(g, 1, 1, 128, co, scale=128 ** -0.5).to(dev),
+                      _randn(g, co, scale=0.1).to(dev)))
+    err32 = check_close("gnet_update", gk.gnet_update(cv, feat, prev, convs),
+                        gk.gnet_update_ref(cv, feat, prev, convs),
+                        torch.float32)
+    bf = torch.bfloat16
+    a = (cv.to(bf), feat.to(bf), prev.to(bf),
+         [(k.to(bf), b) for k, b in convs])
+    out = gk.gnet_update(*a)
+    # mu passes through from prev and dominates max|out|, so in bf16 the
+    # update out - prev is what is held to the plain version's: to 2e-2 of
+    # the largest update, or to one bf16 ulp of the largest output where
+    # that is more (the output itself is rounded to bf16, and two correct
+    # programs may round a value on the boundary either way).
+    ref = gk.gnet_update_ref(*a)
+    torch.cuda.synchronize()
+    upd, upd_ref = out.float() - a[2].float(), ref.float() - a[2].float()
+    err16 = (upd - upd_ref).abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(ref.float().abs().max().item())) - 7)
+    lim = max(KERNEL_TOL[bf] * upd_ref.abs().max().item(), ulp)
+    log(f"  gnet_update bfloat16, the update out - prev: max_abs_err "
+        f"{err16:.3e} (limit {lim:.3e}; largest update "
+        f"{upd_ref.abs().max().item():.3e}, output ulp {ulp:.3e})")
+    if not torch.isfinite(out).all() or not err16 <= lim:
+        raise RuntimeError("gnet_update: the bf16 update disagrees with its "
+                           "plain version")
+    m = HC * WC
+    flops = 2.0 * m * (9 * SAMPLES * 128 + 2 * 128 * 128 + 128 * 2)
+    bms, by = bound_ms(nbytes(*a[:3], out, *[k for k, _ in a[3]],
+                              *[b for _, b in a[3]]), flops)
+    xin = a[0].permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    w0 = a[3][0][0].permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    return [dict(site="gnet_update", path="magnet", frame=True, err_f32=err32,
+                 err_bf16=err16, ms=graph_ms(lambda: gk.gnet_update(*a)),
+                 plain_ms=plain_time(lambda: gk.gnet_update_ref(*a)),
+                 library_ms=graph_ms(lambda: F.conv2d(xin, w0, padding=1)),
+                 bound_ms=bms, bound_by=by, gflop=flops / 1e9)]
+
+
+def check_upsample_kernel(dev):
+    g = torch.Generator().manual_seed(4)
+    depth = _randn(g, 1, HC, WC, 2).to(dev)
+    mask = _randn(g, 1, HC, WC, 9 * 16, scale=2.0).to(dev)
+    err32 = check_close("upsample_mask", uk.upsample_mask(depth, mask, 4),
+                        uk.upsample_mask_ref(depth, mask, 4), torch.float32)
+    d16, m16 = depth.to(torch.bfloat16), mask.to(torch.bfloat16)
+    out = uk.upsample_mask(d16, m16, 4)
+    err16 = check_close("upsample_mask", out,
+                        uk.upsample_mask_ref(d16, m16, 4), torch.bfloat16)
+    fine = HC * WC * 16
+    flops = fine * (9 * 3.0 + 9 * 2 * 2)
+    bms, by = bound_ms(nbytes(d16, m16, out), flops)
+    return [dict(site="upsample_mask", path="both", frame=True,
+                 err_f32=err32, err_bf16=err16,
+                 ms=graph_ms(lambda: uk.upsample_mask(d16, m16, 4)),
+                 plain_ms=plain_time(
+                     lambda: uk.upsample_mask_ref(d16, m16, 4)),
+                 library_ms=None, bound_ms=bms, bound_by=by,
+                 gflop=flops / 1e9)]
+
+
+def _bn_pair(g, n, c, dev):
+    """Folded BN (scale, shift), each (n, c) f32 on the card."""
+    return ((torch.rand(n, c, generator=g) * 0.5 + 0.5).to(dev),
+            _randn(g, n, c, scale=0.1).to(dev))
+
+
+def _nchw_cl(x):
+    return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
+def _oihw_cl(w):
+    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+
+def _psm_row(site, name, fn, ref, a32, typed, convs, n_bytes_of, flops):
+    """Check ``fn`` against ``ref`` in f32 and bf16 on the operands ``a32``
+    (those at ``typed`` take the compute type) and time it in bf16.
+    ``convs``: (x NHWC, w HWIO, stride, padding, dilation) of the cuDNN
+    calls over the same contractions, built from the bf16 operands."""
+    err32 = check_close(site, fn(*a32), ref(*a32), torch.float32)
+    a16 = [t.to(torch.bfloat16) if i in typed else t
+           for i, t in enumerate(a32)]
+    out = fn(*a16)
+    err16 = check_close(site, out, ref(*a16), torch.bfloat16)
+    lib = [(_nchw_cl(x), _oihw_cl(w), s, p, d) for x, w, s, p, d in convs(a16)]
+    bms, by = bound_ms(n_bytes_of(a16, out), flops)
+    return dict(
+        site=site, kernel=name, path="magnet", frame=True, err_f32=err32,
+        err_bf16=err16, ms=graph_ms(lambda: fn(*a16)),
+        plain_ms=plain_time(lambda: ref(*a16)),
+        library_ms=graph_ms(lambda: [F.conv2d(x, w, None, s, p, d)
+                                     for x, w, s, p, d in lib]),
+        bound_ms=bms, bound_by=by, gflop=flops / 1e9)
+
+
+def check_psm_kernels(dev):
+    """The F-Net's four kernels at the shapes one pass over the 5 frames of
+    a MaGNet sample gives them. The library time is cuDNN's over the same
+    convs alone (no BN, ReLU or sum), each on an input of the right shape."""
+    g = torch.Generator().manual_seed(6)
+    n = 1 + VIEWS
+    rows = []
+    # (site, channels, blocks, map, dilation, residual)
+    for site, c, blocks, hw, dil, residual in (
+            ("stem convs 2-3", 32, 1, (H // 2, W // 2), 1, False),
+            ("layer1", 32, 3, (H // 2, W // 2), 1, True),
+            ("layer2 blocks 1-15", 64, 15, (HC, WC), 1, True),
+            ("layer3 blocks 1-2", 128, 2, (HC, WC), 1, True),
+            ("layer4 (dilation 2)", 128, 3, (HC, WC), 2, True)):
+        nc = 2 * blocks
+        a32 = [_randn(g, n, *hw, c, scale=0.5).to(dev),
+               _randn(g, nc, 3, 3, c, c, scale=(9 * c) ** -0.5).to(dev),
+               *_bn_pair(g, nc, c, dev)]
+        rows.append(_psm_row(
+            f"fused_residual_stage ({site})", "fused_residual_stage",
+            lambda *a, d=dil, r=residual: pb.fused_residual_stage(*a, d, r),
+            lambda *a, d=dil, r=residual: pb.fused_residual_stage_ref(
+                *a, d, r),
+            a32, (0, 1),
+            lambda a, d=dil: [(a[0], w, 1, d, d) for w in a[1]],
+            lambda a, out: nbytes(*a, out),
+            2.0 * n * hw[0] * hw[1] * c * 9 * c * nc))
+    for name, ci, co, hw, stride in (
+            ("downsample_block", 32, 64, (H // 2, W // 2), 2),
+            ("expand_block", 64, 128, (HC, WC), 1)):
+        a32 = [_randn(g, n, *hw, ci, scale=0.5).to(dev)]
+        for k, cin in ((3, ci), (3, co), (1, ci)):
+            s_, t_ = _bn_pair(g, 1, co, dev)
+            a32 += [_randn(g, k, k, cin, co,
+                           scale=(k * k * cin) ** -0.5).to(dev), s_[0], t_[0]]
+        ho, wo = hw[0] // stride, hw[1] // stride
+        mid = torch.zeros(n, ho, wo, co, device=dev, dtype=torch.bfloat16)
+        rows.append(_psm_row(
+            name, name, getattr(pb, name), getattr(pb, name + "_ref"), a32,
+            (0, 1, 4, 7),
+            lambda a, s=stride, m=mid: [(a[0], a[1], s, 1, 1),
+                                        (m, a[4], 1, 1, 1),
+                                        (a[0], a[7], s, 0, 1)],
+            lambda a, out: nbytes(*a, out),
+            2.0 * n * ho * wo * co * (9 * ci + 9 * co + ci)))
+    a32 = [_randn(g, n, HC, WC, c, scale=0.5).to(dev) for c in (64, 128, 128)]
+    s_, t_ = _bn_pair(g, 1, 128, dev)
+    a32 += [_randn(g, 3, 3, 320, 128, scale=2880 ** -0.5).to(dev), s_[0],
+            t_[0], _randn(g, 128, FEAT, scale=128 ** -0.5).to(dev)]
+    rows.append(_psm_row(
+        "spp_tail", "spp_tail", st.spp_tail, st.spp_tail_ref, a32,
+        (0, 1, 2, 3, 6),
+        lambda a: [(torch.cat(a[:3], -1), a[3], 1, 1, 1)],
+        lambda a, out: nbytes(*a, out),
+        2.0 * n * HC * WC * 128 * (9 * 320 + FEAT)))
+    return rows
+
+
+# ---- phases 4 and 5: the D-Net path ----------------------------------------
 
 def dnet_args(device: str, dtype: str, frames: int, exp_dir: str):
     return config.parse_args(config.build_test_dnet_parser(), [
@@ -201,7 +524,36 @@ def dnet_args(device: str, dtype: str, frames: int, exp_dir: str):
         "--synthetic_length", str(frames), "--device", device])
 
 
-def run_main_path(frames: int, exp_dir: str) -> dict:
+def count_by_stage(decoder):
+    """The conv kernel serves two TPU kernels (up2, up3): forward hooks on
+    the two decoder stages attribute its launches to each. Returns the
+    running per-stage counts and the hooks to remove."""
+    start, per_stage, hooks = {}, {"up2": 0, "up3": 0}, []
+    for stage in per_stage:
+        mod = getattr(decoder, stage)
+        hooks.append(mod.register_forward_pre_hook(
+            lambda m, i, s=stage: start.__setitem__(
+                s, cb.conv3x3_bnact.launches)))
+        hooks.append(mod.register_forward_hook(
+            lambda m, i, o, s=stage: per_stage.__setitem__(
+                s, per_stage[s] + cb.conv3x3_bnact.launches - start[s])))
+    return per_stage, hooks
+
+
+def check_counts(path: str, counts: dict, per_stage: dict, per_frame: dict,
+                 frames: int) -> dict:
+    """Launches found on a path against what its code predicts per frame;
+    returns the counts with the conv kernel's split by decoder stage."""
+    found = dict(counts, up2=per_stage["up2"], up3=per_stage["up3"])
+    want = {k: v * frames for k, v in per_frame.items()}
+    log(f"  launches over {frames} frames: found {found}, expected {want}")
+    if found != want:
+        raise RuntimeError(f"the {path} path did not run every kernel as "
+                           "expected")
+    return found
+
+
+def run_dnet_path(frames: int, exp_dir: str) -> dict:
     args = config.setup_exp_dirs(dnet_args("cuda", "bfloat16", frames,
                                            exp_dir))
     model, forward = test_dnet.prepare(args)
@@ -214,33 +566,18 @@ def run_main_path(frames: int, exp_dir: str) -> dict:
         outs.append(out)
         return out
 
-    # The conv kernel serves two TPU kernels (up2, up3): forward hooks on
-    # the two decoder stages attribute its launches to each.
-    dec, start, per_stage, hooks = model.d_net.decoder, {}, {}, []
-    for stage in ("up2", "up3"):
-        per_stage[stage] = 0
-        mod = getattr(dec, stage)
-        hooks.append(mod.register_forward_pre_hook(
-            lambda m, i, s=stage: start.__setitem__(
-                s, cb.conv3x3_bnact.launches)))
-        hooks.append(mod.register_forward_hook(
-            lambda m, i, o, s=stage: per_stage.__setitem__(
-                s, per_stage[s] + cb.conv3x3_bnact.launches - start[s])))
-
-    cb.conv3x3_bnact.launches = 0
-    hc.head_chain.launches = 0
+    per_stage, hooks = count_by_stage(model.d_net.decoder)
+    reset_counts()
     metrics = test_dnet.evaluate(args, recorded)
-    counts = {"conv3x3_bnact": cb.conv3x3_bnact.launches,
-              "head_chain": hc.head_chain.launches}
+    counts = read_counts()
     for h in hooks:
         h.remove()
-    launches = {"up2": per_stage["up2"], "up3": per_stage["up3"],
-                "heads": counts["head_chain"]}
-    want = {"up2": 2 * frames, "up3": 2 * frames, "heads": 2 * frames}
-    log(f"  launches {counts}, by stage {launches} (expected {want})")
-    if launches != want or counts["conv3x3_bnact"] != 4 * frames:
-        raise RuntimeError("the main path did not run every kernel as "
-                           "expected")
+    # per frame: conv_a and conv_b in up2 and in up3, the depth and the mask
+    # head, one convex upsampling; nothing of the fusion or the F-Net
+    launches = check_counts("D-Net", counts, per_stage, dict(
+        dict.fromkeys(FNET_LAUNCHES, 0), conv3x3_bnact=4, up2=2, up3=2,
+        head_chain=2, upsample_mask=1, cost_volume_cw=0, gnet_update=0),
+        frames)
     for out in outs:
         if out.shape != (1, H, W, 2) or not np.isfinite(out).all():
             raise RuntimeError(f"bad D-Net output {out.shape}")
@@ -284,6 +621,161 @@ def check_f32_forward(exp_dir: str) -> float:
     return err
 
 
+# ---- phases 6 and 7: the MaGNet main path ----------------------------------
+
+def magnet_args(device: str, dtype: str, frames: int, exp_dir: str):
+    """The flags of test_scripts/magnet/scannet.txt on the synthetic
+    dataset, without checkpoints."""
+    args = eval_args(dtype, device)
+    args.exp_name, args.exp_dir = "chip_smoke_magnet", exp_dir
+    args.synthetic_length = frames
+    if ((args.input_height, args.input_width, args.dpv_height,
+         args.dpv_width) != (H, W, HC, WC)
+            or (args.MAGNET_num_source_views, args.MAGNET_num_samples,
+                args.MAGNET_num_test_iter, args.FNET_feature_dim)
+            != (VIEWS, SAMPLES, ITERS, FEAT)):
+        raise RuntimeError("the flags' defaults are not the ScanNet eval "
+                           "shape")
+    return args
+
+
+def run_magnet_path(frames: int, exp_dir: str) -> dict:
+    args = config.setup_exp_dirs(magnet_args("cuda", "bfloat16", frames,
+                                             exp_dir))
+    model, forward = test_magnet.prepare(args)
+    realistic_depth_init_(model)
+    outs, secs, cv_peaks = [], [], []
+
+    def recorded(batch):
+        t = time.perf_counter()
+        out = forward(batch)               # ends in a copy to the host
+        secs.append(time.perf_counter() - t)
+        outs.append(out)
+        return out
+
+    per_stage, hooks = count_by_stage(model.d_net.d_net.decoder)
+    hooks.append(model.g_net.register_forward_pre_hook(
+        lambda m, inputs: cv_peaks.append(inputs[0].abs().max())))
+    reset_counts()
+    metrics = test_magnet.evaluate(args, recorded)
+    counts = read_counts()
+    for h in hooks:
+        h.remove()
+    # per frame: one batched D-Net pass over the 5 frames (conv_a and conv_b
+    # in up2 and in up3; the depth head; no D-Net mask head), G-Net's
+    # feature term and MaGNet's mask head through the head chain; per
+    # iteration one cost volume and one G-Net update; one upsampling per
+    # iteration's prediction; one F-Net pass over the 5 frames
+    launches = check_counts("MaGNet", counts, per_stage, dict(
+        FNET_LAUNCHES, conv3x3_bnact=4, up2=2, up3=2, head_chain=3,
+        cost_volume_cw=ITERS, gnet_update=ITERS, upsample_mask=ITERS),
+        frames)
+    for out in outs:
+        if out.shape != (1, H, W, 2) or not np.isfinite(out).all():
+            raise RuntimeError(f"bad MaGNet output {out.shape}")
+        if not (out[..., 1] > 0).all():
+            raise RuntimeError("sigma not positive")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"non-finite metrics {metrics}")
+    peaks = [float(p) for p in cv_peaks]
+    log(f"  cost volume max|cv| per launch: least {min(peaks):.3e}, most "
+        f"{max(peaks):.3e}")
+    if len(peaks) != ITERS * frames or not min(peaks) > 0:
+        raise RuntimeError("a cost volume of the main path was all zero")
+
+    batch = {k: v[None] for k, v in SyntheticMultiView(args).get(0).items()
+             if isinstance(v, np.ndarray)}
+    inputs = test_magnet.batch_to_device(batch, torch.bfloat16,
+                                         torch.device("cuda"))
+    with torch.inference_mode():
+        ev_ms = cuda_ms(lambda: model(*inputs), iters=5, warmup=1)
+    host_ms = 1e3 * float(np.mean(secs[1:] or secs))
+    log(f"  forward {host_ms:.3f} ms/frame host clock incl. copies "
+        f"({1e3 / host_ms:.2f} frames/s); {ev_ms:.3f} ms/frame by CUDA "
+        f"events over back-to-back forwards; bf16, batch 1, {VIEWS} source "
+        f"views")
+    return dict(launches=launches, metrics=metrics, forward_ms=host_ms,
+                fps=1e3 / host_ms, events_ms=ev_ms, cv_peak_min=min(peaks),
+                cv_peak_max=max(peaks))
+
+
+def check_f32_magnet(exp_dir: str) -> dict:
+    """One f32 MaGNet forward on the card (kernels, TF32 off) against the
+    same forward on the CPU (plain versions), at full width, and the bf16
+    forward on the card against that f32 reference. The seeded random
+    weights are brought to costs and residuals of O(1) first: as they come,
+    the costs are of order 1e5 and the first G-Net update collapses sigma,
+    after which the comparison would see no fusion.
+
+    The bf16 forward rounds every iteration's (mu, sigma) map to bf16, so
+    iteration i may be off by i ulp of the map's largest value before any
+    error of the networks; on top of that it gets BF16_FORWARD_TOL of the
+    reference map's range (max - min, per channel: the initial map is
+    constant here, so the range is what the refinement did). At most
+    MAGNET_FLIPS of the pixels may be over, as in f32. It must move, too."""
+    args = magnet_args("cuda", "float32", 1, exp_dir)
+    batch = {k: v[None] for k, v in SyntheticMultiView(args).get(0).items()
+             if isinstance(v, np.ndarray)}
+    outs = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                          ("cuda", torch.bfloat16)):
+        model = realistic_depth_init_(build_magnet(args, "cpu"))
+        g = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            model.f_net.f_net.lastconv[2].weight.mul_(1.0 / 500.0)
+            model.g_net.gnet[6].weight.normal_(0.0, 0.05 * 128 ** -0.5,
+                                               generator=g)
+        cast_for_inference(model, dtype).to(device)
+        inputs = test_magnet.batch_to_device(batch, dtype,
+                                             torch.device(device))
+        with torch.inference_mode():
+            outs[device, dtype] = [o.float().cpu() for o in model(*inputs)]
+    refs = outs["cpu", torch.float32]
+    moved = (refs[-1] - refs[0]).abs().max().item()
+    if not moved > 1e-3 or not refs[-1][..., 1].min() > 1e-3:
+        raise RuntimeError("the f32 reference run shows no refinement")
+    worst = dict(err=0.0, over=0.0, bf16_err=0.0, bf16_over=0.0)
+    for i, (out, ref) in enumerate(zip(outs["cuda", torch.float32], refs)):
+        err = (out - ref).abs()
+        lim = MAGNET_TOL * ref.abs().max().item()
+        over = (err > lim).float().mean().item()
+        log(f"  f32 MaGNet card vs CPU, iteration {i}: max_abs_err "
+            f"{err.max().item():.3e} (limit {lim:.3e}), {over:.5f} of the "
+            f"pixels over it (at most {MAGNET_FLIPS})")
+        if out.shape != (1, H, W, 2) or not over <= MAGNET_FLIPS:
+            raise RuntimeError("the f32 MaGNet forward on the card "
+                               "disagrees with the CPU")
+        worst.update(err=max(worst["err"], err.max().item()),
+                     over=max(worst["over"], over))
+    bf = outs["cuda", torch.bfloat16]
+    bf_moved = (bf[-1] - bf[0]).abs().max().item()
+    for i, (out, ref) in enumerate(zip(bf, refs)):
+        for c, what in enumerate(("mu", "sigma")):
+            o, r = out[..., c], ref[..., c]
+            err = (o - r).abs()
+            ulp = 2.0 ** (np.floor(np.log2(r.abs().max().item())) - 7)
+            lim = ((i + 1) * ulp
+                   + BF16_FORWARD_TOL * (r.max() - r.min()).item())
+            over = (err > lim).float().mean().item()
+            log(f"  bf16 MaGNet card vs f32 CPU, iteration {i}, {what}: "
+                f"median_abs_err {err.median().item():.3e}, max_abs_err "
+                f"{err.max().item():.3e} (limit {lim:.3e} = {i + 1} ulp of "
+                f"{ulp:.3e} + {BF16_FORWARD_TOL} of the range "
+                f"{(r.max() - r.min()).item():.3e}), {over:.5f} of the "
+                f"pixels over it (at most {MAGNET_FLIPS})")
+            if (out.shape != (1, H, W, 2) or not torch.isfinite(o).all()
+                    or not over <= MAGNET_FLIPS):
+                raise RuntimeError("the bf16 MaGNet forward on the card "
+                                   "disagrees with the f32 reference")
+            worst.update(bf16_err=max(worst["bf16_err"], err.max().item()),
+                         bf16_over=max(worst["bf16_over"], over))
+    log(f"  the refinement moved the map by {moved:.3e} in f32 and "
+        f"{bf_moved:.3e} in bf16 between its first and last iteration")
+    if not bf_moved > 1e-3:
+        raise RuntimeError("the bf16 run shows no refinement")
+    return worst
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default="", help="also write the results here")
@@ -309,53 +801,93 @@ def main() -> int:
     log("[3] kernels against their plain versions (main-path shapes)")
     conv_rows = check_conv_kernel(dev)
     head_rows = check_head_kernel(dev)
-    for r in conv_rows + head_rows:
+    cv_rows = check_cost_volume_kernel(dev)
+    gnet_rows = check_gnet_kernel(dev)
+    up_rows = check_upsample_kernel(dev)
+    psm_rows = check_psm_kernels(dev)
+    sites = (conv_rows + head_rows + cv_rows + gnet_rows + up_rows
+             + psm_rows)
+    for r in sites:
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         log(f"  {r['site']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, cuDNN conv {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"{r['gflop']:.2f} GFLOP")
+            f"{r['plain_ms']:.4f} ms, library call {lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['gflop']:.3f} GFLOP")
+    for r in cv_rows:
+        log(f"  {r['site']}: compulsory {r['compulsory_mb']:.1f} MB, the "
+            f"gather requests {r['gather_mb']:.1f} MB")
 
     os.makedirs("exp", exist_ok=True)
     exp_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir="exp")
-    log(f"[4] main path: D-Net {H}x{W} bf16, {FRAMES} synthetic frames")
-    main_path = run_main_path(FRAMES, exp_dir)
-    log("[5] f32 forward, card against CPU")
+    log(f"[4] D-Net path: {H}x{W} bf16, {DNET_FRAMES} synthetic frames")
+    dnet_path = run_dnet_path(DNET_FRAMES, exp_dir)
+    log("[5] f32 D-Net forward, card against CPU")
     fwd_err = check_f32_forward(exp_dir)
+    log(f"[6] MaGNet main path: {H}x{W}, cost volume {HC}x{WC}, {VIEWS} "
+        f"source views, {SAMPLES} candidates, {ITERS} iterations, bf16, "
+        f"{MAGNET_FRAMES} synthetic samples")
+    magnet_path = run_magnet_path(MAGNET_FRAMES, exp_dir)
+    log("[7] f32 MaGNet forward, card against CPU; bf16 against that")
+    magnet_err = check_f32_magnet(exp_dir)
 
-    def entry(name, source, replaces, rows, launches):
-        on = [r for r in rows if r.get("on_path", True)]
+    def entry(name, source, replaces, rows, key, per_frame=1):
+        """One kernel of the line: its sites on a frame of the MaGNet main
+        path, summed (``per_frame`` launches of each site)."""
+        on = [r for r in rows if r["frame"]]
+        launches = magnet_path["launches"][key]
+        if launches < 1:
+            raise RuntimeError(f"{name} was not launched on the main path")
+        libs = [r["library_ms"] for r in on]
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches,
+            launches_dnet_path=dnet_path["launches"][key],
             max_abs_err=max(r["err_bf16"] for r in rows),
             max_abs_err_f32=max(r["err_f32"] for r in rows),
-            ms=sum(r["ms"] for r in on),
-            plain_ms=sum(r["plain_ms"] for r in on),
-            bound_ms=sum(r["bound_ms"] for r in on),
+            ms=per_frame * sum(r["ms"] for r in on),
+            plain_ms=per_frame * sum(r["plain_ms"] for r in on),
+            bound_ms=per_frame * sum(r["bound_ms"] for r in on),
             bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in on)
                       else "operations"),
-            library_ms=sum(r["library_ms"] for r in on))
+            library_ms=(None if None in libs else per_frame * sum(libs)),
+            launches_per_frame=launches / MAGNET_FRAMES)
 
-    conv_src = "magnet_tpu_torch/kernels/csrc/conv3x3_bnact.cu"
-    launches = main_path["launches"]
+    csrc = "magnet_tpu_torch/kernels/csrc/"
     kernels = [
-        entry("conv3x3_bnact (up2)", conv_src,
+        entry("conv3x3_bnact (up2)", csrc + "conv3x3_bnact.cu",
               "magnet_tpu/kernels/convstream_pallas.py:213",
-              [r for r in conv_rows if r["site"].startswith("up2")],
-              launches["up2"]),
-        entry("conv3x3_bnact (up3)", conv_src,
+              [r for r in conv_rows if r["site"].startswith("up2")], "up2"),
+        entry("conv3x3_bnact (up3)", csrc + "conv3x3_bnact.cu",
               "magnet_tpu/kernels/upstage_pallas.py:240",
-              [r for r in conv_rows if r["site"].startswith("up3")],
-              launches["up3"]),
-        entry("head_chain", "magnet_tpu_torch/kernels/csrc/head_chain.cu",
+              [r for r in conv_rows if r["site"].startswith("up3")], "up3"),
+        entry("head_chain", csrc + "head_chain.cu",
               "magnet_tpu/kernels/headchain_pallas.py:121", head_rows,
-              launches["heads"]),
+              "head_chain"),
+        entry("cost_volume_cw", csrc + "cost_volume_cw.cu",
+              "magnet_tpu/kernels/costvolume_pallas.py:734", cv_rows,
+              "cost_volume_cw", ITERS),
+        entry("gnet_update", csrc + "gnet_update.cu",
+              "magnet_tpu/kernels/gnet_pallas.py:124", gnet_rows,
+              "gnet_update", ITERS),
+        entry("upsample_mask", csrc + "upsample_mask.cu",
+              "magnet_tpu/kernels/upsample_pallas.py:79", up_rows,
+              "upsample_mask", ITERS),
+    ] + [
+        entry(name, csrc + source, "magnet_tpu/kernels/" + replaces,
+              [r for r in psm_rows if r["kernel"] == name], name)
+        for name, source, replaces in (
+            ("fused_residual_stage", "psm_conv.cu", "psmstage_pallas.py:236"),
+            ("downsample_block", "psm_conv.cu", "psmtrans_pallas.py:137"),
+            ("expand_block", "psm_conv.cu", "psmtrans2_pallas.py:220"),
+            ("spp_tail", "spp_tail.cu", "spptail_pallas.py:111"))
     ]
     if opts.out:
         with open(opts.out, "w") as f:
-            json.dump(dict(device=smi, kernels=kernels,
-                           sites=conv_rows + head_rows, main_path=main_path,
-                           f32_forward_err=fwd_err), f, indent=1)
+            json.dump(dict(device=smi, kernels=kernels, sites=sites,
+                           dnet_path=dnet_path, f32_dnet_err=fwd_err,
+                           magnet_path=magnet_path,
+                           f32_magnet=magnet_err), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

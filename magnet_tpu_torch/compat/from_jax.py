@@ -16,6 +16,13 @@ Conv kernels go HWIO -> OIHW. The JAX decoder splits each stage's conv_a
 along its input channels (``conv_a_up`` over the upsampled map, with the
 bias, and ``conv_a_skip`` over the skip); they are joined back into the
 reference's single conv over the concat, upsampled channels first.
+
+``fnet_state_dict`` does the same for a JAX ``FNet`` (keys ``f_net.*`` in
+the PSM-Net layout of ``nn/psmnet.py``) and ``magnet_state_dict`` for a JAX
+``Magnet``: ``d_net.d_net.*``, ``f_net.f_net.*``, ``mask_head.{0,2,4,6}``
+and ``g_net.gnet.{0,2,4,6}``, where G-Net's split first conv (``conv0_cv``
+over the cost volume, no bias; ``conv0_feat`` over the decoder feature, with
+the bias) is joined along input channels, cost volume first.
 """
 
 from __future__ import annotations
@@ -71,9 +78,7 @@ def dnet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     ``DNetCoarse`` tree converts too; it has no mask head, which the port's
     modules (like the reference checkpoints) always hold, so it loads with
     ``strict=False``."""
-    flat = {}
-    for coll in ("params", "batch_stats"):
-        flat.update(_flatten(variables.get(coll, {})))
+    flat = _collections(variables)
     out: Dict[str, torch.Tensor] = {}
     split_a: Dict[str, Dict[str, np.ndarray]] = {}
     for path, value in flat.items():
@@ -87,16 +92,115 @@ def dnet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         elif mod[-1] in ("conv_a_up", "conv_a_skip"):
             split_a.setdefault(key, {})[f"{mod[-1]}.{leaf}"] = value
         elif leaf == "kernel":
-            out[f"{key}.weight"] = torch.from_numpy(
-                np.ascontiguousarray(value.transpose(3, 2, 0, 1)))
+            out[f"{key}.weight"] = _oihw(value)
         else:
             out[f"{key}.{_CONV_LEAF[leaf]}"] = torch.from_numpy(value.copy())
     for key, parts in split_a.items():
         w = np.concatenate([parts["conv_a_up.kernel"],
                             parts["conv_a_skip.kernel"]], axis=2)
-        out[f"{key}.weight"] = torch.from_numpy(
-            np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+        out[f"{key}.weight"] = _oihw(w)
         out[f"{key}.bias"] = torch.from_numpy(parts["conv_a_up.bias"].copy())
+    return out
+
+
+_FIRSTCONV_IDX = {"firstconv0": "0", "firstconv1": "2", "firstconv2": "4"}
+_CHAIN4_IDX = {"conv0": "0", "conv1": "2", "conv2": "4", "conv3": "6"}
+
+
+def _psm_key(parts: Tuple[str, ...]) -> str:
+    """Path of a conv or BN inside the JAX PSMNet scope (wrappers and leaf
+    dropped) -> the port's module key; ``{cb}`` stands for the position
+    inside a conv-BN pair."""
+    head = parts[0]
+    if head in _FIRSTCONV_IDX:
+        return f"firstconv.{_FIRSTCONV_IDX[head]}.{{cb}}"
+    m = re.match(r"layer(\d+)_(\d+)$", head)
+    if m:
+        base = f"layer{m.group(1)}.{m.group(2)}"
+        return {"convbn1": f"{base}.conv1.0.{{cb}}",
+                "convbn2": f"{base}.conv2.{{cb}}",
+                "down_conv": f"{base}.downsample.0",
+                "down_bn": f"{base}.downsample.1"}[parts[1]]
+    if re.match(r"branch\d$", head):
+        return f"{head}.1.{{cb}}"
+    if head == "lastconv0":
+        return "lastconv.0.{cb}"
+    if head == "lastconv1":
+        return "lastconv.2"
+    raise KeyError(f"unmapped PSMNet path {parts}")
+
+
+def _oihw(kernel: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+
+
+def _collections(variables: Mapping) -> Dict[Tuple[str, ...], np.ndarray]:
+    flat = {}
+    for coll in ("params", "batch_stats"):
+        flat.update(_flatten(variables.get(coll, {})))
+    return flat
+
+
+def fnet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``FNet`` variables -> the port's ``FNet`` state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _collections(variables).items():
+        if path[0] != "f_net":
+            raise KeyError(f"not an F-Net path {path}")
+        leaf = path[-1]
+        is_bn = path[-2] == "bn"
+        mod = tuple(p for p in path[1:-1] if p not in ("conv", "bn"))
+        key = "f_net." + _psm_key(mod).format(cb="1" if is_bn else "0")
+        if is_bn:
+            out[f"{key}.{_BN_LEAF[leaf]}"] = torch.from_numpy(value.copy())
+            out[f"{key}.num_batches_tracked"] = torch.tensor(0)
+        else:
+            out[f"{key}.weight"] = _oihw(value)
+    return out
+
+
+def _chain_state_dict(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """conv0..conv3 of a JAX 4-conv chain -> Sequential indices 0, 2, 4, 6."""
+    out = {}
+    for name, idx in _CHAIN4_IDX.items():
+        if name in tree:
+            conv = tree[name]["conv"]
+            out[f"{prefix}.{idx}.weight"] = _oihw(np.asarray(conv["kernel"]))
+            out[f"{prefix}.{idx}.bias"] = torch.from_numpy(
+                np.asarray(conv["bias"]).copy())
+    return out
+
+
+def gnet_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``GNet`` params -> the port's ``GNet`` state_dict: the split first
+    conv is joined along input channels, cost volume first; the bias is the
+    feature half's."""
+    out = _chain_state_dict(params, "gnet")
+    w0 = np.concatenate(
+        [np.asarray(params["conv0_cv"]["conv"]["kernel"]),
+         np.asarray(params["conv0_feat"]["conv"]["kernel"])], 2)
+    out["gnet.0.weight"] = _oihw(w0)
+    out["gnet.0.bias"] = torch.from_numpy(
+        np.asarray(params["conv0_feat"]["conv"]["bias"]).copy())
+    return out
+
+
+def magnet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``Magnet`` variables -> the port's ``Magnet`` state_dict. The JAX
+    tree has no D-Net decoder mask head (MaGNet has its own), which the
+    port's D-Net holds as the reference checkpoints do: load with
+    ``strict=False``."""
+    def sub(key):
+        return {c: {key: variables[c][key][key]} for c in variables
+                if key in variables[c]}
+
+    out = {"d_net." + k: v for k, v in dnet_state_dict(sub("d_net")).items()}
+    out.update({"f_net." + k: v
+                for k, v in fnet_state_dict(sub("f_net")).items()})
+    params = variables["params"]
+    out.update(_chain_state_dict(params["mask_head"], "mask_head"))
+    out.update({"g_net." + k: v
+                for k, v in gnet_state_dict(params["g_net"]).items()})
     return out
 
 

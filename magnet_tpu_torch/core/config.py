@@ -1,10 +1,10 @@
-"""Command-line flags of the port's D-Net evaluation entry point.
+"""Command-line flags of the port's evaluation entry points.
 
 The port's copy of the flags of ``magnet_tpu/core/config.py::
-build_test_dnet_parser`` that the entry point reads, in the same ``@file``
-format (whitespace-separated tokens, one or more per line), so the
-reference flag files in ``test_scripts/dnet/`` parse unchanged. Added:
-``--device`` (default ``cuda``).
+build_test_dnet_parser`` and ``build_test_magnet_parser`` that the entry
+points read, in the same ``@file`` format (whitespace-separated tokens, one
+or more per line), so the reference flag files in ``test_scripts/`` parse
+unchanged. Added: ``--device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -49,6 +49,57 @@ def build_test_dnet_parser() -> argparse.ArgumentParser:
     p.add_argument("--garg_crop", default=False, action="store_true")
     p.add_argument("--ckpt_path", required=True, type=str,
                    help="reference torch .pt; empty keeps seeded weights")
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   help="{bfloat16, float32}")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--synthetic_length", type=int, default=64,
+                   help="items per split for the synthetic dataset")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; 'cpu' runs the plain versions of "
+                        "the kernels")
+    return p
+
+
+def build_test_magnet_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(fromfile_prefix_chars="@")
+    p.convert_arg_line_to_args = convert_arg_line_to_args
+    p.add_argument("--exp_name", required=True, type=str)
+    p.add_argument("--exp_dir", required=True, type=str)
+    p.add_argument("--visible_gpus", default="0", type=str,
+                   help="accepted for flag-file compatibility; unused")
+    p.add_argument("--output_dim", default=2, type=int, help="{1, 2}")
+    p.add_argument("--output_type", default="G", type=str, help="{R, G}")
+    p.add_argument("--downsample_ratio", type=int, default=4)
+    p.add_argument("--DNET_architecture", type=str, default="DenseDepth_BN",
+                   help="DenseDepth_BN (the port's only D-Net)")
+    p.add_argument("--DNET_fix_encoder_weights", type=str, default="None",
+                   help="accepted for flag-file compatibility; unused")
+    p.add_argument("--DNET_ckpt", required=True, type=str,
+                   help="reference torch .pt; empty keeps seeded weights")
+    p.add_argument("--FNET_architecture", type=str, default="PSM-Net")
+    p.add_argument("--FNET_feature_dim", type=int, default=64)
+    p.add_argument("--FNET_ckpt", required=True, type=str,
+                   help="reference torch .pt; empty keeps seeded weights")
+    p.add_argument("--MAGNET_sampling_range", type=int, default=3)
+    p.add_argument("--MAGNET_num_samples", type=int, default=5)
+    p.add_argument("--MAGNET_mvs_weighting", type=str, default="CW5")
+    p.add_argument("--MAGNET_num_train_iter", type=int, default=3)
+    p.add_argument("--MAGNET_num_test_iter", type=int, default=3)
+    p.add_argument("--MAGNET_window_radius", type=int, default=10)
+    p.add_argument("--MAGNET_num_source_views", type=int, default=4)
+    p.add_argument("--MAGNET_ckpt", default="", type=str,
+                   help="reference torch .pt laid over the whole model")
+    p.add_argument("--dataset_name", required=True, type=str)
+    p.add_argument("--dataset_path", required=True, type=str)
+    p.add_argument("--input_height", type=int, default=480)
+    p.add_argument("--input_width", type=int, default=640)
+    p.add_argument("--dpv_height", type=int, default=120)
+    p.add_argument("--dpv_width", type=int, default=160)
+    p.add_argument("--min_depth", type=float, default=1e-3)
+    p.add_argument("--max_depth", type=float, default=10)
+    p.add_argument("--do_kb_crop", default=True, action="store_true")
+    p.add_argument("--eigen_crop", default=False, action="store_true")
+    p.add_argument("--garg_crop", default=False, action="store_true")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    help="{bfloat16, float32}")
     p.add_argument("--seed", type=int, default=0)

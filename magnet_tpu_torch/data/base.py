@@ -1,8 +1,15 @@
 """Input pipeline: image normalisation and a deterministic batch loader.
 
-The port's copy of the parts of ``magnet_tpu/data/base.py`` that the D-Net
-evaluation path needs. Datasets are plain objects with ``__len__`` and
+The port's copy of the parts of ``magnet_tpu/data/base.py`` that the
+evaluation paths need. Datasets are plain objects with ``__len__`` and
 ``get(idx)``; ``Loader`` yields them as numpy batches of one, in order.
+
+Item schema, multi-view: ref_img (H, W, 3) f32 ImageNet-normalised; src_imgs
+(V, H, W, 3); depth (H, W) of the reference frame, 0 where invalid; R, t
+(V, 3, 3), (V, 3) relative poses source <- reference; is_valid (V,); intM
+(3, 3) intrinsics at cost-volume resolution; rays2d (3, h*w) unit rays.
+Single-view: img (H, W, 3), depth (H, W). ``collate`` stacks the arrays of
+either and lists the rest.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""Evaluation harness: the reference's per-image metric protocol for D-Net.
+"""Evaluation harness: the reference's per-image metric protocol.
 
-The port's copy of ``magnet_tpu/eval/harness.py::evaluate_dnet``. Per test
-image (batch 1): forward, copy to the host, valid-pixel mask (+ optional
-garg/eigen crop), clamp/scrub the prediction, 12 metrics into a streaming
-average.
+The port's copy of ``magnet_tpu/eval/harness.py::evaluate_dnet`` and
+``evaluate_magnet``. Per test image (batch 1): forward, copy to the host,
+valid-pixel mask (+ optional garg/eigen crop), clamp/scrub the prediction,
+12 metrics into a streaming average.
 """
 
 from __future__ import annotations
@@ -35,6 +35,24 @@ def evaluate_dnet(forward: Callable, loader, args,
         gt = np.asarray(batch["depth"])[0]
         out = np.asarray(forward(batch["img"]))
         m = _eval_one(gt, out[0, :, :, 0], out[0, :, :, 1], args)
+        if m is not None:
+            avg.update(m)
+        if progress and i % 200 == 0:
+            print(f"  eval {i}/{len(loader)}", flush=True)
+    return avg.get_value()
+
+
+def evaluate_magnet(forward: Callable, loader, args,
+                    progress: bool = True) -> Dict[str, float]:
+    """forward(batch of numpy arrays) -> the final (1, H, W, 2) =
+    (mu, sigma), numpy."""
+    avg = M.RunningAverageDict()
+    for i, batch in enumerate(loader):
+        gt = np.asarray(batch["depth"])[0]
+        # ground truth above the maximum is zeroed before masking
+        gt = np.where(gt > args.max_depth, 0.0, gt)
+        out = np.asarray(forward(batch))
+        m = _eval_one(gt, out[0, :, :, 0], np.square(out[0, :, :, 1]), args)
         if m is not None:
             avg.update(m)
         if progress and i % 200 == 0:

@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # dtype, x, skip, wx, ws, scale, shift, out, N, H, W, Hs, Ws, Cx, Cs,
     # Cout, upsample, act, stream
@@ -33,6 +34,19 @@ _SIGNATURES = {
     # dtype, x, w0..w3, b0..b3, out, N, H, W, C0, n_convs, c_out,
     # relu_mask, stream
     "mt_head_chain": [_I] + [_P] * 10 + [_I] * 7 + [_P],
+    # dtype, d, ref, src, ms, R, t, valid, K, rays, out, B, V, H, W, C, D,
+    # kappa, stream
+    "mt_cost_volume_cw": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
+    # dtype, cv, feat, prev, w0..w3, b1..b3, out, B, H, W, D, stream
+    "mt_gnet_update": [_I] + [_P] * 11 + [_I] * 4 + [_P],
+    # dtype, depth, mask, out, B, H, W, C, k, stream
+    "mt_upsample_mask": [_I] + [_P] * 3 + [_I] * 5 + [_P],
+    # dtype, x0, x1, x2, w, scale, shift, res, out, N, H, W, C0, C1, C2,
+    # Cout, taps, stride, dil, relu, stream
+    "mt_psm_conv": [_I] + [_P] * 8 + [_I] * 11 + [_P],
+    # dtype, raw, skip, br, w0, scale, shift, w1, zero, out, N, H, W, C0,
+    # C1, C2, c_out, stream
+    "mt_spp_tail": [_I] + [_P] * 9 + [_I] * 7 + [_P],
 }
 
 _lib = None

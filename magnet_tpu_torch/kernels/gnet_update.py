@@ -1,0 +1,116 @@
+"""G-Net update in one launch, NHWC.
+
+The port of ``magnet_tpu/kernels/gnet_pallas.py::gnet_update_pallas``: a SAME
+3x3 conv over the D-channel cost volume into 128 channels plus the
+precomputed feature term, ReLU; two 1x1 convs 128 -> 128 with bias and ReLU;
+a 1x1 conv to 2; then ``mu = mu0 + mu1 * sigma0`` and
+``sigma = (elu(sigma1) + 1 + 1e-10) * sigma0`` in f32. The CUDA kernel
+(``csrc/gnet_update.cu``) keeps the hidden tiles in shared memory and writes
+only the 2 output channels. It loads the cost volume with scalar loads, so D
+need not be a multiple of 16 bytes and nothing is padded. Bounded by bytes on
+an H100; see the source note.
+
+``gnet_update_ref`` is the plain PyTorch version. ``gnet_update`` runs it for
+tensors on the CPU and launches the kernel for tensors on a CUDA device, or
+raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from magnet_tpu_torch.kernels import build
+
+HIDDEN = 128
+MAX_D = 16
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# (kernel HWIO, bias (co,) or None): conv0_cv (3, 3, D, 128) without bias,
+# conv1 and conv2 (1, 1, 128, 128), conv3 (1, 1, 128, 2).
+Layer = Tuple[torch.Tensor, Optional[torch.Tensor]]
+
+
+def gnet_update_ref(cv: torch.Tensor, feat_contrib: torch.Tensor,
+                    prev: torch.Tensor, convs: Sequence[Layer]
+                    ) -> torch.Tensor:
+    """Plain version. cv: (B, H, W, D); feat_contrib: (B, H, W, 128); prev:
+    (B, H, W, 2) = (mu0, sigma0), all of one dtype; returns (B, H, W, 2) in
+    that dtype. Each conv accumulates in f32; the hidden activations round
+    to the dtype between layers, as the kernel's do; the last layer's output
+    and the update stay f32."""
+    f32, dt = torch.float32, feat_contrib.dtype
+    (w0, _), (w1, b1), (w2, b2), (w3, b3) = convs
+
+    def conv(x, w, b, pad):
+        return F.conv2d(x.to(f32), w.permute(3, 2, 0, 1).to(f32),
+                        None if b is None else b.to(f32), padding=pad)
+
+    y = conv(cv.to(dt).permute(0, 3, 1, 2), w0, None, 1)
+    y = F.relu(y + feat_contrib.permute(0, 3, 1, 2).to(f32)).to(dt)
+    y = F.relu(conv(y, w1, b1, 0)).to(dt)
+    y = F.relu(conv(y, w2, b2, 0)).to(dt)
+    y = conv(y, w3, b3, 0).permute(0, 2, 3, 1)
+    mu0, sigma0 = prev[..., 0:1].to(f32), prev[..., 1:2].to(f32)
+    mu = mu0 + y[..., 0:1] * sigma0
+    sigma = (F.elu(y[..., 1:2]) + 1.0 + 1e-10) * sigma0
+    return torch.cat([mu, sigma], -1).to(prev.dtype)
+
+
+def gnet_update(cv: torch.Tensor, feat_contrib: torch.Tensor,
+                prev: torch.Tensor, convs: Sequence[Layer]) -> torch.Tensor:
+    """The update with the arguments of ``gnet_update_ref``. CPU tensors take
+    the plain version; CUDA tensors (f32 or bf16, D <= 16, hidden 128, 2
+    outputs) launch the kernel on the current stream."""
+    B, H, W, D = cv.shape
+    hidden = convs[0][0].shape[-1]
+    if D > MAX_D or hidden != HIDDEN:
+        raise ValueError(f"gnet_update: D={D} (at most {MAX_D}) and hidden="
+                         f"{hidden} (must be {HIDDEN}) are not supported")
+    if cv.device.type == "cpu":
+        return gnet_update_ref(cv, feat_contrib, prev, convs)
+    if cv.device.type != "cuda":
+        raise ValueError(f"gnet_update: unsupported device {cv.device}")
+    dt, dev = feat_contrib.dtype, cv.device
+    if dt not in _DTYPES:
+        raise ValueError(f"gnet_update: unsupported dtype {dt}")
+    shapes = ((3, 3, D, HIDDEN), (1, 1, HIDDEN, HIDDEN),
+              (1, 1, HIDDEN, HIDDEN), (1, 1, HIDDEN, 2))
+    if len(convs) != 4:
+        raise ValueError(f"gnet_update: {len(convs)} convs, want 4")
+    for (t, name, shape) in ((cv, "cv", (B, H, W, D)),
+                             (feat_contrib, "feat_contrib",
+                              (B, H, W, HIDDEN)),
+                             (prev, "prev", (B, H, W, 2))):
+        if (tuple(t.shape) != shape or t.dtype != dt or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"gnet_update: {name} must be contiguous "
+                             f"{shape} {dt} on {dev}")
+    ws, bs = [], []
+    for i, ((k, b), shape) in enumerate(zip(convs, shapes)):
+        if tuple(k.shape) != shape or k.dtype != dt or k.device != dev:
+            raise ValueError(f"gnet_update: conv {i} must be {shape} {dt} "
+                             f"on {dev}, got {tuple(k.shape)} {k.dtype}")
+        ws.append(k.reshape(-1, shape[-1]).contiguous())
+        if i == 0:
+            continue
+        if b is None or tuple(b.shape) != shape[-1:] or b.device != dev:
+            raise ValueError(f"gnet_update: bias {i} must be {shape[-1:]} "
+                             f"on {dev}")
+        bs.append(b.to(torch.float32).contiguous())
+    out = torch.empty((B, H, W, 2), dtype=dt, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.mt_gnet_update(
+            _DTYPES[dt], cv.data_ptr(), feat_contrib.data_ptr(),
+            prev.data_ptr(), *[w.data_ptr() for w in ws],
+            *[b.data_ptr() for b in bs], out.data_ptr(), B, H, W, D,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "gnet_update")
+    gnet_update.launches += 1
+    return out
+
+
+gnet_update.launches = 0

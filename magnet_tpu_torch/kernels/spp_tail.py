@@ -1,0 +1,96 @@
+"""Fused tail of PSM-Net: conv3x3 over [raw | skip | branches] -> 128, folded
+eval BatchNorm, ReLU, 1x1 projection (no bias) to the feature width. NHWC.
+
+The port of ``magnet_tpu/kernels/spptail_pallas.py::spp_tail_fused``. The
+CUDA kernel (``csrc/spp_tail.cu``) reads the three maps as three K ranges of
+one implicit GEMM, so the 320-channel concat is never built, and keeps the
+128-channel hidden tile in shared memory, so only the projected features
+reach device memory. Bounded by tensor-core operations on an H100; see the
+source note.
+
+``spp_tail_ref`` is the plain PyTorch version. ``spp_tail`` runs it for
+tensors on the CPU and launches the kernel for tensors on a CUDA device, or
+raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from magnet_tpu_torch.kernels import build
+
+HIDDEN = 128
+MAX_OUT = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def spp_tail_ref(raw: torch.Tensor, skip: torch.Tensor, br: torch.Tensor,
+                 w0: torch.Tensor, scale0: torch.Tensor,
+                 shift0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """Plain version. raw: (N, H, W, C0); skip: (N, H, W, C1); br: (N, H,
+    W, C2); w0: (3, 3, C0 + C1 + C2, 128) HWIO, input channels in that
+    order; scale0, shift0: (128,) f32 folded BN; w1: (128, Cout). The hidden
+    activation rounds to raw.dtype before the projection, as the kernel's
+    does; each conv accumulates in f32."""
+    f32 = torch.float32
+    cat = torch.cat([raw, skip, br], -1).permute(0, 3, 1, 2).to(f32)
+    acc = F.conv2d(cat, w0.permute(3, 2, 0, 1).to(f32), padding=1)
+    y = F.relu(acc * scale0.to(f32)[:, None, None]
+               + shift0.to(f32)[:, None, None]).to(raw.dtype)
+    out = F.conv2d(y.to(f32), w1.t().to(f32)[:, :, None, None])
+    return out.permute(0, 2, 3, 1).to(raw.dtype).contiguous()
+
+
+def spp_tail(raw: torch.Tensor, skip: torch.Tensor, br: torch.Tensor,
+             w0: torch.Tensor, scale0: torch.Tensor, shift0: torch.Tensor,
+             w1: torch.Tensor) -> torch.Tensor:
+    """The tail with the arguments of ``spp_tail_ref``. CPU tensors take the
+    plain version; CUDA tensors (f32 or bf16, every channel count a multiple
+    of 16 bytes, Cout a multiple of 16 and at most 256) launch the kernel on
+    the current stream."""
+    if raw.device.type == "cpu":
+        return spp_tail_ref(raw, skip, br, w0, scale0, shift0, w1)
+    if raw.device.type != "cuda":
+        raise ValueError(f"spp_tail: unsupported device {raw.device}")
+    dt, dev = raw.dtype, raw.device
+    if dt not in _DTYPES:
+        raise ValueError(f"spp_tail: unsupported dtype {dt}")
+    N, H, W, C0 = raw.shape
+    C1, C2 = skip.shape[-1], br.shape[-1]
+    cout = w1.shape[-1]
+    vec = 16 // raw.element_size()
+    if C0 % vec or C1 % vec or C2 % vec:
+        raise ValueError(f"spp_tail: channels ({C0}, {C1}, {C2}) must be "
+                         f"multiples of {vec}")
+    if cout % 16 or cout > MAX_OUT:
+        raise ValueError(f"spp_tail: Cout={cout} must be a multiple of 16, "
+                         f"at most {MAX_OUT}")
+    for t, name, shape, want in (
+            (raw, "raw", (N, H, W, C0), dt), (skip, "skip", (N, H, W, C1), dt),
+            (br, "br", (N, H, W, C2), dt),
+            (w0, "w0", (3, 3, C0 + C1 + C2, HIDDEN), dt),
+            (scale0, "scale0", (HIDDEN,), torch.float32),
+            (shift0, "shift0", (HIDDEN,), torch.float32),
+            (w1, "w1", (HIDDEN, cout), dt)):
+        if tuple(t.shape) != shape or t.dtype != want or t.device != dev:
+            raise ValueError(f"spp_tail: {name} is {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}, want {shape} {want} on {dev}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"spp_tail: {name} must be contiguous and "
+                             "16-byte aligned")
+    zero = torch.zeros(cout, dtype=torch.float32, device=dev)
+    out = torch.empty((N, H, W, cout), dtype=dt, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.mt_spp_tail(
+            _DTYPES[dt], raw.data_ptr(), skip.data_ptr(), br.data_ptr(),
+            w0.data_ptr(), scale0.data_ptr(), shift0.data_ptr(),
+            w1.data_ptr(), zero.data_ptr(), out.data_ptr(), N, H, W, C0, C1,
+            C2, cout, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "spp_tail")
+    spp_tail.launches += 1
+    return out
+
+
+spp_tail.launches = 0

@@ -1,10 +1,13 @@
-"""D-Net construction and checkpoint loading from parsed args.
+"""Model construction and checkpoint loading from parsed args.
 
-Counterpart of the D-Net part of ``magnet_tpu/models/build.py``.
-``build_dnet`` makes the model with seeded random weights on the requested
-device; ``load_dnet_checkpoint`` loads a reference torch ``.pt`` natively,
-and an empty path keeps the seeded weights (smoke runs without a
-checkpoint). ``cast_for_inference`` applies the compute-dtype policy.
+Counterpart of ``magnet_tpu/models/build.py``. ``build_dnet``,
+``build_fnet`` and ``build_magnet`` make a model with seeded random weights
+on the requested device; ``load_dnet_checkpoint`` and
+``load_magnet_checkpoints`` load reference torch ``.pt`` files natively, and
+an empty path keeps the seeded weights (smoke runs without a checkpoint).
+``cast_for_inference`` applies the compute-dtype policy;
+``realistic_depth_init_`` puts seeded random weights into the depth regime
+of a trained network.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import torch.nn as nn
 
 from magnet_tpu_torch.compat.from_jax import load_state_dict
 from magnet_tpu_torch.models.dnet import DNet
+from magnet_tpu_torch.models.fnet import FNet
+from magnet_tpu_torch.models.magnet import Magnet
 from magnet_tpu_torch.nn.efficientnet import SqueezeExcite
 
 
@@ -57,6 +62,71 @@ def load_dnet_checkpoint(model: DNet, path: str) -> DNet:
     if not path:
         return model
     model.load_state_dict(load_state_dict(path))
+    return model
+
+
+def build_fnet(args, device: str = None) -> FNet:
+    model = FNet(args.FNET_architecture, args.FNET_feature_dim)
+    init_weights_(model, getattr(args, "seed", 0))
+    return model.eval().to(device or args.device)
+
+
+def build_magnet(args, device: str = None) -> Magnet:
+    """Magnet from the parsed flags, seeded from ``--seed``, in eval mode on
+    ``device`` (default ``--device``)."""
+    _check_arch(args)
+    if args.FNET_architecture != "PSM-Net":
+        raise ValueError(f"unknown F-Net arch {args.FNET_architecture!r}")
+    model = Magnet(output_dim=getattr(args, "output_dim", 2),
+                   downsample_ratio=args.downsample_ratio,
+                   fnet_feature_dim=args.FNET_feature_dim,
+                   sampling_range=args.MAGNET_sampling_range,
+                   n_samples=args.MAGNET_num_samples,
+                   mvs_weighting=args.MAGNET_mvs_weighting,
+                   n_iters=args.MAGNET_num_test_iter)
+    init_weights_(model, getattr(args, "seed", 0))
+    return model.eval().to(device or args.device)
+
+
+def load_magnet_checkpoints(model: Magnet, args) -> Magnet:
+    """Stage composition, as the reference does it: the D-Net checkpoint
+    (keys ``d_net.*``) and the F-Net checkpoint (``f_net.*``) into the
+    frozen backbones, then the MAGNET checkpoint over the whole model
+    (``g_net``, ``mask_head`` and the same backbones). Empty paths are
+    skipped. The MAGNET file may lack the D-Net decoder's own mask head,
+    which MaGNet does not use; nothing else may be missing."""
+    if getattr(args, "DNET_ckpt", ""):
+        model.d_net.load_state_dict(load_state_dict(args.DNET_ckpt))
+    if getattr(args, "FNET_ckpt", ""):
+        model.f_net.load_state_dict(load_state_dict(args.FNET_ckpt))
+    if getattr(args, "MAGNET_ckpt", ""):
+        res = model.load_state_dict(load_state_dict(args.MAGNET_ckpt),
+                                    strict=False)
+        missing = [k for k in res.missing_keys
+                   if not k.startswith("d_net.d_net.decoder.mask_head.")]
+        if missing or res.unexpected_keys:
+            raise KeyError(f"MAGNET checkpoint: missing {missing[:5]}, "
+                           f"unexpected {res.unexpected_keys[:5]}")
+    return model
+
+
+def realistic_depth_init_(model: Magnet) -> Magnet:
+    """Pin the Gaussian heads of a randomly initialised model to the regime
+    of a trained one: the last depth-head conv is zeroed with the bias
+    (2.0, -3.0), so mu = 2 m and sigma = sqrt(elu(-3) + 1) ~ 0.22 m; G-Net's
+    last conv is zeroed, so the refinement residuals stay (0, 0). Random
+    weights otherwise give depths that project to degenerate coordinates,
+    which no trained network produces. The computation is unchanged; only
+    the data it sees."""
+    head = model.d_net.d_net.decoder.depth_head[4]
+    last = model.g_net.gnet[6]
+    if head.bias.shape != (2,) or last.bias.shape != (2,):
+        raise ValueError("realistic_depth_init_ needs 2-channel heads")
+    with torch.no_grad():
+        head.weight.zero_()
+        head.bias.copy_(torch.tensor([2.0, -3.0]))
+        last.weight.zero_()
+        last.bias.zero_()
     return model
 
 

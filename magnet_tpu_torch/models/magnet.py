@@ -1,0 +1,136 @@
+"""MaGNet: the multi-view fusion pipeline, inference forward, PyTorch.
+
+Counterpart of ``magnet_tpu/models/magnet.py``:
+  1. ``encode``: D-Net and F-Net on the reference and source frames in one
+     batched pass;
+  2. ``fuse``: N refinement steps, each sampling per-pixel depth candidates
+     mu + sigma * k from the current Gaussian (k from the inverse normal CDF,
+     equal-probability bins within +-beta), building the consistency-weighted
+     cost volume and applying the G-Net update; then learned convex
+     upsampling of every post-initial prediction with one mask predicted
+     from the D-Net decoder feature.
+On the card each refinement step is two kernel launches
+(``kernels.cost_volume_cw``, ``kernels.gnet_update``), the mask head and
+G-Net's feature term go through ``kernels.head_chain``, and each upsampling
+is one launch of ``kernels.upsample_mask``.
+
+Parameter names give the reference checkpoint layout: ``d_net.d_net.*``,
+``f_net.f_net.*``, ``g_net.gnet.{0,2,4,6}``, ``mask_head.{0,2,4,6}``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from magnet_tpu_torch.models.dnet import DNetCoarse
+from magnet_tpu_torch.models.fnet import FNet
+from magnet_tpu_torch.nn.densedepth import run_head
+from magnet_tpu_torch.nn.gnet import GNet
+from magnet_tpu_torch.kernels.cost_volume_cw import cost_volume_cw
+from magnet_tpu_torch.ops.upsample import upsample_via_mask
+
+
+def gaussian_sampling_offsets(sampling_range: float,
+                              n_samples: int) -> np.ndarray:
+    """k_list: bin centres (in sigma units) of n equal-probability bins of
+    N(0, 1) truncated to +-sampling_range."""
+    from scipy.special import erf
+    from scipy.stats import norm
+    p_total = erf(sampling_range / np.sqrt(2))
+    idx = np.arange(0, n_samples + 1)
+    p_list = (1 - p_total) / 2 + (idx / n_samples) * p_total
+    k_list = norm.ppf(p_list)
+    return ((k_list[1:] + k_list[:-1]) / 2).astype(np.float32)
+
+
+def parse_weighting(weighting: str) -> float:
+    """'CW5' -> kappa = 5.0."""
+    if not weighting.startswith("CW"):
+        raise ValueError(f"unsupported mvs weighting {weighting!r}")
+    return float(weighting[2:])
+
+
+def magnet_mask_head(in_ch: int, out_ch: int, hidden: int = 128
+                     ) -> nn.Sequential:
+    """MaGNet's mask head: conv3x3 -> ReLU -> three 1x1 convs with ReLU
+    between them (one conv deeper than the D-Net decoder's mask head)."""
+    return nn.Sequential(
+        nn.Conv2d(in_ch, hidden, 3, padding=1), nn.ReLU(),
+        nn.Conv2d(hidden, hidden, 1), nn.ReLU(),
+        nn.Conv2d(hidden, hidden, 1), nn.ReLU(),
+        nn.Conv2d(hidden, out_ch, 1))
+
+
+class Magnet(nn.Module):
+    """Inputs NHWC; poses and intrinsics as in ``kernels.cost_volume_cw``."""
+
+    def __init__(self, output_dim: int = 2, downsample_ratio: int = 4,
+                 fnet_feature_dim: int = 64, sampling_range: float = 3.0,
+                 n_samples: int = 5, mvs_weighting: str = "CW5",
+                 n_iters: int = 3, dnet_feature_dim: int = 256):
+        super().__init__()
+        self.downsample_ratio = downsample_ratio
+        self.n_iters = n_iters
+        self.kappa = parse_weighting(mvs_weighting)
+        self.d_net = DNetCoarse(output_dim, downsample_ratio)
+        self.f_net = FNet(feature_dim=fnet_feature_dim)
+        self.g_net = GNet(n_samples, dnet_feature_dim)
+        self.mask_head = magnet_mask_head(dnet_feature_dim,
+                                          9 * downsample_ratio ** 2)
+        self.register_buffer(
+            "k_list", torch.from_numpy(gaussian_sampling_offsets(
+                sampling_range, n_samples)), persistent=False)
+
+    def encode(self, imgs: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """imgs: (N, H, W, 3) -> coarse (mu, sigma) (N, h, w, 2), the
+        decoder feature (N, h, w, 256), the matching feature (N, h, w, F)."""
+        gauss, feat_d = self.d_net(imgs)
+        return gauss, feat_d, self.f_net(imgs)
+
+    def fuse(self, ref_gauss: torch.Tensor, x_d3: torch.Tensor,
+             ref_feat: torch.Tensor, src_gauss: torch.Tensor,
+             src_feat: torch.Tensor, src_R: torch.Tensor,
+             src_t: torch.Tensor, is_valid: torch.Tensor,
+             intM: torch.Tensor, rays2d: torch.Tensor,
+             n_iters: Optional[int] = None) -> List[torch.Tensor]:
+        """ref_gauss: (B, h, w, 2); x_d3: (B, h, w, 256); ref_feat:
+        (B, h, w, F); src_gauss: (B, V, h, w, 2); src_feat: (B, V, h, w, F).
+        Returns the n_iters upsampled (B, H, W, 2) (mu, sigma) maps."""
+        n_iters = self.n_iters if n_iters is None else n_iters
+        src_mu = src_gauss[..., 0].float()
+        src_sigma = src_gauss[..., 1].float()
+        # G-Net's feature term does not change over the iterations.
+        feat_contrib = self.g_net.precompute_feature(x_d3)
+        preds = [ref_gauss]
+        for _ in range(n_iters):
+            prev = preds[-1].float()
+            d_volume = prev[..., 0:1] + prev[..., 1:2] * self.k_list
+            cv = cost_volume_cw(d_volume, ref_feat, src_feat, src_mu,
+                                src_sigma, src_R, src_t, is_valid, intM,
+                                rays2d, self.kappa)
+            preds.append(self.g_net(cv, feat_contrib, preds[-1]))
+        mask = run_head(self.mask_head, x_d3)
+        return [upsample_via_mask(p, mask, self.downsample_ratio)
+                for p in preds[1:]]
+
+    def forward(self, ref_img: torch.Tensor, src_imgs: torch.Tensor,
+                src_R: torch.Tensor, src_t: torch.Tensor,
+                is_valid: torch.Tensor, intM: torch.Tensor,
+                rays2d: torch.Tensor, n_iters: Optional[int] = None
+                ) -> List[torch.Tensor]:
+        """ref_img: (B, H, W, 3); src_imgs: (B, V, H, W, 3); src_R:
+        (B, V, 3, 3); src_t: (B, V, 3); is_valid: (B, V); intM: (B, 3, 3);
+        rays2d: (B, 3, h*w) at cost-volume resolution."""
+        B, V, H, W = src_imgs.shape[:4]
+        imgs = torch.cat([ref_img, src_imgs.reshape(B * V, H, W, 3)], 0)
+        gauss, feat_d, feat_m = self.encode(imgs)
+        return self.fuse(
+            gauss[:B], feat_d[:B].contiguous(), feat_m[:B],
+            gauss[B:].reshape(B, V, *gauss.shape[1:]),
+            feat_m[B:].reshape(B, V, *feat_m.shape[1:]),
+            src_R, src_t, is_valid, intM, rays2d, n_iters)

@@ -1,0 +1,170 @@
+"""PSM-Net 2-D feature extractor (F-Net body), PyTorch.
+
+Counterpart of ``magnet_tpu/nn/psmnet.py`` in its inference form: the
+residual stages, the two transition blocks and the tail each run through
+the port of the TPU kernel the JAX package runs there,
+
+* the stem's second and third conv, layer1, the rest of layer2 and layer3
+  and all of layer4 (dilation 2): ``kernels.psm_blocks.fused_residual_stage``;
+* layer2's first block (stride 2, 32 -> 64): ``downsample_block``;
+* layer3's first block (64 -> 128): ``expand_block``;
+* the 3x3 conv over the 320-channel concat, BN, ReLU and the 1x1
+  projection: ``kernels.spp_tail.spp_tail``,
+
+with eval BatchNorm folded to an f32 scale and shift. The stem's first conv
+(3 input channels, stride 2) and the four pooled SPP branches (1x1 convs on
+maps of a few pixels) run as plain PyTorch, as the JAX package leaves them
+to XLA.
+
+Stride-2 stem of three conv-BN-ReLU layers, four residual stages (32x3,
+64x16 stride 2, 128x3, 128x3 dilation 2), a 4-branch spatial pyramid
+pooling (average pool 64/32/16/8, 1x1 conv-BN-ReLU, bilinear resize back
+with align_corners=True), a concat to 320 channels, a 3x3 conv-BN-ReLU and a
+1x1 projection to ``feature_dim``. Output stride 4.
+
+Attribute names give the reference state-dict layout: ``firstconv.{0,2,4}.
+{0,1}``, ``layer{n}.{i}.conv1.0.{0,1}``, ``layer{n}.{i}.conv2.{0,1}``,
+``layer{n}.0.downsample.{0,1}``, ``branch{n}.1.{0,1}``, ``lastconv.0.{0,1}``
+and ``lastconv.2``. Tensors are NHWC at the module boundary.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from magnet_tpu_torch.kernels.psm_blocks import (downsample_block,
+                                                 expand_block,
+                                                 fused_residual_stage)
+from magnet_tpu_torch.kernels.spp_tail import spp_tail
+from magnet_tpu_torch.nn.layers import batch_norm, fold_bn, hwio, nchw, nhwc
+from magnet_tpu_torch.ops.resample import (avg_pool,
+                                           resize_bilinear_align_corners)
+
+# (planes, blocks, stride, dilation) of layer1..layer4
+STAGES = ((32, 3, 1, 1), (64, 16, 2, 1), (128, 3, 1, 1), (128, 3, 1, 2))
+SPP_WINDOWS = (64, 32, 16, 8)
+
+
+def convbn(cin: int, cout: int, k: int, stride: int, pad: int,
+           dilation: int) -> nn.Sequential:
+    """conv (no bias) + BN; a dilation above 1 sets padding = dilation."""
+    return nn.Sequential(
+        nn.Conv2d(cin, cout, k, stride, dilation if dilation > 1 else pad,
+                  dilation, bias=False),
+        nn.BatchNorm2d(cout))
+
+
+def run_convbn(x: torch.Tensor, cb: nn.Sequential) -> torch.Tensor:
+    """conv in x's dtype, then eval BatchNorm with f32 statistics. NCHW."""
+    conv, bn = cb
+    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding,
+                 conv.dilation)
+    return batch_norm(y, bn)
+
+
+def fold_chain(cbs: Sequence[nn.Sequential], dtype: torch.dtype
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Equal-shaped conv-BN pairs as the stacked operands of a kernel chain:
+    HWIO weights (n, k, k, ci, co) in ``dtype`` and the folded BN
+    (scale, shift), each (n, co) f32."""
+    f32 = torch.float32
+    w = torch.stack([cb[0].weight for cb in cbs]).to(dtype)
+    gamma, beta, mean, var = (
+        torch.stack([getattr(cb[1], name) for cb in cbs]).to(f32)
+        for name in ("weight", "bias", "running_mean", "running_var"))
+    scale = gamma * torch.rsqrt(var + cbs[0][1].eps)
+    return (w.permute(0, 3, 4, 2, 1).contiguous(), scale.contiguous(),
+            (beta - mean * scale).contiguous())
+
+
+class BasicBlock(nn.Module):
+    """Residual block with no activation after the sum. It only holds the
+    parameters: ``PSMNet.forward`` runs the blocks through the kernels."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int,
+                 downsample, dilation: int):
+        super().__init__()
+        self.stride, self.dilation = stride, dilation
+        self.conv1 = nn.Sequential(
+            convbn(inplanes, planes, 3, stride, 1, dilation), nn.ReLU())
+        self.conv2 = convbn(planes, planes, 3, 1, 1, dilation)
+        self.downsample = downsample
+
+
+def run_layer(x: torch.Tensor, layer: nn.Sequential) -> torch.Tensor:
+    """One residual stage on an NHWC map: a first block with a projection
+    shortcut goes through its transition kernel, the stride-1 blocks after
+    it through one chain."""
+    blocks = list(layer)
+    if blocks[0].downsample is not None:
+        b = blocks.pop(0)
+        if b.dilation != 1:
+            raise ValueError("a projection block with a dilation")
+        operands = []
+        for cb in (b.conv1[0], b.conv2, b.downsample):
+            operands += [hwio(cb[0], x.dtype), *fold_bn(cb[1])]
+        block = downsample_block if b.stride == 2 else expand_block
+        x = block(x, *operands)
+    if any(b.stride != 1 or b.downsample is not None for b in blocks):
+        raise ValueError("only a stage's first block may change the shape")
+    cbs = [cb for b in blocks for cb in (b.conv1[0], b.conv2)]
+    return fused_residual_stage(x, *fold_chain(cbs, x.dtype),
+                                blocks[0].dilation)
+
+
+class PSMNet(nn.Module):
+    def __init__(self, feature_dim: int = 64):
+        super().__init__()
+        self.firstconv = nn.Sequential(
+            convbn(3, 32, 3, 2, 1, 1), nn.ReLU(),
+            convbn(32, 32, 3, 1, 1, 1), nn.ReLU(),
+            convbn(32, 32, 3, 1, 1, 1), nn.ReLU())
+        inplanes = 32
+        for li, (planes, blocks, stride, dil) in enumerate(STAGES, 1):
+            down = None
+            if stride != 1 or inplanes != planes:
+                down = nn.Sequential(
+                    nn.Conv2d(inplanes, planes, 1, stride, bias=False),
+                    nn.BatchNorm2d(planes))
+            layers = [BasicBlock(inplanes, planes, stride, down, dil)]
+            layers += [BasicBlock(planes, planes, 1, None, dil)
+                       for _ in range(blocks - 1)]
+            setattr(self, f"layer{li}", nn.Sequential(*layers))
+            inplanes = planes
+        # The pooling module holds index 0 of the reference layout; the
+        # forward pools with the window clamped to the map instead.
+        for bi, win in enumerate(SPP_WINDOWS, 1):
+            setattr(self, f"branch{bi}", nn.Sequential(
+                nn.AvgPool2d((win, win), stride=(win, win)),
+                convbn(128, 32, 1, 1, 0, 1), nn.ReLU()))
+        self.lastconv = nn.Sequential(
+            convbn(320, 128, 3, 1, 1, 1), nn.ReLU(),
+            nn.Conv2d(128, feature_dim, 1, bias=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (N, H, W, 3) -> (N, H/4, W/4, feature_dim), NHWC."""
+        y = nhwc(F.relu(run_convbn(nchw(x), self.firstconv[0])))
+        y = fused_residual_stage(
+            y, *fold_chain([self.firstconv[2], self.firstconv[4]], y.dtype),
+            1, residual=False)
+        raw = run_layer(run_layer(y, self.layer1), self.layer2)   # stride 4
+        skip = run_layer(run_layer(raw, self.layer3), self.layer4)
+        H, W = skip.shape[1:3]
+        # The SPP window is clamped to the map so that small inputs stay
+        # valid; at the reference resolutions this changes nothing.
+        branches = []
+        for bi, win in enumerate(SPP_WINDOWS, 1):
+            win = min(win, H, W)
+            b = nchw(avg_pool(skip, win, win))
+            b = F.relu(run_convbn(b, getattr(self, f"branch{bi}")[1]))
+            branches.append(resize_bilinear_align_corners(nhwc(b), H, W))
+        # concat order: raw, skip, branch4, branch3, branch2, branch1
+        br = torch.cat(branches[::-1], -1)
+        conv0, bn0 = self.lastconv[0]
+        proj = self.lastconv[2].weight.to(y.dtype)[:, :, 0, 0].t().contiguous()
+        return spp_tail(raw, skip, br, hwio(conv0, y.dtype), *fold_bn(bn0),
+                        proj)

@@ -2,17 +2,16 @@
 
 Counterpart of ``magnet_tpu/ops/upsample.py``: each full-resolution output
 pixel is a softmax-weighted convex combination of the 3x3 coarse
-neighbourhood of its parent pixel. The mask channel index is
-``c = j * k * k + ki * k + kj`` with ``j = ky * 3 + kx`` (the reference's
-``view(N, 1, 9, k, k, H, W)``). The JAX package computes this in XLA on the
-default path, so plain PyTorch is its counterpart here.
+neighbourhood of its parent pixel. ``upsample_via_mask`` goes through
+``kernels.upsample_mask``: the plain version for a tensor on the CPU, the
+CUDA kernel for a tensor on the card.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from magnet_tpu_torch.kernels.upsample_mask import upsample_mask
 from magnet_tpu_torch.ops.resample import resize_bilinear_align_corners
 
 
@@ -20,13 +19,7 @@ def upsample_via_mask(depth: torch.Tensor, up_mask: torch.Tensor,
                       k: int) -> torch.Tensor:
     """depth: (B, H, W, C); up_mask: (B, H, W, 9*k*k). Returns
     (B, k*H, k*W, C) in depth's dtype, computed in f32."""
-    B, H, W, C = depth.shape
-    mask = up_mask.float().reshape(B, H, W, 9, k, k).softmax(dim=3)
-    # (B, C*9, H*W) zero-padded 3x3 neighbourhoods, j = ky*3 + kx
-    nb = F.unfold(depth.float().permute(0, 3, 1, 2), 3, padding=1)
-    nb = nb.reshape(B, C, 9, H, W).permute(0, 3, 4, 2, 1)  # (B,H,W,9,C)
-    out = torch.einsum("bhwjkl,bhwjc->bhkwlc", mask, nb)
-    return out.reshape(B, H * k, W * k, C).to(depth.dtype)
+    return upsample_mask(depth.contiguous(), up_mask.to(depth.dtype), k)
 
 
 def upsample_bilinear(depth: torch.Tensor, up_mask, k: int) -> torch.Tensor:

@@ -27,7 +27,9 @@ from magnet_tpu_torch.nn.densedepth import run_head
 from magnet_tpu_torch.nn.layers import conv2d, nchw, nhwc
 from magnet_tpu_torch.ops.upsample import upsample_via_mask
 
-OURS = ("conv3x3_bnact_kernel", "head_chain_kernel")
+OURS = ("conv3x3_bnact_kernel", "head_chain_kernel", "cost_volume_cw_kernel",
+        "gnet_update_kernel", "upsample_mask_kernel", "psm_conv_kernel",
+        "spp_tail_kernel")
 SHAPE = (1, 480, 640, 3)
 FRAMES = 5
 
@@ -41,6 +43,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn(): ``iters`` calls captured into one CUDA
+    graph, the replay timed with CUDA events. The host's time to enqueue
+    (Python, the wrapper's checks) is outside the reading, which matters for
+    kernels shorter than a wrapper call; the calls run back to back, so
+    inputs that fit the L2 cache stay in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -73,16 +101,18 @@ def stage_times(model: DNet, x: torch.Tensor) -> dict:
     return {name: cuda_ms(fn) for name, fn in stages.items()}
 
 
-def kernel_profile(model: DNet, x: torch.Tensor, frames: int) -> dict:
+def kernel_profile(forward, frames: int) -> dict:
+    """``torch.profiler`` over ``frames`` calls of ``forward()``: device time
+    by kernel name, launches per frame, the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
-        model(x)
+        forward()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(frames):
-            model(x)
+            forward()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     by_name = defaultdict(lambda: [0.0, 0])
@@ -104,6 +134,11 @@ def kernel_profile(model: DNet, x: torch.Tensor, frames: int) -> dict:
         device_idle_share=1.0 - busy_us / wall_us,
         kernel_launches_per_frame=launches / frames,
         ported_kernels_ms_per_frame=ours / frames / 1e3,
+        ported_kernels=[dict(name=o, ms_per_frame=sum(
+            v[0] for n, v in by_name.items() if o in n) / frames / 1e3,
+            launches_per_frame=sum(
+                v[1] for n, v in by_name.items() if o in n) / frames)
+            for o in OURS],
         top_kernels=[dict(name=n[:120], ms_per_frame=v[0] / frames / 1e3,
                           launches_per_frame=v[1] / frames)
                      for n, v in top])
@@ -125,7 +160,7 @@ def main(argv=None) -> dict:
     with torch.inference_mode():
         res = dict(device=torch.cuda.get_device_name(0), shape=list(SHAPE),
                    dtype=a.dtype, stages_ms=stage_times(model, x),
-                   profile=kernel_profile(model, x, FRAMES))
+                   profile=kernel_profile(lambda: model(x), FRAMES))
     for name, ms in res["stages_ms"].items():
         print(f"{name:34s} {ms:9.4f} ms")
     prof = res["profile"]

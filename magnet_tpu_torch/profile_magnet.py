@@ -1,0 +1,147 @@
+"""Where the MaGNet forward spends its time on the GPU.
+
+    python -m magnet_tpu_torch.profile_magnet [--dtype bfloat16] [--out p.json]
+
+Two readings of one model at the ScanNet eval shape (480x640, cost volume
+120x160, 4 source views, 5 candidates, 3 iterations, batch 1; seeded random
+weights pinned to a trained network's depth regime; one synthetic sample):
+  * per stage, with CUDA events around each stage run alone on the inputs
+    the whole forward gives it: D-Net on the 5 frames, F-Net on the 5
+    frames, then per iteration candidate sampling, cost volume and G-Net
+    update, then G-Net's feature term, the mask head, one upsampling, and
+    the whole forward;
+  * per kernel, with ``torch.profiler`` over five forwards: kernel launches
+    per frame, device busy time per frame and the device's idle share, the
+    ported kernels' share, and, from a second profile of the F-Net alone,
+    the F-Net's share of the busy time.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from magnet_tpu_torch import test_magnet
+from magnet_tpu_torch.core import config
+from magnet_tpu_torch.data.synthetic import SyntheticMultiView
+from magnet_tpu_torch.models import build
+from magnet_tpu_torch.nn.densedepth import run_head
+from magnet_tpu_torch.kernels.cost_volume_cw import cost_volume_cw
+from magnet_tpu_torch.ops.upsample import upsample_via_mask
+from magnet_tpu_torch.profile_dnet import cuda_ms, kernel_profile
+
+FRAMES = 5
+
+
+def eval_args(dtype: str, device: str = "cuda"):
+    """The flags of test_scripts/magnet/scannet.txt, on the synthetic
+    dataset and without checkpoints."""
+    return config.parse_args(config.build_test_magnet_parser(), [
+        "--exp_name", "profile_magnet", "--exp_dir", "exp",
+        "--DNET_ckpt", "", "--FNET_ckpt", "", "--dataset_name", "synthetic",
+        "--dataset_path", "none", "--compute_dtype", dtype, "--device",
+        device, "--synthetic_length", "1"])
+
+
+def stage_times(model, inputs) -> dict:
+    ref_img, src_imgs, R, t, valid, K, rays = inputs
+    B, V, H, W = src_imgs.shape[:4]
+    imgs = torch.cat([ref_img, src_imgs.reshape(B * V, H, W, 3)], 0)
+    gauss, feat_d, feat_m = model.encode(imgs)
+    ref_gauss, x_d3 = gauss[:B], feat_d[:B].contiguous()
+    ref_feat = feat_m[:B]
+    src_gauss = gauss[B:].reshape(B, V, *gauss.shape[1:])
+    src_feat = feat_m[B:].reshape(B, V, *feat_m.shape[1:])
+    src_mu, src_sigma = src_gauss[..., 0].float(), src_gauss[..., 1].float()
+    k = model.downsample_ratio
+
+    def sample(prev):
+        prev = prev.float()
+        return prev[..., 0:1] + prev[..., 1:2] * model.k_list
+
+    def cv_of(d_volume):
+        return cost_volume_cw(d_volume, ref_feat, src_feat, src_mu,
+                              src_sigma, R, t, valid, K, rays, model.kappa)
+
+    feat_contrib = model.g_net.precompute_feature(x_d3)
+    mask = run_head(model.mask_head, x_d3)
+    stages = {
+        "D-Net, 5 frames": lambda: model.d_net(imgs),
+        "F-Net, 5 frames (PSM kernels)": lambda: model.f_net(imgs),
+        "G-Net feature term (head kernel)":
+            lambda: model.g_net.precompute_feature(x_d3),
+    }
+    prev = ref_gauss
+    for it in range(model.n_iters):
+        d_volume = sample(prev)
+        cv = cv_of(d_volume)
+        stages[f"iter {it}: candidate sampling"] = \
+            lambda p=prev: sample(p)
+        stages[f"iter {it}: cost volume (kernel)"] = \
+            lambda d=d_volume: cv_of(d)
+        stages[f"iter {it}: G-Net update (kernel)"] = \
+            lambda c=cv, p=prev: model.g_net(c, feat_contrib, p)
+        prev = model.g_net(cv, feat_contrib, prev)
+    stages.update({
+        "mask head (head kernel)":
+            lambda: run_head(model.mask_head, x_d3),
+        "one upsampling (kernel)": lambda: upsample_via_mask(prev, mask, k),
+        "whole forward": lambda: model(*inputs),
+    })
+    return {name: cuda_ms(fn, iters=10, warmup=2)
+            for name, fn in stages.items()}
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=("bfloat16", "float32"))
+    p.add_argument("--out", default="")
+    a = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_magnet needs a CUDA device")
+    args = eval_args(a.dtype)
+    dtype = config.compute_dtype(a.dtype)
+    model = build.realistic_depth_init_(build.build_magnet(args))
+    build.cast_for_inference(model, dtype)
+    batch = {k: v[None] for k, v in SyntheticMultiView(args).get(0).items()
+             if hasattr(v, "shape")}
+    inputs = test_magnet.batch_to_device(batch, dtype, torch.device("cuda"))
+    B, V, H, W = inputs[1].shape[:4]
+    imgs = torch.cat([inputs[0], inputs[1].reshape(B * V, H, W, 3)], 0)
+    with torch.inference_mode():
+        res = dict(device=torch.cuda.get_device_name(0), dtype=a.dtype,
+                   shape=[H, W], views=V, stages_ms=stage_times(model, inputs),
+                   profile=kernel_profile(lambda: model(*inputs), FRAMES),
+                   fnet_profile=kernel_profile(lambda: model.f_net(imgs),
+                                               FRAMES))
+    for name, ms in res["stages_ms"].items():
+        print(f"{name:38s} {ms:9.4f} ms")
+    prof, fprof = res["profile"], res["fnet_profile"]
+    for k in ("wall_ms_per_frame", "device_busy_ms_per_frame",
+              "device_idle_share", "kernel_launches_per_frame",
+              "ported_kernels_ms_per_frame"):
+        print(f"{k:38s} {prof[k]:9.4f}")
+    for o in prof["ported_kernels"]:
+        print(f"  {o['ms_per_frame']:8.4f} ms  x{o['launches_per_frame']:5.1f}"
+              f"  {o['name']}")
+    share = (fprof["device_busy_ms_per_frame"]
+             / prof["device_busy_ms_per_frame"])
+    print(f"{'F-Net alone: busy ms, launches':38s} "
+          f"{fprof['device_busy_ms_per_frame']:9.4f} "
+          f"{fprof['kernel_launches_per_frame']:9.1f}  (share of the frame's "
+          f"busy time {share:.3f})")
+    for t in prof["top_kernels"]:
+        print(f"  {t['ms_per_frame']:8.4f} ms  x{t['launches_per_frame']:5.1f}"
+              f"  {t['name']}")
+    if a.out:
+        with open(a.out, "w") as f:
+            json.dump(res, f, indent=1)
+    return res
+
+
+if __name__ == "__main__":
+    main()

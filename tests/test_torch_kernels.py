@@ -20,7 +20,10 @@ import torch
 
 from magnet_tpu_torch.compat.from_jax import dnet_state_dict
 from magnet_tpu_torch.kernels import conv3x3_bnact as cb
+from magnet_tpu_torch.kernels import cost_volume_cw as cvk
+from magnet_tpu_torch.kernels import gnet_update as gk
 from magnet_tpu_torch.kernels import head_chain as hc
+from magnet_tpu_torch.kernels import upsample_mask as uk
 from magnet_tpu_torch.nn.densedepth import UpSampleBN
 
 RTOL = 1e-4
@@ -212,13 +215,110 @@ def _head_args(device, dtype, n_convs, c_out, H=10, W=7, c0=64, seed=0):
     return x, convs
 
 
+def cv_inputs(B=1, V=2, H=24, W=32, C=8, D=5, seed=0, motion=0.03,
+              roll=0.0, shift=0.0, invalid_last=True):
+    """numpy inputs of the cost volume, made as
+    tests/test_costvolume_pallas.py makes them: small in-plane rotations and
+    translations, plus ``roll`` radians about the optical axis for every
+    view and ``shift`` added to every translation."""
+    rng = np.random.RandomState(seed)
+    ref = rng.randn(B, H, W, C).astype(np.float32)
+    src = rng.randn(B, V, H, W, C).astype(np.float32)
+    mu = rng.uniform(1, 5, (B, V, H, W)).astype(np.float32)
+    sig = rng.uniform(0.1, 1.0, (B, V, H, W)).astype(np.float32)
+
+    def rot(ang):
+        c, s = np.cos(ang), np.sin(ang)
+        return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+
+    R = np.stack([np.stack([rot(roll + rng.uniform(-motion, motion))
+                            for _ in range(V)]) for _ in range(B)])
+    t = rng.uniform(-motion, motion, (B, V, 3)).astype(np.float32) + shift
+    valid = np.ones((B, V), np.float32)
+    if invalid_last:
+        valid[-1, -1] = 0.0
+    fx = 0.9 * W
+    K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1.0]], np.float32)
+    grid = np.ones((H, W, 3), np.float32)
+    grid[:, :, 0] = (np.arange(W)[None] + 0.5 - K[0, 2]) / K[0, 0]
+    grid[:, :, 1] = (np.arange(H)[:, None] + 0.5 - K[1, 2]) / K[1, 1]
+    rays = np.tile(grid.transpose(2, 0, 1).reshape(1, 3, -1), (B, 1, 1))
+    dvol = rng.uniform(1, 5, (B, H, W, D)).astype(np.float32)
+    return (dvol, ref, src, mu, sig, R, t.astype(np.float32), valid,
+            np.tile(K, (B, 1, 1)), rays.astype(np.float32))
+
+
+def gnet_inputs(B=1, H=10, W=12, D=5, seed=0):
+    """numpy (cv, feat_contrib, prev) and the four (HWIO kernel, bias)
+    layers of the G-Net update."""
+    rng = np.random.RandomState(seed)
+    cv = rng.randn(B, H, W, D).astype(np.float32)
+    feat = rng.randn(B, H, W, 128).astype(np.float32) * 0.5
+    prev = np.stack([rng.uniform(1, 5, (B, H, W)),
+                     rng.uniform(0.1, 1, (B, H, W))], -1).astype(np.float32)
+    convs = [(rng.randn(3, 3, D, 128).astype(np.float32) * (9 * D) ** -0.5,
+              None)]
+    for co in (128, 128, 2):
+        convs.append((rng.randn(1, 1, 128, co).astype(np.float32) * 128 ** -.5,
+                      rng.randn(co).astype(np.float32) * 0.1))
+    return cv, feat, prev, convs
+
+
+def upsample_inputs(B=1, H=8, W=12, C=2, k=4, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, H, W, C).astype(np.float32),
+            rng.randn(B, H, W, 9 * k * k).astype(np.float32) * 2.0)
+
+
+def _t(a, device="cpu", dtype=None):
+    if a is None:
+        return None
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def _gnet_t(device, dtype, **kw):
+    cv, feat, prev, convs = gnet_inputs(**kw)
+    return (_t(cv, device, dtype), _t(feat, device, dtype),
+            _t(prev, device, dtype),
+            [(_t(k, device, dtype), _t(b, device)) for k, b in convs])
+
+
+def _cv_t(device, dtype, **kw):
+    a = cv_inputs(**kw)
+    return ([_t(a[0], device)] + [_t(x, device, dtype) for x in a[1:3]]
+            + [_t(x, device) for x in a[3:]])
+
+
 def test_cpu_tensors_take_the_plain_version():
-    before = (cb.conv3x3_bnact.launches, hc.head_chain.launches)
+    wrappers = (cb.conv3x3_bnact, hc.head_chain, cvk.cost_volume_cw,
+                gk.gnet_update, uk.upsample_mask)
+    before = [w.launches for w in wrappers]
     a = _conv_args("cpu", torch.float32)
     _close(cb.conv3x3_bnact(**a).numpy(), cb.conv3x3_bnact_ref(**a).numpy())
     x, convs = _head_args("cpu", torch.float32, 3, 144)
     _close(hc.head_chain(x, convs).numpy(), hc.head_chain_ref(x, convs).numpy())
-    assert (cb.conv3x3_bnact.launches, hc.head_chain.launches) == before
+    a = _cv_t("cpu", torch.float32)
+    _close(cvk.cost_volume_cw(*a, 5.0).numpy(),
+           cvk.cost_volume_cw_ref(*a, 5.0).numpy())
+    a = _gnet_t("cpu", torch.float32)
+    _close(gk.gnet_update(*a).numpy(), gk.gnet_update_ref(*a).numpy())
+    d, m = (_t(x) for x in upsample_inputs())
+    _close(uk.upsample_mask(d, m, 4).numpy(),
+           uk.upsample_mask_ref(d, m, 4).numpy())
+    assert [w.launches for w in wrappers] == before
+
+
+def test_gnet_update_refuses_what_the_kernel_does_not_take():
+    """D > 16 and hidden != 128 raise on any device: there is no other
+    path."""
+    cv, feat, prev, convs = _gnet_t("cpu", torch.float32, D=17)
+    with pytest.raises(ValueError):
+        gk.gnet_update(cv, feat, prev, convs)
+    cv, feat, prev, convs = _gnet_t("cpu", torch.float32)
+    narrow = [(convs[0][0][..., :64], None)] + convs[1:]
+    with pytest.raises(ValueError):
+        gk.gnet_update(cv, feat, prev, narrow)
 
 
 @pytest.fixture
@@ -271,6 +371,61 @@ def test_head_kernel_matches_plain(cuda, dtype, n_convs, c_out):
     _close_cuda(out, hc.head_chain_ref(x, convs), dtype)
 
 
+# The cost volume's f32 and bf16 paths both accumulate exact products in
+# f32, so both are held to the f32 tolerance, on the elements that do not
+# sit on the consistency threshold (kernels/cost_volume_cw.py::compare).
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [
+    dict(B=2, V=3),                                       # an invalid view
+    dict(roll=0.9, V=2, H=40, W=64, invalid_last=False),  # large roll
+    dict(shift=0.6, C=64),                    # samples that leave the image
+    dict(shift=100.0),                                    # all outside
+    dict(H=120, W=160, C=64, V=4, invalid_last=False),    # the eval shape
+    dict(C=128, D=3), dict(C=24, D=1),
+], ids=["invalid_view", "roll", "leaving", "outside", "eval_shape", "c128",
+        "c24"])
+def test_cost_volume_kernel_matches_plain(cuda, dtype, case):
+    a = _cv_t(cuda, dtype, **case)
+    before = cvk.cost_volume_cw.launches
+    out = cvk.cost_volume_cw(*a, 5.0)
+    assert cvk.cost_volume_cw.launches == before + 1
+    torch.cuda.synchronize()
+    ref, margin = cvk.cost_volume_cw_ref(*a, 5.0, return_margin=True)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    cvk.compare(out, ref, margin, _TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [dict(), dict(B=2, H=9, W=7, D=1),
+                                  dict(H=120, W=160), dict(D=16, H=5)],
+                         ids=["small", "ragged", "eval_shape", "d16"])
+def test_gnet_kernel_matches_plain(cuda, dtype, case):
+    a = _gnet_t(cuda, dtype, **case)
+    before = gk.gnet_update.launches
+    out = gk.gnet_update(*a)
+    assert gk.gnet_update.launches == before + 1
+    _close_cuda(out, gk.gnet_update_ref(*a), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [dict(), dict(B=2, H=5, W=3, C=1, k=2),
+                                  dict(H=120, W=160), dict(C=3, k=8)],
+                         ids=["small", "ragged", "eval_shape", "k8"])
+def test_upsample_kernel_matches_plain(cuda, dtype, case):
+    d, m = (_t(x, cuda, dtype) for x in upsample_inputs(**case))
+    k = case.get("k", 4)
+    before = uk.upsample_mask.launches
+    out = uk.upsample_mask(d, m, k)
+    assert uk.upsample_mask.launches == before + 1
+    _close_cuda(out, uk.upsample_mask_ref(d, m, k), dtype)
+
+
 @pytest.mark.cuda
 def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
     def refuse(*a, **k):
@@ -278,9 +433,16 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
 
     monkeypatch.setattr(cb, "conv3x3_bnact_ref", refuse)
     monkeypatch.setattr(hc, "head_chain_ref", refuse)
+    monkeypatch.setattr(cvk, "cost_volume_cw_ref", refuse)
+    monkeypatch.setattr(gk, "gnet_update_ref", refuse)
+    monkeypatch.setattr(uk, "upsample_mask_ref", refuse)
     cb.conv3x3_bnact(**_conv_args(cuda, torch.bfloat16))
     x, convs = _head_args(cuda, torch.bfloat16, 3, 2)
     hc.head_chain(x, convs)
+    cvk.cost_volume_cw(*_cv_t(cuda, torch.bfloat16), 5.0)
+    gk.gnet_update(*_gnet_t(cuda, torch.bfloat16))
+    d, m = (_t(x, cuda, torch.bfloat16) for x in upsample_inputs())
+    uk.upsample_mask(d, m, 4)
     torch.cuda.synchronize()
 
 
@@ -297,3 +459,12 @@ def test_cuda_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
     x, convs = _head_args(cuda, torch.bfloat16, 2, 2)
     with pytest.raises(ValueError):                             # host bias
         hc.head_chain(x, [convs[0], (convs[1][0], convs[1][1].cpu(), False)])
+    a = _cv_t(cuda, torch.bfloat16, C=12)            # C not 16 bytes wide
+    with pytest.raises(ValueError):
+        cvk.cost_volume_cw(*a, 5.0)
+    cv, feat, prev, convs = _gnet_t(cuda, torch.bfloat16)
+    with pytest.raises(ValueError):                             # mixed dtype
+        gk.gnet_update(cv.float(), feat, prev, convs)
+    d, m = (_t(x, cuda, torch.bfloat16) for x in upsample_inputs())
+    with pytest.raises(ValueError):                             # strided
+        uk.upsample_mask(d, m.transpose(1, 2), 4)
