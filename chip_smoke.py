@@ -20,7 +20,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      consistency threshold (at most 1 % may), also at a roll of 0.9 rad
      about the optical axis and with one view invalid. The F-Net's kernels
      run at the shapes of its one pass over the 5 frames: every chain of the
-     residual stages, both transition blocks, the tail;
+     residual stages, both transition blocks, the tail. The plane-sweep
+     backward (row 10) runs at the F-Net training shape (B = 2, V = 4,
+     D = 80, 120x160, C = 64, SID planes, synthetic poses), also at a 0.9
+     rad roll and with one view invalid, f32 to 1e-4 * max|ref| and bf16
+     features to 2e-2 * max|ref| (atomic adds in any order); its library
+     time is ATen's grid_sampler_2d_backward over the same samples;
   4. D-Net path: D-Net inference through the entry point's code path
      (magnet_tpu_torch.test_dnet) at 480x640, bf16, seeded random weights,
      on synthetic frames; every kernel's launch count must rise as the
@@ -40,7 +45,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      and move its pixel by a G-Net update); then the bf16 forward on the
      card, on the same weights (whose fusion does move the map), against
      that f32 reference: iteration i to i bf16 ulp of the map plus 2e-2 of
-     the reference map's range, on all but at most 1 % of the pixels.
+     the reference map's range, on all but at most 1 % of the pixels;
+  8. F-Net training path: the entry point's own loop
+     (magnet_tpu_torch.train_fnet) at the protocol of
+     train_scripts/fnet/scannet.txt (480x640, batch 2, 4 source views, 80
+     SID planes, cost volume 120x160, bf16, f32 master weights, seeded
+     initialisation) on synthetic samples: 4 steps and a validation pass;
+     finite losses, every parameter and BatchNorm buffer moved, the
+     checkpoint restores step and tensors, launches as predicted (row 10
+     once per step, the cost volume once per step and per validation
+     sample, rows 6-9 in the validation forward); ms per step, peak memory,
+     a stage account of one step and the profiler over two;
+  9. the training step on the card against the CPU, f32 at a reduced shape
+     (128x160, cost volume 32x40, D = 16, V = 2, B = 2), from the same
+     weights and batch: loss to 1e-5 relative, every gradient to
+     1e-3 * max|g| of its tensor, the BatchNorm running buffers to 1e-5.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
@@ -48,6 +67,7 @@ Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -59,10 +79,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from magnet_tpu_torch import test_dnet, test_magnet
+from magnet_tpu_torch import test_dnet, test_magnet, train_fnet
 from magnet_tpu_torch.core import config
+from magnet_tpu_torch.data import base
 from magnet_tpu_torch.data.synthetic import (SyntheticMultiView,
-                                             SyntheticSingleView)
+                                             SyntheticSingleView, _small_pose)
+from magnet_tpu_torch.geometry import poses as poses_lib
+from magnet_tpu_torch.geometry import rays as rays_lib
 from magnet_tpu_torch.kernels import build
 from magnet_tpu_torch.kernels import conv3x3_bnact as cb
 from magnet_tpu_torch.kernels import cost_volume_cw as cvk
@@ -70,15 +93,24 @@ from magnet_tpu_torch.kernels import gnet_update as gk
 from magnet_tpu_torch.kernels import head_chain as hc
 from magnet_tpu_torch.kernels import psm_blocks as pb
 from magnet_tpu_torch.kernels import spp_tail as st
+from magnet_tpu_torch.kernels import sweep_grad_src as sgk
 from magnet_tpu_torch.kernels import upsample_mask as uk
 from magnet_tpu_torch.models.build import (build_dnet, build_magnet,
-                                           cast_for_inference,
+                                           build_magnet_f, cast_for_inference,
                                            realistic_depth_init_)
-from magnet_tpu_torch.profile_dnet import cuda_ms, graph_ms
+from magnet_tpu_torch.models.magnet import sid_depth_centers
+from magnet_tpu_torch.nn import psmnet
+from magnet_tpu_torch.nn.layers import BN_MOMENTUM
+from magnet_tpu_torch.ops.costvolume import sweep_forward_args
+from magnet_tpu_torch.profile_dnet import cuda_ms, graph_ms, kernel_profile
+from magnet_tpu_torch.profile_fnet_train import protocol_args, step_account
 from magnet_tpu_torch.profile_magnet import eval_args
+from magnet_tpu_torch.train import checkpoint, optim, steps
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, HBM3.
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside the
+# tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FORWARD_TOL = 1e-5
@@ -90,12 +122,25 @@ HC, WC = H // 4, W // 4    # the coarse map of the heads and the fusion
 VIEWS, SAMPLES, ITERS, FEAT = 4, 5, 3, 64
 DNET_FRAMES = 2
 MAGNET_FRAMES = 3
+# F-Net training at the protocol of train_scripts/fnet/scannet.txt
+TRAIN_B, TRAIN_D, TRAIN_STEPS = 2, 80, 4
+# the card-vs-CPU training step: a reduced shape, the CPU side being slow
+SMALL_TRAIN = dict(H=128, W=160, D=16, V=2, B=2)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_STATS_TOL = 1e-5, 1e-3, 1e-5
+# the bf16 step against the f32 one, bf16 rounding through 33 layers: loss
+# relative, gradients of max|g| per tensor (the worst and the median tensor),
+# running buffers of |v| + 1. On the CPU at SMALL_TRAIN the bf16 step reads
+# 9.6e-5, 0.13, 0.017, 3.2e-3 and the control (BatchNorm statistics in
+# bf16) 1.2e-4, 0.40, 0.050, 1.8e-2.
+BF16_TRAIN_TOL = dict(loss=2e-3, grad=0.3, grad_median=0.035, stats=8e-3)
+KINK_MARGIN = 1e-5
 WRAPPERS = {"conv3x3_bnact": cb.conv3x3_bnact, "head_chain": hc.head_chain,
             "cost_volume_cw": cvk.cost_volume_cw,
             "gnet_update": gk.gnet_update, "upsample_mask": uk.upsample_mask,
             "fused_residual_stage": pb.fused_residual_stage,
             "downsample_block": pb.downsample_block,
-            "expand_block": pb.expand_block, "spp_tail": st.spp_tail}
+            "expand_block": pb.expand_block, "spp_tail": st.spp_tail,
+            "sweep_grad_src": sgk.sweep_grad_src}
 # launches per MaGNet frame of the F-Net's kernels (one pass over the 5
 # frames): chains of 2 (stem), 6 (layer1), 30 (layer2 after its first
 # block), 4 (layer3 after its first block) and 6 (layer4) convs; three convs
@@ -121,8 +166,9 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound_ms(n_bytes: int, flops: float) -> tuple:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+def bound_ms(n_bytes: int, flops: float,
+             peak_flops: float = PEAK_BF16_FLOPS) -> tuple:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -512,6 +558,182 @@ def check_psm_kernels(dev):
     return rows
 
 
+def sweep_case(roll: float = 0.0, invalid: bool = False,
+               seed: int = 8) -> list:
+    """Row-10 inputs at the F-Net training shape, on the CPU in f32: the
+    protocol's SID sweep planes, the intrinsics and rays of a 480x640 frame
+    at the cost volume's resolution, source poses as the synthetic dataset
+    makes them (small random motion), each turned by ``roll`` radians about
+    its optical axis, random features and cotangent. Returns the arguments
+    of ``sweep_grad_src``: (d_center, ref_feat, gbar, R, t, is_valid, intM,
+    rays2d)."""
+    rng = np.random.RandomState(seed)
+    fx = 0.9 * W
+    K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1.0]])
+    intM, rays2d = rays_lib.intrinsics_for_dpv(K, W, H, WC, HC)
+    c, s = np.cos(roll), np.sin(roll)
+    turn = np.array([[c, -s, 0, 0], [s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    ext = np.stack([[turn @ _small_pose(rng) for _ in range(VIEWS)]
+                    for _ in range(TRAIN_B)])
+    rel, valid = poses_lib.relative_poses(
+        np.tile(np.eye(4), (TRAIN_B, 1, 1)), ext)
+    R, t = poses_lib.split_rt(rel)
+    if invalid:
+        valid[0, 1] = 0.0
+    arrays = [sid_depth_centers(1e-3, 10.0, TRAIN_D),
+              rng.randn(TRAIN_B, HC, WC, FEAT),
+              rng.randn(TRAIN_B, HC, WC, TRAIN_D), R, t, valid,
+              np.tile(intM, (TRAIN_B, 1, 1)),
+              np.tile(rays2d, (TRAIN_B, 1, 1))]
+    return [torch.from_numpy(np.ascontiguousarray(x, np.float32))
+            for x in arrays]
+
+
+def sweep_grids(a: list) -> torch.Tensor:
+    """The normalized sample positions (B*V, H*W, D, 2) of every (pixel,
+    plane) in every view, as ``grid_sample`` takes them."""
+    d, _, _, R, t, _, K, rays = a
+    grids = []
+    for b in range(R.shape[0]):
+        for v in range(R.shape[1]):
+            x, y, _ = cvk.project(K[b], R[b, v], t[b, v], rays[b],
+                                  d.expand(HC * WC, -1), HC, WC)
+            grids.append(torch.stack([(2 * x + 1) / WC - 1,
+                                      (2 * y + 1) / HC - 1], -1))
+    return torch.stack(grids)
+
+
+def sweep_samples(a: list) -> tuple:
+    """(in-image corners, samples) of the sweep for these inputs: the
+    bilinear corners inside the map of every (pixel, plane) sample of every
+    valid view, and the number of those samples."""
+    grids = sweep_grids(a)
+    valid = a[5].reshape(-1)
+    corners = 0
+    for i in range(grids.shape[0]):
+        if valid[i] == 0:
+            continue
+        x = ((grids[i, ..., 0] + 1) * WC - 1) / 2
+        y = ((grids[i, ..., 1] + 1) * HC - 1) / 2
+        x0, y0 = torch.floor(x), torch.floor(y)
+        for cy in (0, 1):
+            for cx in (0, 1):
+                corners += int((((x0 + cx) >= 0) & ((x0 + cx) < WC)
+                                & ((y0 + cy) >= 0) & ((y0 + cy) < HC)).sum())
+    return corners, HC * WC * TRAIN_D * int(valid.sum())
+
+
+def sweep_work(a: list, out: torch.Tensor) -> tuple:
+    """Bytes and f32 operations the gradient needs for these inputs: each
+    input read once and the output written once; per in-image corner of a
+    valid view's sample a multiply-add per channel, per sample the
+    projection (about 30 operations)."""
+    corners, samples = sweep_samples(a)
+    return nbytes(*a, out), 2.0 * FEAT * corners + 30.0 * samples, corners
+
+
+def check_sweep_forward(dev):
+    """The cost volume kernel as the sweep's forward calls it
+    (``ops.costvolume.sweep_forward_args``: every pixel's candidates the 80
+    SID planes, mu 0, sigma 1e30 packed in the features' type, kappa 1) at
+    the F-Net training shape, f32 and bf16 features, at small motion, at a
+    0.9 rad roll and with one view invalid. There is no consistency
+    threshold to leave elements out for: both sides take exact products of
+    the same values and sum them in f32, so 1e-4 * max|ref| in both types."""
+    rows = []
+    for site, kw in (("sweep forward", {}),
+                     ("sweep forward, roll 0.9 rad", dict(roll=0.9)),
+                     ("sweep forward, one view invalid", dict(invalid=True))):
+        case = sweep_case(**kw)
+        g = torch.Generator().manual_seed(10)
+        src32 = _randn(g, TRAIN_B, VIEWS, HC, WC, FEAT).to(dev)
+        geo = [x.to(dev) for x in case[3:]]
+        d_center, ref32 = case[0].to(dev), case[1].to(dev)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            a = sweep_forward_args(d_center, ref32.to(dtype),
+                                   src32.to(dtype), *geo)
+            out = cvk.cost_volume_cw(*a)
+            ref = cvk.cost_volume_cw_ref(*a)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            lim = KERNEL_TOL[torch.float32] * ref.abs().max().item()
+            log(f"  cost_volume_cw ({site}) {str(dtype)[6:]}: max_abs_err "
+                f"{err:.3e} (limit {lim:.3e})")
+            if (out.shape != ref.shape or not torch.isfinite(out).all()
+                    or not err <= lim or not ref.abs().max() > 0.1):
+                raise RuntimeError("cost_volume_cw disagrees with its plain "
+                                   "version at the sweep forward")
+            errs[dtype] = err
+        corners, samples = sweep_samples(case)
+        n_valid = int(case[5].sum())
+        # the sweep's own inputs once (the depths as D planes, a view's
+        # features only where it is valid) and the output once; per
+        # in-image corner a multiply-add per channel, per sample the dot
+        # over C and the projection
+        need = (nbytes(d_center, a[1], out, *geo)
+                + nbytes(a[2]) * n_valid // (TRAIN_B * VIEWS))
+        flops = 2.0 * FEAT * corners + (2.0 * FEAT + 30.0) * samples
+        bms, by = bound_ms(need, flops, PEAK_F32_FLOPS)
+        rows.append(dict(
+            site=f"cost_volume_cw ({site})", path="fnet_train",
+            frame=site == "sweep forward", err_f32=errs[torch.float32],
+            err_bf16=errs[torch.bfloat16],
+            ms=graph_ms(lambda: cvk.cost_volume_cw(*a)),
+            plain_ms=plain_time(lambda: cvk.cost_volume_cw_ref(*a)),
+            library_ms=None, bound_ms=bms, bound_by=by, gflop=flops / 1e9,
+            compulsory_mb=need / 1e6, corners=corners))
+    return rows
+
+
+def check_sweep_kernel(dev):
+    """Row 10 at the F-Net training shape (B = 2, V = 4, D = 80, 120x160,
+    C = 64): f32 and bf16 features against the plain version, at small
+    motion, at a 0.9 rad roll and with one view invalid. The library time is
+    ATen's bilinear transpose (``grid_sampler_2d_backward``, zeros padding,
+    align_corners=False) over the same samples, the planes along the grid's
+    width, ``gbar * valid * ref`` as its incoming gradient, in f32."""
+    rows = []
+    for site, kw in (("main path", {}), ("roll 0.9 rad", dict(roll=0.9)),
+                     ("one view invalid", dict(invalid=True))):
+        a32 = [x.to(dev) for x in sweep_case(**kw)]
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            a = a32[:1] + [a32[1].to(dtype)] + a32[2:]
+            out = sgk.sweep_grad_src(*a)
+            errs[dtype] = check_close(f"sweep_grad_src ({site})", out,
+                                      sgk.sweep_grad_src_ref(*a), dtype)
+            if int(a[5].sum()) < a[5].numel() and out[0, 1].any():
+                raise RuntimeError("sweep_grad_src: an invalid view got a "
+                                   "gradient")
+        n_bytes, flops, corners = sweep_work(a, out)
+        bms, by = bound_ms(n_bytes, flops, PEAK_F32_FLOPS)
+        library = None
+        if site == "main path":
+            d, ref, gbar, R, t, valid, K, rays = a32
+            B, V = R.shape[:2]
+            grid = sweep_grids(a32)
+            grad_out = (ref.reshape(B, 1, HC * WC, FEAT, 1)
+                        * gbar.reshape(B, 1, HC * WC, 1, TRAIN_D)
+                        * valid.reshape(B, V, 1, 1, 1)).permute(
+                0, 1, 3, 2, 4).reshape(B * V, FEAT, HC * WC, TRAIN_D)
+            inp = torch.empty(B * V, FEAT, HC, WC, device=dev)
+            library = graph_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                grad_out, inp, grid, 0, 0, False, [True, False]), iters=5)
+            del grad_out
+        rows.append(dict(
+            site=f"sweep_grad_src ({site})", path="fnet_train",
+            frame=site == "main path", err_f32=errs[torch.float32],
+            err_bf16=errs[torch.bfloat16],
+            ms=graph_ms(lambda: sgk.sweep_grad_src(*a)),
+            ms_f32=graph_ms(lambda: sgk.sweep_grad_src(*a32)),
+            plain_ms=plain_time(lambda: sgk.sweep_grad_src_ref(*a)),
+            library_ms=library, bound_ms=bms, bound_by=by,
+            gflop=flops / 1e9, compulsory_mb=n_bytes / 1e6,
+            corners=corners))
+    return rows
+
+
 # ---- phases 4 and 5: the D-Net path ----------------------------------------
 
 def dnet_args(device: str, dtype: str, frames: int, exp_dir: str):
@@ -576,7 +798,8 @@ def run_dnet_path(frames: int, exp_dir: str) -> dict:
     # head, one convex upsampling; nothing of the fusion or the F-Net
     launches = check_counts("D-Net", counts, per_stage, dict(
         dict.fromkeys(FNET_LAUNCHES, 0), conv3x3_bnact=4, up2=2, up3=2,
-        head_chain=2, upsample_mask=1, cost_volume_cw=0, gnet_update=0),
+        head_chain=2, upsample_mask=1, cost_volume_cw=0, gnet_update=0,
+        sweep_grad_src=0),
         frames)
     for out in outs:
         if out.shape != (1, H, W, 2) or not np.isfinite(out).all():
@@ -668,7 +891,8 @@ def run_magnet_path(frames: int, exp_dir: str) -> dict:
     # iteration's prediction; one F-Net pass over the 5 frames
     launches = check_counts("MaGNet", counts, per_stage, dict(
         FNET_LAUNCHES, conv3x3_bnact=4, up2=2, up3=2, head_chain=3,
-        cost_volume_cw=ITERS, gnet_update=ITERS, upsample_mask=ITERS),
+        cost_volume_cw=ITERS, gnet_update=ITERS, upsample_mask=ITERS,
+        sweep_grad_src=0),
         frames)
     for out in outs:
         if out.shape != (1, H, W, 2) or not np.isfinite(out).all():
@@ -776,6 +1000,260 @@ def check_f32_magnet(exp_dir: str) -> dict:
     return worst
 
 
+# ---- phases 8 and 9: F-Net training ---------------------------------------
+
+def run_train_path(exp_dir: str) -> dict:
+    """F-Net training through the entry point's own code
+    (``train_fnet.train``) at the protocol of train_scripts/fnet/
+    scannet.txt: 480x640, batch 2, 4 source views, 80 SID planes, cost
+    volume 120x160, 64 features, bf16 with f32 master weights, seeded
+    initialisation, synthetic samples; TRAIN_STEPS optimizer steps, then one
+    validation pass (f32 weights, eval mode, through rows 6-9) and a
+    checkpoint."""
+    n = TRAIN_STEPS * TRAIN_B
+    args = config.setup_exp_dirs(protocol_args([
+        "--exp_name", "chip_smoke_fnet", "--exp_dir", exp_dir,
+        "--synthetic_length", str(n), "--n_epochs", "1",
+        "--validate_every", "1000000", "--log_every", "1"]), kind="train")
+    if ((args.input_height, args.input_width, args.dpv_height,
+         args.dpv_width, args.MAGNET_num_source_views,
+         args.FNET_num_depth_bins, args.batch_size, args.FNET_feature_dim,
+         args.compute_dtype) != (H, W, HC, WC, VIEWS, TRAIN_D, TRAIN_B, FEAT,
+                                 "bfloat16")):
+        raise RuntimeError("the flag file is not the F-Net training "
+                           "protocol")
+    init = {k: v.clone() for k, v in
+            build_magnet_f(args, "cuda").state_dict().items()}
+    n_val = n                       # the validation split has as many
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = train_fnet.train(args)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    state = out["state"]
+    # per step the sweep forward and backward; per validation sample the
+    # F-Net's inference kernels and the sweep forward
+    per_val = dict(FNET_LAUNCHES, cost_volume_cw=1)
+    want = {k: TRAIN_STEPS * int(k in ("cost_volume_cw", "sweep_grad_src"))
+            + n_val * per_val.get(k, 0) for k in WRAPPERS}
+    log(f"  launches over {TRAIN_STEPS} steps and {n_val} validation "
+        f"samples: found {counts}, expected {want}")
+    if counts != want:
+        raise RuntimeError("the F-Net training path did not run every kernel "
+                           "as expected")
+    losses = out["losses"]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise RuntimeError(f"training losses {losses}")
+    unmoved = [k for k, v in state.model.state_dict().items()
+               if "num_batches" not in k and torch.equal(v, init[k])]
+    if unmoved:
+        raise RuntimeError(f"not moved by training: {unmoved[:5]}")
+    if not all(np.isfinite(v) for v in out["metrics"].values()):
+        raise RuntimeError(f"non-finite validation metrics {out['metrics']}")
+    saved = checkpoint.restore(out["ckpt"])
+    current = state.model.state_dict()
+    if saved["step"] != state.step or state.step != TRAIN_STEPS or any(
+            not torch.equal(v, current[k].cpu())
+            for k, v in saved["model"].items()):
+        raise RuntimeError("the checkpoint does not restore the state")
+    host_ms = float(np.mean(out["step_ms"][1:]))
+    ev_ms = float(np.mean(out["step_event_ms"][1:]))
+    log(f"  losses {losses}; validation abs_rel "
+        f"{out['metrics']['abs_rel']:.4f}; checkpoint {out['ckpt']} restores "
+        f"step {saved['step']} and all {len(saved['model'])} tensors")
+    log(f"  step {host_ms:.3f} ms host clock incl. the loss read, "
+        f"{ev_ms:.3f} ms by CUDA events around the step (steps 2-"
+        f"{TRAIN_STEPS}); first step {out['step_ms'][0]:.3f} ms; "
+        f"max_memory_allocated {peak_gb:.3f} GiB")
+    return dict(launches=counts,
+                step_launches={k: v - n_val * per_val.get(k, 0)
+                               for k, v in counts.items()},
+                losses=losses, step_ms=host_ms,
+                step_event_ms=ev_ms, first_step_ms=out["step_ms"][0],
+                max_memory_allocated_gb=peak_gb, metrics=out["metrics"],
+                args=args, state=state)
+
+
+def train_account(args, state) -> dict:
+    """Where a training step's time goes: ``step_account`` (CUDA events
+    around the spans of the entry point's step) on a protocol batch, then
+    the profiler over two steps; both train ``state`` further."""
+    dev = torch.device("cuda")
+    d_center = torch.from_numpy(sid_depth_centers(
+        args.min_depth, args.max_depth, TRAIN_D)).to(dev)
+    batch = train_fnet.batch_to_device(
+        base.collate([SyntheticMultiView(args).get(i)
+                      for i in range(TRAIN_B)]), (HC, WC), dev)
+    step_fn = steps.make_fnet_train_step(
+        d_center, args.max_depth, args.min_depth,
+        config.compute_dtype(args.compute_dtype))
+    account = step_account(step_fn, state, batch)
+    for name, ms in account.items():
+        log(f"    {name:52s} {ms:9.4f} ms")
+    prof = kernel_profile(lambda: step_fn(state, batch), 2)
+    log(f"  profiler over 2 steps: {prof['device_busy_ms_per_frame']:.4f} ms "
+        f"busy per step of {prof['wall_ms_per_frame']:.4f}, idle share "
+        f"{prof['device_idle_share']:.4f}, "
+        f"{prof['kernel_launches_per_frame']:.1f} launches per step")
+    for k in prof["top_kernels"][:8]:
+        log(f"    {k['ms_per_frame']:8.4f} ms x{k['launches_per_frame']:5.1f}"
+            f"  {k['name']}")
+    return dict(account_ms=account, profile=prof)
+
+
+def condition_(model: torch.nn.Module) -> torch.nn.Module:
+    """Seeded weights brought to a point where two f32 programs' gradients
+    can be held to each other: every BatchNorm before a ReLU at bias 3 and
+    scale 0.5 (ReLU inputs 6 standard deviations above the kink, where f32
+    noise cannot flip one), zero-mean conv kernels (a conv after a ReLU then
+    makes no channel mean far above its spread, which would turn the
+    variance E[x^2] - E[x]^2 into a cancellation), the projection scaled by
+    0.1 (matching costs of O(1), so that the softmax passes a gradient)."""
+    psm = model.f_net.f_net
+    bns = [psm.firstconv[i][1] for i in (0, 2, 4)]
+    bns += [b.conv1[0][1] for li in range(1, 5)
+            for b in getattr(psm, f"layer{li}")]
+    bns += [getattr(psm, f"branch{i}")[1][1] for i in range(1, 5)]
+    bns.append(psm.lastconv[0][1])
+    with torch.no_grad():
+        for bn in bns:
+            bn.bias.fill_(3.0)
+            bn.weight.fill_(0.5)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight -= m.weight.mean(dim=(1, 2, 3), keepdim=True)
+        psm.lastconv[2].weight.mul_(0.1)
+    return model
+
+
+def train_step_outputs(model, raw, args, d_np, device: str, dtype) -> tuple:
+    """One training step of a copy of ``model`` on ``device`` in ``dtype``:
+    the loss, every parameter's (clipped) gradient and the BatchNorm running
+    buffers after the step, on the CPU."""
+    dev = torch.device(device)
+    m = copy.deepcopy(model).to(dev)
+    opt = optim.make_fnet_optimizer(m.parameters(), args.lr, 10)
+    step_fn = steps.make_fnet_train_step(torch.from_numpy(d_np).to(dev),
+                                         args.max_depth, args.min_depth,
+                                         dtype)
+    _, out = step_fn(steps.TrainState(m, opt), train_fnet.batch_to_device(
+        raw, (args.dpv_height, args.dpv_width), dev))
+    return (float(out["loss"]),
+            {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+            {k: b.detach().cpu() for k, b in m.named_buffers()
+             if "running" in k})
+
+
+def step_errors(res: tuple, ref: tuple) -> dict:
+    """A step's distance from a reference step: the loss relative, each
+    gradient as max|diff| / max|g| of its tensor (the worst and the median
+    tensor), the running buffers as |diff| / (|v| + 1)."""
+    (loss, grads, stats), (loss_ref, grads_ref, stats_ref) = res, ref
+    g = [(grads[k] - v).abs().max().item() / v.abs().max().item()
+         for k, v in grads_ref.items()]
+    return dict(loss=abs(loss - loss_ref) / abs(loss_ref), grad=max(g),
+                grad_median=float(np.median(g)),
+                stats=max(((stats[k] - v).abs() / (v.abs() + 1.0)).max().item()
+                          for k, v in stats_ref.items()))
+
+
+def batch_norm_bf16_statistics(x: torch.Tensor, bn) -> torch.Tensor:
+    """The control of the bf16 step check: train-mode BatchNorm with its
+    batch statistics taken in the activations' dtype, as casting the whole
+    BatchNorm to the compute dtype would (the JAX package keeps them f32)."""
+    mean = x.mean((0, 2, 3))
+    var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        for buf, stat in ((bn.running_mean, mean), (bn.running_var, var)):
+            buf.copy_(BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * stat.float())
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.to(x.dtype)
+    return ((x - mean[:, None, None]) * mul[:, None, None]
+            + bn.bias.to(x.dtype)[:, None, None])
+
+
+def check_train_step(exp_dir: str, device: str = "cuda") -> dict:
+    """One f32 training step on the card (TF32 off) against the same step on
+    the CPU (the plain versions), at a reduced shape, from the same weights
+    and batch: the loss to TRAIN_LOSS_TOL relative, every parameter's
+    (clipped) gradient to TRAIN_GRAD_TOL * max|g| of its tensor, the
+    BatchNorm running buffers after the step to TRAIN_STATS_TOL; each frame
+    gets a colour offset, so that the SPP BatchNorms, which see a few pooled
+    values, are not a cancellation. Then the protocol's bf16 step on the
+    card against that f32 step on the CPU, to BF16_TRAIN_TOL, and its
+    control (BatchNorm statistics in bf16), which must exceed one of those
+    limits."""
+    c = SMALL_TRAIN
+    args = protocol_args([
+        "--exp_dir", exp_dir, "--input_height", str(c["H"]),
+        "--input_width", str(c["W"]), "--dpv_height", str(c["H"] // 4),
+        "--dpv_width", str(c["W"] // 4), "--FNET_num_depth_bins",
+        str(c["D"]), "--MAGNET_num_source_views", str(c["V"]),
+        "--batch_size", str(c["B"]), "--compute_dtype", "float32"])
+    raw = base.collate([SyntheticMultiView(args).get(i)
+                        for i in range(c["B"])])
+    rng = np.random.RandomState(9)
+    for k, n in (("ref_img", (c["B"],)), ("src_imgs", (c["B"], c["V"]))):
+        raw[k] = raw[k] + (0.5 * rng.randn(*n, 1, 1, 3)).astype(np.float32)
+    d_np = sid_depth_centers(args.min_depth, args.max_depth, c["D"])
+    model = condition_(build_magnet_f(args, "cpu"))
+    margin = []
+    relu = F.relu
+
+    def recorded(x, *a, **k):
+        margin.append(x.detach().abs().min().item())
+        return relu(x, *a, **k)
+
+    F.relu = recorded
+    try:
+        ref = train_step_outputs(model, raw, args, d_np, "cpu",
+                                 torch.float32)
+    finally:
+        F.relu = relu
+    f32 = step_errors(train_step_outputs(model, raw, args, d_np, device,
+                                         torch.float32), ref)
+    bf16 = step_errors(train_step_outputs(model, raw, args, d_np, device,
+                                          torch.bfloat16), ref)
+    bn_train = psmnet.batch_norm_train
+    psmnet.batch_norm_train = batch_norm_bf16_statistics
+    try:
+        control = step_errors(train_step_outputs(model, raw, args, d_np,
+                                                 device, torch.bfloat16), ref)
+    finally:
+        psmnet.batch_norm_train = bn_train
+    log(f"  f32 training step card vs CPU at {c['H']}x{c['W']}, cost volume "
+        f"{c['H'] // 4}x{c['W'] // 4}, D={c['D']}, V={c['V']}, B={c['B']}: "
+        f"loss {ref[0]:.7f}, rel err {f32['loss']:.2e} (limit "
+        f"{TRAIN_LOSS_TOL}); worst gradient {f32['grad']:.2e} of its "
+        f"tensor's max (limit {TRAIN_GRAD_TOL}); worst running statistic "
+        f"{f32['stats']:.2e} (limit {TRAIN_STATS_TOL}); ReLU inputs at least "
+        f"{min(margin):.2e} from the kink")
+    for name, e in (("bf16 step on the card", bf16),
+                    ("control, BatchNorm statistics in bf16", control)):
+        log(f"  {name} vs the f32 step on the CPU: loss {e['loss']:.2e} "
+            f"(limit {BF16_TRAIN_TOL['loss']}); gradients worst "
+            f"{e['grad']:.2e} (limit {BF16_TRAIN_TOL['grad']}), median "
+            f"{e['grad_median']:.2e} (limit {BF16_TRAIN_TOL['grad_median']}); "
+            f"running statistics {e['stats']:.2e} (limit "
+            f"{BF16_TRAIN_TOL['stats']})")
+    if not min(ref[1]["f_net.f_net.firstconv.0.0.weight"].abs().max(),
+               ref[0]) > 0:
+        raise RuntimeError("the reference step has no gradient")
+    if not (f32["loss"] <= TRAIN_LOSS_TOL and f32["grad"] <= TRAIN_GRAD_TOL
+            and f32["stats"] <= TRAIN_STATS_TOL
+            and min(margin) > KINK_MARGIN):
+        raise RuntimeError("the training step on the card disagrees with "
+                           "the CPU")
+    if not all(bf16[k] <= v for k, v in BF16_TRAIN_TOL.items()):
+        raise RuntimeError("the bf16 training step on the card disagrees "
+                           "with the f32 step")
+    if all(control[k] <= v for k, v in BF16_TRAIN_TOL.items()):
+        raise RuntimeError("the bf16 step check does not see BatchNorm "
+                           "statistics taken in bf16")
+    return dict(loss_rel_err=f32["loss"], grad_err=f32["grad"],
+                stats_err=f32["stats"], relu_margin=min(margin), bf16=bf16,
+                bf16_control=control)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default="", help="also write the results here")
@@ -805,8 +1283,10 @@ def main() -> int:
     gnet_rows = check_gnet_kernel(dev)
     up_rows = check_upsample_kernel(dev)
     psm_rows = check_psm_kernels(dev)
-    sites = (conv_rows + head_rows + cv_rows + gnet_rows + up_rows
-             + psm_rows)
+    sweep_fwd_rows = check_sweep_forward(dev)
+    sweep_rows = check_sweep_kernel(dev)
+    sites = (conv_rows + head_rows + cv_rows + sweep_fwd_rows + gnet_rows
+             + up_rows + psm_rows + sweep_rows)
     for r in sites:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -817,6 +1297,13 @@ def main() -> int:
     for r in cv_rows:
         log(f"  {r['site']}: compulsory {r['compulsory_mb']:.1f} MB, the "
             f"gather requests {r['gather_mb']:.1f} MB")
+    for r in sweep_fwd_rows:
+        log(f"  {r['site']}: compulsory {r['compulsory_mb']:.1f} MB, "
+            f"{r['corners']} in-image corners")
+    for r in sweep_rows:
+        log(f"  {r['site']}: f32 features {r['ms_f32']:.4f} ms; compulsory "
+            f"{r['compulsory_mb']:.1f} MB, {r['corners']} in-image corners "
+            f"({r['corners'] * FEAT / 1e9:.3f} G atomic adds)")
 
     os.makedirs("exp", exist_ok=True)
     exp_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir="exp")
@@ -830,18 +1317,34 @@ def main() -> int:
     magnet_path = run_magnet_path(MAGNET_FRAMES, exp_dir)
     log("[7] f32 MaGNet forward, card against CPU; bf16 against that")
     magnet_err = check_f32_magnet(exp_dir)
+    log(f"[8] F-Net training path: {H}x{W}, batch {TRAIN_B}, {VIEWS} source "
+        f"views, {TRAIN_D} sweep planes, cost volume {HC}x{WC}, bf16, "
+        f"{TRAIN_STEPS} steps and a validation pass")
+    train_path = run_train_path(exp_dir)
+    train_path.update(train_account(train_path.pop("args"),
+                                    train_path.pop("state")))
+    log("[9] f32 training step, card against CPU")
+    train_err = check_train_step(exp_dir)
 
-    def entry(name, source, replaces, rows, key, per_frame=1):
-        """One kernel of the line: its sites on a frame of the MaGNet main
-        path, summed (``per_frame`` launches of each site)."""
-        on = [r for r in rows if r["frame"]]
-        launches = magnet_path["launches"][key]
+    def entry(name, source, replaces, rows, key, per_frame=1,
+              path="magnet"):
+        """One kernel of the line: its sites on a frame (a step on the
+        training path) of its main path, summed (``per_frame`` launches of
+        each site)."""
+        on = [r for r in rows if r["frame"] and r["path"] in (path, "both")]
+        if path == "magnet":
+            launches = magnet_path["launches"][key]
+            per = {"launches_per_frame": launches / MAGNET_FRAMES}
+        else:
+            launches = train_path["launches"][key]
+            per = {"launches_per_step":
+                   train_path["step_launches"][key] / TRAIN_STEPS}
         if launches < 1:
             raise RuntimeError(f"{name} was not launched on the main path")
         libs = [r["library_ms"] for r in on]
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches,
+            path=path, launches=launches,
             launches_dnet_path=dnet_path["launches"][key],
             max_abs_err=max(r["err_bf16"] for r in rows),
             max_abs_err_f32=max(r["err_f32"] for r in rows),
@@ -851,7 +1354,7 @@ def main() -> int:
             bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in on)
                       else "operations"),
             library_ms=(None if None in libs else per_frame * sum(libs)),
-            launches_per_frame=launches / MAGNET_FRAMES)
+            **per)
 
     csrc = "magnet_tpu_torch/kernels/csrc/"
     kernels = [
@@ -865,8 +1368,8 @@ def main() -> int:
               "magnet_tpu/kernels/headchain_pallas.py:121", head_rows,
               "head_chain"),
         entry("cost_volume_cw", csrc + "cost_volume_cw.cu",
-              "magnet_tpu/kernels/costvolume_pallas.py:734", cv_rows,
-              "cost_volume_cw", ITERS),
+              "magnet_tpu/kernels/costvolume_pallas.py:734",
+              cv_rows + sweep_fwd_rows, "cost_volume_cw", ITERS),
         entry("gnet_update", csrc + "gnet_update.cu",
               "magnet_tpu/kernels/gnet_pallas.py:124", gnet_rows,
               "gnet_update", ITERS),
@@ -881,13 +1384,24 @@ def main() -> int:
             ("downsample_block", "psm_conv.cu", "psmtrans_pallas.py:137"),
             ("expand_block", "psm_conv.cu", "psmtrans2_pallas.py:220"),
             ("spp_tail", "spp_tail.cu", "spptail_pallas.py:111"))
+    ] + [
+        entry("sweep_grad_src", csrc + "sweep_grad_src.cu",
+              "magnet_tpu/kernels/sweepbwd_pallas.py:166", sweep_rows,
+              "sweep_grad_src", path="fnet_train"),
     ]
+    # row 4 also runs on the training path, as the sweep forward: its
+    # sites there, with the launches of phase 8
+    kernels[3]["fnet_train"] = entry(
+        "cost_volume_cw (sweep forward)", csrc + "cost_volume_cw.cu",
+        "magnet_tpu/kernels/costvolume_pallas.py:734", sweep_fwd_rows,
+        "cost_volume_cw", path="fnet_train")
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump(dict(device=smi, kernels=kernels, sites=sites,
                            dnet_path=dnet_path, f32_dnet_err=fwd_err,
-                           magnet_path=magnet_path,
-                           f32_magnet=magnet_err), f, indent=1)
+                           magnet_path=magnet_path, f32_magnet=magnet_err,
+                           train_path=train_path, f32_train_step=train_err),
+                      f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

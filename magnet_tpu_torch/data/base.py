@@ -1,8 +1,9 @@
 """Input pipeline: image normalisation and a deterministic batch loader.
 
 The port's copy of the parts of ``magnet_tpu/data/base.py`` that the
-evaluation paths need. Datasets are plain objects with ``__len__`` and
-``get(idx)``; ``Loader`` yields them as numpy batches of one, in order.
+evaluation and training paths need. Datasets are plain objects with
+``__len__`` and ``get(idx)``; ``Loader`` yields them as numpy batches: in
+order for evaluation (batch 1 by default), shuffled per epoch for training.
 
 Item schema, multi-view: ref_img (H, W, 3) f32 ImageNet-normalised; src_imgs
 (V, H, W, 3); depth (H, W) of the reference frame, 0 where invalid; R, t
@@ -39,15 +40,37 @@ def collate(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 
 
 class Loader:
-    """Batches of one item of a dataset, in index order (the reference's
-    evaluation protocol runs at batch 1)."""
+    """Batches of a dataset as collated numpy arrays, in the caller's thread.
 
-    def __init__(self, dataset):
+    train=True: a fresh permutation each epoch from
+    ``RandomState((seed, epoch))``, the last partial batch dropped — the
+    indices of the JAX package's loader on one host. train=False: index
+    order, the last batch kept (batch 1 is the reference's evaluation
+    protocol)."""
+
+    def __init__(self, dataset, batch_size: int = 1, train: bool = False,
+                 seed: int = 0):
         self.dataset = dataset
+        self.batch_size = batch_size
+        self.train = train
+        self.seed = seed
+        self.epoch = 0
+
+    def _indices(self) -> np.ndarray:
+        n = len(self.dataset)
+        if self.train:
+            idx = np.random.RandomState((self.seed, self.epoch)).permutation(n)
+            return idx[:len(self) * self.batch_size]
+        return np.arange(n)
 
     def __len__(self) -> int:
-        return len(self.dataset)
+        if self.train:
+            return len(self.dataset) // self.batch_size
+        return -(-len(self.dataset) // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        for i in range(len(self.dataset)):
-            yield collate([self.dataset.get(i)])
+        idx = self._indices()
+        self.epoch += 1
+        for i in range(0, len(idx), self.batch_size):
+            yield collate([self.dataset.get(int(j))
+                           for j in idx[i:i + self.batch_size]])

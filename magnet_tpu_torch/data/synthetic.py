@@ -1,8 +1,8 @@
 """Synthetic datasets: procedurally generated images, smooth depth maps and
 (multi-view) small random camera motion with consistent intrinsics and ray
-arrays, so the evaluation paths run end to end without data on disk. The
-port's copy of ``magnet_tpu/data/synthetic.py``: the same seed gives the
-same frames in both packages.
+arrays, so the evaluation and training paths run end to end without data
+on disk. The port's copy of ``magnet_tpu/data/synthetic.py``: the same seed
+gives the same frames in both packages.
 """
 
 from __future__ import annotations
@@ -116,11 +116,16 @@ class SyntheticSingleView:
                 "scene_name": "synthetic", "img_idx": str(idx)}
 
 
-def make_multiview_loader(args) -> base.Loader:
-    """Dataset dispatch for the MaGNet evaluation. The on-disk datasets are
-    not ported yet."""
+def make_multiview_loader(args, mode: str = "test") -> base.Loader:
+    """Dataset dispatch for the multi-view paths: a mode containing "train"
+    gives the shuffled training loader at ``--batch_size``, any other mode
+    the evaluation loader at batch 1. The on-disk datasets are not ported
+    yet."""
     if args.dataset_name == "synthetic":
-        return base.Loader(SyntheticMultiView(args))
+        train = "train" in mode
+        return base.Loader(SyntheticMultiView(args),
+                           batch_size=args.batch_size if train else 1,
+                           train=train, seed=getattr(args, "seed", 0))
     raise ValueError(f"dataset {args.dataset_name!r} is not ported; "
                      "the port has 'synthetic'")
 

@@ -47,6 +47,9 @@ _SIGNATURES = {
     # dtype, raw, skip, br, w0, scale, shift, w1, zero, out, N, H, W, C0,
     # C1, C2, c_out, stream
     "mt_spp_tail": [_I] + [_P] * 9 + [_I] * 7 + [_P],
+    # dtype, depth, ref, gbar, R, t, valid, K, rays, out, B, V, H, W, C, D,
+    # stream
+    "mt_sweep_grad_src": [_I] + [_P] * 9 + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -125,12 +125,15 @@ def compare(out: torch.Tensor, ref: torch.Tensor, margin: torch.Tensor,
     return err, limit, excluded
 
 
-def _need(t: torch.Tensor, name: str, shape, dtype, device) -> torch.Tensor:
+def _need(t: torch.Tensor, name: str, shape, dtype, device,
+          what: str = "cost_volume_cw") -> torch.Tensor:
+    """``t`` checked for shape and device (raises) and made a contiguous
+    tensor of ``dtype``, for the launch of kernel ``what``."""
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"cost_volume_cw: {name} has shape "
+        raise ValueError(f"{what}: {name} has shape "
                          f"{tuple(t.shape)}, want {tuple(shape)}")
     if t.device != device:
-        raise ValueError(f"cost_volume_cw: {name} is on {t.device}, "
+        raise ValueError(f"{what}: {name} is on {t.device}, "
                          f"want {device}")
     return t.to(dtype).contiguous()
 

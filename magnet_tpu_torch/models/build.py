@@ -5,6 +5,8 @@ Counterpart of ``magnet_tpu/models/build.py``. ``build_dnet``,
 on the requested device; ``load_dnet_checkpoint`` and
 ``load_magnet_checkpoints`` load reference torch ``.pt`` files natively, and
 an empty path keeps the seeded weights (smoke runs without a checkpoint).
+``build_magnet_f`` makes the F-Net training head with the JAX package's
+training initialisation (``init_train_weights_``).
 ``cast_for_inference`` applies the compute-dtype policy;
 ``realistic_depth_init_`` puts seeded random weights into the depth regime
 of a trained network.
@@ -18,7 +20,7 @@ import torch.nn as nn
 from magnet_tpu_torch.compat.from_jax import load_state_dict
 from magnet_tpu_torch.models.dnet import DNet
 from magnet_tpu_torch.models.fnet import FNet
-from magnet_tpu_torch.models.magnet import Magnet
+from magnet_tpu_torch.models.magnet import Magnet, MagnetF
 from magnet_tpu_torch.nn.efficientnet import SqueezeExcite
 
 
@@ -46,6 +48,35 @@ def init_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
                 m.running_mean.normal_(0.0, 0.5, generator=g)
                 m.running_var.uniform_(0.5, 2.0, generator=g)
     return model
+
+
+def init_train_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
+    """The initialisation a training run starts from, as the JAX package's
+    PSM-Net has it (F_psmnet.py:71-85): every conv weight normal with std
+    sqrt(2 / (k * k * out_channels)) (Kaiming, fan-out), BatchNorm scale 1,
+    bias 0, running mean 0 and variance 1; seeded from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                kh, kw = m.kernel_size
+                std = (2.0 / (kh * kw * m.out_channels)) ** 0.5
+                m.weight.normal_(0.0, std, generator=g)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+    return model
+
+
+def build_magnet_f(args, device: str = None) -> MagnetF:
+    """The F-Net training head of the flags, initialised for training from
+    ``--seed``, in train mode on ``device`` (default ``--device``), f32."""
+    if args.FNET_architecture != "PSM-Net":
+        raise ValueError(f"unknown F-Net arch {args.FNET_architecture!r}")
+    model = MagnetF(fnet_feature_dim=args.FNET_feature_dim)
+    init_train_weights_(model, getattr(args, "seed", 0))
+    return model.train().to(device or args.device)
 
 
 def build_dnet(args, device: str = None) -> DNet:

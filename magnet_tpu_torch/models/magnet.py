@@ -16,6 +16,10 @@ is one launch of ``kernels.upsample_mask``.
 
 Parameter names give the reference checkpoint layout: ``d_net.d_net.*``,
 ``f_net.f_net.*``, ``g_net.gnet.{0,2,4,6}``, ``mask_head.{0,2,4,6}``.
+
+``MagnetF`` is the F-Net training head (stage 2): the matching features of
+the reference and source frames and the fixed plane-sweep cost volume over
+``sid_depth_centers``.
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ from magnet_tpu_torch.models.fnet import FNet
 from magnet_tpu_torch.nn.densedepth import run_head
 from magnet_tpu_torch.nn.gnet import GNet
 from magnet_tpu_torch.kernels.cost_volume_cw import cost_volume_cw
+from magnet_tpu_torch.ops.costvolume import cost_volume_sweep
 from magnet_tpu_torch.ops.upsample import upsample_via_mask
+from magnet_tpu_torch.utils.profiling import stage
 
 
 def gaussian_sampling_offsets(sampling_range: float,
@@ -134,3 +140,38 @@ class Magnet(nn.Module):
             gauss[B:].reshape(B, V, *gauss.shape[1:]),
             feat_m[B:].reshape(B, V, *feat_m.shape[1:]),
             src_R, src_t, is_valid, intM, rays2d, n_iters)
+
+
+class MagnetF(nn.Module):
+    """F-Net training head: features + fixed-sweep cost volume
+    (MAGNET.py:179-202). Inputs as in ``Magnet.forward``; d_center: (D,)
+    sweep depths. Returns the (B, h, w, D) cost volume, softmaxed over D.
+    Train mode trains the F-Net (``nn.psmnet``); eval mode runs its
+    kernels."""
+
+    def __init__(self, fnet_feature_dim: int = 64):
+        super().__init__()
+        self.f_net = FNet(feature_dim=fnet_feature_dim)
+
+    def forward(self, ref_img: torch.Tensor, src_imgs: torch.Tensor,
+                src_R: torch.Tensor, src_t: torch.Tensor,
+                is_valid: torch.Tensor, intM: torch.Tensor,
+                rays2d: torch.Tensor, d_center: torch.Tensor) -> torch.Tensor:
+        B, V, H, W = src_imgs.shape[:4]
+        with stage("F-Net forward"):
+            feat = self.f_net(
+                torch.cat([ref_img, src_imgs.reshape(B * V, H, W, 3)], 0))
+        with stage("sweep forward + softmax"):
+            return cost_volume_sweep(d_center, feat[:B],
+                                     feat[B:].reshape(B, V, *feat.shape[1:]),
+                                     src_R, src_t, is_valid, intM, rays2d)
+
+
+def sid_depth_centers(d_min: float, d_max: float, n_bins: int) -> np.ndarray:
+    """DORN-style SID sweep depths of F-Net training (train_FNet.py:55-65):
+    bin centres of exp(log(d_max + g) * i / N) - g with shift g = 1 - d_min,
+    i = 0..N; f32."""
+    g = 1.0 - d_min
+    idx = np.arange(n_bins + 1)
+    edges = np.exp(np.log(d_max + g) * idx / n_bins) - g
+    return ((edges[:-1] + edges[1:]) / 2).astype(np.float32)

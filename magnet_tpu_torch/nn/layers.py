@@ -7,7 +7,8 @@ add the semantics the JAX package gives them:
 
 * TF-SAME padding (right/bottom heavy) for the ``tf_`` EfficientNet convs;
 * eval BatchNorm with f32 statistics whatever the activation dtype
-  (eps 1e-3 in the EfficientNet trunk, 1e-5 in the decoder);
+  (eps 1e-3 in the EfficientNet trunk, 1e-5 in the decoder), and train-mode
+  BatchNorm with flax's statistics and running-buffer update;
 * ``leaky_relu`` with torch's default slope 0.01.
 
 Activations inside these modules are NCHW (channels-last in memory).
@@ -63,6 +64,32 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     f32 and returned in x's dtype."""
     return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                         bn.bias, False, 0.0, bn.eps)
+
+
+# flax's convention: running = BN_MOMENTUM * running + (1 - BN_MOMENTUM) *
+# batch (torch's momentum 0.1)
+BN_MOMENTUM = 0.9
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train-mode BatchNorm over NCHW as the JAX package computes it (flax
+    ``BatchNorm`` on f32): the batch mean and the biased variance
+    E[x^2] - E[x]^2 (clipped at 0) in f32, or in x's dtype where that is
+    wider; scale and bias rounded to x's dtype first (the compute-dtype cast
+    of every parameter) and applied in that type; the running buffers
+    updated in place from the biased variance (``nn.BatchNorm2d`` would use
+    the unbiased one). Returns x's dtype."""
+    dt = x.dtype
+    xf = x.to(torch.promote_types(dt, torch.float32))
+    mean = xf.mean((0, 2, 3))
+    var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        for buf, stat in ((bn.running_mean, mean), (bn.running_var, var)):
+            buf.copy_(BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * stat)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.to(dt).to(xf.dtype)
+    y = ((xf - mean[:, None, None]) * mul[:, None, None]
+         + bn.bias.to(dt).to(xf.dtype)[:, None, None])
+    return y.to(dt)
 
 
 def fold_bn(bn: nn.BatchNorm2d,

@@ -1,6 +1,6 @@
 """PSM-Net 2-D feature extractor (F-Net body), PyTorch.
 
-Counterpart of ``magnet_tpu/nn/psmnet.py`` in its inference form: the
+Counterpart of ``magnet_tpu/nn/psmnet.py``. In eval mode (inference) the
 residual stages, the two transition blocks and the tail each run through
 the port of the TPU kernel the JAX package runs there,
 
@@ -15,6 +15,12 @@ with eval BatchNorm folded to an f32 scale and shift. The stem's first conv
 (3 input channels, stride 2) and the four pooled SPP branches (1x1 convs on
 maps of a few pixels) run as plain PyTorch, as the JAX package leaves them
 to XLA.
+
+In train mode every conv is ``F.conv2d`` with autograd and every BatchNorm
+normalises with the batch's statistics and updates its running buffers
+(``nn.layers.batch_norm_train``), as the JAX package trains it with XLA
+convs and flax BatchNorm, never its kernels. The weights are cast to the
+activation dtype in the forward, so that gradients reach the f32 masters.
 
 Stride-2 stem of three conv-BN-ReLU layers, four residual stages (32x3,
 64x16 stride 2, 128x3, 128x3 dilation 2), a 4-branch spatial pyramid
@@ -40,7 +46,8 @@ from magnet_tpu_torch.kernels.psm_blocks import (downsample_block,
                                                  expand_block,
                                                  fused_residual_stage)
 from magnet_tpu_torch.kernels.spp_tail import spp_tail
-from magnet_tpu_torch.nn.layers import batch_norm, fold_bn, hwio, nchw, nhwc
+from magnet_tpu_torch.nn.layers import (batch_norm, batch_norm_train,
+                                        fold_bn, hwio, nchw, nhwc)
 from magnet_tpu_torch.ops.resample import (avg_pool,
                                            resize_bilinear_align_corners)
 
@@ -66,6 +73,14 @@ def run_convbn(x: torch.Tensor, cb: nn.Sequential) -> torch.Tensor:
     return batch_norm(y, bn)
 
 
+def train_convbn(x: torch.Tensor, cb: nn.Sequential) -> torch.Tensor:
+    """conv in x's dtype, then train-mode BatchNorm. NCHW."""
+    conv, bn = cb
+    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding,
+                 conv.dilation)
+    return batch_norm_train(y, bn)
+
+
 def fold_chain(cbs: Sequence[nn.Sequential], dtype: torch.dtype
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Equal-shaped conv-BN pairs as the stacked operands of a kernel chain:
@@ -83,7 +98,8 @@ def fold_chain(cbs: Sequence[nn.Sequential], dtype: torch.dtype
 
 class BasicBlock(nn.Module):
     """Residual block with no activation after the sum. It only holds the
-    parameters: ``PSMNet.forward`` runs the blocks through the kernels."""
+    parameters: ``PSMNet.forward`` runs the blocks through the kernels,
+    ``PSMNet.train_forward`` through library convs."""
 
     def __init__(self, inplanes: int, planes: int, stride: int,
                  downsample, dilation: int):
@@ -145,14 +161,10 @@ class PSMNet(nn.Module):
             convbn(320, 128, 3, 1, 1, 1), nn.ReLU(),
             nn.Conv2d(128, feature_dim, 1, bias=False))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (N, H, W, 3) -> (N, H/4, W/4, feature_dim), NHWC."""
-        y = nhwc(F.relu(run_convbn(nchw(x), self.firstconv[0])))
-        y = fused_residual_stage(
-            y, *fold_chain([self.firstconv[2], self.firstconv[4]], y.dtype),
-            1, residual=False)
-        raw = run_layer(run_layer(y, self.layer1), self.layer2)   # stride 4
-        skip = run_layer(run_layer(raw, self.layer3), self.layer4)
+    def spp_branches(self, skip: torch.Tensor, convbn) -> torch.Tensor:
+        """The four pooled branches of the NHWC map ``skip``, each resized
+        back to its size, concatenated in the order branch4 .. branch1;
+        ``convbn`` runs their conv-BN pairs."""
         H, W = skip.shape[1:3]
         # The SPP window is clamped to the map so that small inputs stay
         # valid; at the reference resolutions this changes nothing.
@@ -160,11 +172,45 @@ class PSMNet(nn.Module):
         for bi, win in enumerate(SPP_WINDOWS, 1):
             win = min(win, H, W)
             b = nchw(avg_pool(skip, win, win))
-            b = F.relu(run_convbn(b, getattr(self, f"branch{bi}")[1]))
+            b = F.relu(convbn(b, getattr(self, f"branch{bi}")[1]))
             branches.append(resize_bilinear_align_corners(nhwc(b), H, W))
+        return torch.cat(branches[::-1], -1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (N, H, W, 3) -> (N, H/4, W/4, feature_dim), NHWC. Train mode
+        runs ``train_forward``."""
+        if self.training:
+            return self.train_forward(x)
+        y = nhwc(F.relu(run_convbn(nchw(x), self.firstconv[0])))
+        y = fused_residual_stage(
+            y, *fold_chain([self.firstconv[2], self.firstconv[4]], y.dtype),
+            1, residual=False)
+        raw = run_layer(run_layer(y, self.layer1), self.layer2)   # stride 4
+        skip = run_layer(run_layer(raw, self.layer3), self.layer4)
         # concat order: raw, skip, branch4, branch3, branch2, branch1
-        br = torch.cat(branches[::-1], -1)
+        br = self.spp_branches(skip, run_convbn)
         conv0, bn0 = self.lastconv[0]
         proj = self.lastconv[2].weight.to(y.dtype)[:, :, 0, 0].t().contiguous()
         return spp_tail(raw, skip, br, hwio(conv0, y.dtype), *fold_bn(bn0),
                         proj)
+
+    def train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The training forward: library convs with autograd, train-mode
+        BatchNorm. x: (N, H, W, 3) NHWC -> (N, H/4, W/4, feature_dim)."""
+        y = nchw(x)
+        for i in (0, 2, 4):
+            y = F.relu(train_convbn(y, self.firstconv[i]))
+        stages = []
+        for li in range(1, len(STAGES) + 1):
+            for b in getattr(self, f"layer{li}"):
+                out = train_convbn(F.relu(train_convbn(y, b.conv1[0])),
+                                   b.conv2)
+                y = out + (y if b.downsample is None
+                           else train_convbn(y, b.downsample))
+            stages.append(y)
+        raw, skip = nhwc(stages[1]), nhwc(stages[3])
+        cat = torch.cat([raw, skip, self.spp_branches(skip, train_convbn)],
+                        -1)
+        y = F.relu(train_convbn(nchw(cat), self.lastconv[0]))
+        proj = self.lastconv[2].weight
+        return nhwc(F.conv2d(y, proj.to(y.dtype)))
