@@ -59,9 +59,30 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   9. the training step on the card against the CPU, f32 at a reduced shape
      (128x160, cost volume 32x40, D = 16, V = 2, B = 2), from the same
      weights and batch: loss to 1e-5 relative, every gradient to
-     1e-3 * max|g| of its tensor, the BatchNorm running buffers to 1e-5.
-Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
+     1e-3 * max|g| of its tensor, the BatchNorm running buffers to 1e-5;
+ 10. path A, the D-Net trunk's kernels (rows 12 and 13, --mbconv_chain all
+     --dw_kernel): the D-Net and MaGNet paths of phases 4 and 6 with them
+     on, their launches as predicted (row 12 three per block of the 30
+     stage-tail blocks, row 13 at the 5 stride-1 conv_dw outside the
+     chains, per D-Net pass); f32 on the card with them on against off (the
+     D-Net's trunk taps and output to 1e-5 * max|ref|, MaGNet at phase 7's
+     f32 limits), the bf16 MaGNet with them on against that f32 one at phase
+     7's bf16 limits; the trunk alone at N = 1 and 5, on against off by
+     events and by the profiler (launches, idle share);
+ 11. path B, MaGNet at the KITTI eval configuration
+     (test_scripts/magnet/kitti_eigen.txt: 352x1216, cost volume 88x304, 2
+     source views, 5 candidates, 3 iterations, bf16) with --stream_blocks
+     (row 14) through the entry point's code on synthetic samples: launches
+     as predicted (row 14 23 times per F-Net pass, the stem chain of row 6),
+     outputs finite, sigma > 0, no cost volume all zero, ms per frame, peak
+     memory, the stage split; the F-Net's f32 output with row 14 against
+     the chains of row 6 on the card to 1e-5 * max|ref|. No CPU reference
+     at this shape: phase 7 holds every shared kernel to the CPU already.
+Phase 3 also holds rows 12 and 13 at their path-A sites (N = 1 and 5) and
+row 14 at the four KITTI layer shapes (3 frames), f32 and bf16.
+Then a {"kernels": [...]} line (14 rows), the nvidia-smi line, and as the
+last line {"ok": true, "device": {...}}. Without a CUDA device it exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -89,22 +110,30 @@ from magnet_tpu_torch.geometry import rays as rays_lib
 from magnet_tpu_torch.kernels import build
 from magnet_tpu_torch.kernels import conv3x3_bnact as cb
 from magnet_tpu_torch.kernels import cost_volume_cw as cvk
+from magnet_tpu_torch.kernels import dw_conv as dwk
 from magnet_tpu_torch.kernels import gnet_update as gk
 from magnet_tpu_torch.kernels import head_chain as hc
+from magnet_tpu_torch.kernels import mbconv_chain as mbk
 from magnet_tpu_torch.kernels import psm_blocks as pb
+from magnet_tpu_torch.kernels import res_block as rbk
 from magnet_tpu_torch.kernels import spp_tail as st
 from magnet_tpu_torch.kernels import sweep_grad_src as sgk
 from magnet_tpu_torch.kernels import upsample_mask as uk
-from magnet_tpu_torch.models.build import (build_dnet, build_magnet,
-                                           build_magnet_f, cast_for_inference,
+from magnet_tpu_torch.models.build import (build_dnet, build_fnet,
+                                           build_magnet, build_magnet_f,
+                                           cast_for_inference, init_weights_,
                                            realistic_depth_init_)
 from magnet_tpu_torch.models.magnet import sid_depth_centers
 from magnet_tpu_torch.nn import psmnet
-from magnet_tpu_torch.nn.layers import BN_MOMENTUM
+from magnet_tpu_torch.nn.efficientnet import (CHAIN_OPERANDS,
+                                              InvertedResidual,
+                                              b5_stage_config, chain_stages,
+                                              fold_mbconv_chain)
+from magnet_tpu_torch.nn.layers import BN_MOMENTUM, nchw
 from magnet_tpu_torch.ops.costvolume import sweep_forward_args
 from magnet_tpu_torch.profile_dnet import cuda_ms, graph_ms, kernel_profile
 from magnet_tpu_torch.profile_fnet_train import protocol_args, step_account
-from magnet_tpu_torch.profile_magnet import eval_args
+from magnet_tpu_torch.profile_magnet import eval_args, stage_times
 from magnet_tpu_torch.train import checkpoint, optim, steps
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside the
@@ -140,13 +169,27 @@ WRAPPERS = {"conv3x3_bnact": cb.conv3x3_bnact, "head_chain": hc.head_chain,
             "fused_residual_stage": pb.fused_residual_stage,
             "downsample_block": pb.downsample_block,
             "expand_block": pb.expand_block, "spp_tail": st.spp_tail,
-            "sweep_grad_src": sgk.sweep_grad_src}
+            "sweep_grad_src": sgk.sweep_grad_src, "dw_conv": dwk.dw_conv,
+            "mbconv_chain": mbk.mbconv_chain, "res_block": rbk.res_block}
 # launches per MaGNet frame of the F-Net's kernels (one pass over the 5
 # frames): chains of 2 (stem), 6 (layer1), 30 (layer2 after its first
 # block), 4 (layer3 after its first block) and 6 (layer4) convs; three convs
 # in each transition block; one tail
 FNET_LAUNCHES = dict(fused_residual_stage=2 + 6 + 30 + 4 + 6,
                      downsample_block=3, expand_block=3, spp_tail=1)
+# path A, the D-Net trunk with both switches of its kernels on: per D-Net
+# pass three launches for each of the 30 blocks of the six stage tails, one
+# depthwise kernel at each of the 5 stride-1 conv_dw outside the chains
+TRUNK_FLAGS = ["--mbconv_chain", "all", "--dw_kernel"]
+TRUNK_LAUNCHES = dict(mbconv_chain=mbk.LAUNCHES_PER_BLOCK * 30, dw_conv=5)
+# path B, MaGNet at the KITTI eval configuration (test_scripts/magnet/
+# kitti_eigen.txt) with --stream_blocks
+KITTI_H, KITTI_W, KITTI_HC, KITTI_WC, KITTI_VIEWS = 352, 1216, 88, 304, 2
+KITTI_FRAMES = 3
+# per KITTI F-Net pass: the stem's chain of 2 convs, one res_block for each
+# stride-1 BasicBlock of layer1-4 (3 + 15 + 2 + 3), the transitions, the tail
+KITTI_FNET_LAUNCHES = dict(fused_residual_stage=2, res_block=23,
+                           downsample_block=3, expand_block=3, spp_tail=1)
 
 
 def reset_counts() -> None:
@@ -167,8 +210,14 @@ def nbytes(*ts) -> int:
 
 
 def bound_ms(n_bytes: int, flops: float,
-             peak_flops: float = PEAK_BF16_FLOPS) -> tuple:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / peak_flops
+             peak_flops: float = PEAK_BF16_FLOPS,
+             f32_flops: float = 0.0) -> tuple:
+    """The least time for the work: its bytes at the memory rate or its
+    operations at their units' peak rates (``flops`` at ``peak_flops``,
+    ``f32_flops`` outside the tensor cores, two units that run side by
+    side, so the longer of the two), whichever is longer."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = max(flops / peak_flops, f32_flops / PEAK_F32_FLOPS)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -734,16 +783,177 @@ def check_sweep_kernel(dev):
     return rows
 
 
+def trunk_tail_sites() -> list:
+    """(stage, blocks, map, C, M, K) of the six stage tails that run as MBConv
+    chains at 480x640 (blocks 1..n-1 of stages 1-6)."""
+    sites, hw = [], (H // 2, W // 2)            # after the stride-2 stem
+    for si, stage in enumerate(b5_stage_config()):
+        s = stage[0]["stride"]
+        hw = (-(-hw[0] // s), -(-hw[1] // s))
+        if si in chain_stages("all"):
+            c = stage[1]
+            sites.append((si, len(stage) - 1, hw, c["in_ch"],
+                          c["in_ch"] * c["expand"], c["kernel"]))
+    return sites
+
+
+def dw_sites() -> dict:
+    """{(map, channels, K): count} of the stride-1 conv_dw that stay outside
+    the chains at 480x640 with both switches on."""
+    sites, hw = {}, (H // 2, W // 2)
+    tails = chain_stages("all")
+    for si, stage in enumerate(b5_stage_config()):
+        for bi, c in enumerate(stage):
+            if c["stride"] != 1:
+                hw = (-(-hw[0] // c["stride"]), -(-hw[1] // c["stride"]))
+            elif not (si in tails and bi > 0):
+                ch = c["in_ch"] * (c["expand"] if c["btype"] == "ir" else 1)
+                key = (hw, ch, c["kernel"])
+                sites[key] = sites.get(key, 0) + 1
+    return sites
+
+
+def check_dw_kernel(dev):
+    """Row 13 at its path-A sites, one frame (D-Net) and 5 (MaGNet). The
+    library time is cuDNN's grouped conv on the same bf16 channels-last
+    input; the bound counts the taps' multiply-adds at the f32 rate (they
+    run outside the tensor cores)."""
+    g = torch.Generator().manual_seed(11)
+    rows = []
+    bf = torch.bfloat16
+    for n, path in ((1, "dnet_trunk"), (1 + VIEWS, "magnet_trunk")):
+        for (hw, c, k), count in dw_sites().items():
+            site = f"dw_conv {hw[0]}x{hw[1]} C={c} K={k} N={n}"
+            x = _randn(g, n, *hw, c).to(dev)
+            w = _randn(g, k, k, c, scale=1.0 / k).to(dev)
+            err32 = check_close(site, dwk.dw_conv(x, w),
+                                dwk.dw_conv_ref(x, w), torch.float32)
+            x16, w16 = x.to(bf), w.to(bf)
+            out = dwk.dw_conv(x16, w16)
+            err16 = check_close(site, out, dwk.dw_conv_ref(x16, w16), bf)
+            xin = x16.permute(0, 3, 1, 2)
+            wlib = w16.permute(2, 0, 1)[:, None].contiguous()
+            flops = 2.0 * n * hw[0] * hw[1] * c * k * k
+            bms, by = bound_ms(nbytes(x16, w16, out), 0.0, f32_flops=flops)
+            rows.append(dict(
+                site=site, path=path, frame=True, count=count, err_f32=err32,
+                err_bf16=err16, ms=graph_ms(lambda: dwk.dw_conv(x16, w16)),
+                plain_ms=plain_time(lambda: dwk.dw_conv_ref(x16, w16)),
+                library_ms=graph_ms(lambda: F.conv2d(xin, wlib, None, 1,
+                                                     k // 2, 1, c)),
+                bound_ms=bms, bound_by=by, gflop=flops / 1e9))
+    return rows
+
+
+def random_chain(nb: int, C: int, M: int, K: int, seed: int) -> list:
+    """nb stride-1 InvertedResidual blocks with seeded random weights and
+    BatchNorm statistics (``init_weights_``)."""
+    cfg = dict(btype="ir", kernel=K, stride=1, expand=M // C, in_ch=C,
+               out_ch=C)
+    return [init_weights_(InvertedResidual(cfg), seed + i).eval()
+            for i in range(nb)]
+
+
+def check_mbchain_kernel(dev):
+    """Row 12 at the six stage tails of a 480x640 trunk pass, one frame
+    (D-Net) and 5 (MaGNet). Bound, per site: the two 1x1 GEMMs at the bf16
+    tensor-core rate or the depthwise taps and the SE layers at the f32
+    rate, whichever is longer (the units overlap), or each input (x, the
+    stacked operands) read once and the output written once."""
+    rows = []
+    bf = torch.bfloat16
+    for si, nb, hw, c, m, k in trunk_tail_sites():
+        blocks = random_chain(nb, c, m, k, 100 * si)
+        ops32 = [t.to(dev) for t in fold_mbconv_chain(blocks, torch.float32)]
+        ops16 = [t.to(bf) if k in ("wpw", "wdw", "wpwl") else t
+                 for k, t in zip(CHAIN_OPERANDS, ops32)]
+        r = ops32[CHAIN_OPERANDS.index("wse1")].shape[-1]
+        for n, path in ((1, "dnet_trunk"), (1 + VIEWS, "magnet_trunk")):
+            g = torch.Generator().manual_seed(12 + si)
+            site = (f"mbconv_chain stage {si} ({nb} blocks, {hw[0]}x{hw[1]}, "
+                    f"C={c}, M={m}, K={k}) N={n}")
+            x = _randn(g, n, *hw, c, scale=0.5).to(dev)
+            err32 = check_close(site, mbk.mbconv_chain(x, *ops32, k),
+                                mbk.mbconv_chain_ref(x, *ops32, k),
+                                torch.float32)
+            x16 = x.to(bf)
+            out = mbk.mbconv_chain(x16, *ops16, k)
+            err16 = check_close(site, out, mbk.mbconv_chain_ref(x16, *ops16, k),
+                                bf)
+            pix = n * hw[0] * hw[1]
+            gemm = 2.0 * nb * pix * c * m * 2
+            other = 2.0 * nb * (pix * m * k * k + 2 * n * m * r)
+            bms, by = bound_ms(nbytes(x16, out, *ops16), gemm, f32_flops=other)
+            rows.append(dict(
+                site=site, path=path, frame=True, err_f32=err32,
+                err_bf16=err16,
+                ms=graph_ms(lambda: mbk.mbconv_chain(x16, *ops16, k)),
+                plain_ms=plain_time(
+                    lambda: mbk.mbconv_chain_ref(x16, *ops16, k)),
+                library_ms=None, bound_ms=bms, bound_by=by,
+                gflop=(gemm + other) / 1e9, launches=nb * 3))
+    return rows
+
+
+def resblock_sites() -> list:
+    """(site, map, C, dilation, blocks per F-Net pass) of row 14 at the
+    KITTI shape."""
+    half = (KITTI_H // 2, KITTI_W // 2)
+    quarter = (KITTI_HC, KITTI_WC)
+    return [("layer1", half, 32, 1, 3),
+            ("layer2 blocks 1-15", quarter, 64, 1, 15),
+            ("layer3 blocks 1-2", quarter, 128, 1, 2),
+            ("layer4 (dilation 2)", quarter, 128, 2, 3)]
+
+
+def check_resblock_kernel(dev):
+    """Row 14 at the four layer shapes of one KITTI F-Net pass (3 frames).
+    Bound: both convs at the bf16 tensor-core rate, or x, the weights and
+    the folded BN read once and the output written once. cuDNN's time for
+    the block's two convs alone is kept beside it (no one library call
+    computes the block)."""
+    g = torch.Generator().manual_seed(13)
+    n = 1 + KITTI_VIEWS
+    bf = torch.bfloat16
+    rows = []
+    for name, hw, c, dil, count in resblock_sites():
+        site = f"res_block {name} ({hw[0]}x{hw[1]}, C={c}) N={n}"
+        a32 = [_randn(g, n, *hw, c, scale=0.5).to(dev)]
+        for _ in range(2):
+            s_, t_ = _bn_pair(g, 1, c, dev)
+            a32 += [_randn(g, 3, 3, c, c, scale=(9 * c) ** -0.5).to(dev),
+                    s_[0], t_[0]]
+        err32 = check_close(site, rbk.res_block(*a32, dil),
+                            rbk.res_block_ref(*a32, dil), torch.float32)
+        a16 = [t.to(bf) if i in (0, 1, 4) else t for i, t in enumerate(a32)]
+        out = rbk.res_block(*a16, dil)
+        err16 = check_close(site, out, rbk.res_block_ref(*a16, dil), bf)
+        flops = 2.0 * 2 * n * hw[0] * hw[1] * 9 * c * c
+        bms, by = bound_ms(nbytes(*a16, out), flops)
+        xin, w1, w2 = _nchw_cl(a16[0]), _oihw_cl(a16[1]), _oihw_cl(a16[4])
+        rows.append(dict(
+            site=site, path="magnet_kitti", frame=True, count=count,
+            err_f32=err32, err_bf16=err16,
+            ms=graph_ms(lambda: rbk.res_block(*a16, dil)),
+            plain_ms=plain_time(lambda: rbk.res_block_ref(*a16, dil)),
+            library_ms=None,
+            cudnn_convs_ms=graph_ms(lambda: [
+                F.conv2d(xin, w, None, 1, dil, dil) for w in (w1, w2)]),
+            bound_ms=bms, bound_by=by, gflop=flops / 1e9))
+    return rows
+
+
 # ---- phases 4 and 5: the D-Net path ----------------------------------------
 
-def dnet_args(device: str, dtype: str, frames: int, exp_dir: str):
+def dnet_args(device: str, dtype: str, frames: int, exp_dir: str,
+              extra=()):
     return config.parse_args(config.build_test_dnet_parser(), [
         "--exp_name", "chip_smoke", "--exp_dir", exp_dir,
         "--output_dim", "2", "--output_type", "G", "--downsample_ratio", "4",
         "--DNET_architecture", "DenseDepth_BN", "--dataset_name", "synthetic",
         "--dataset_path", "none", "--input_height", str(H),
         "--input_width", str(W), "--ckpt_path", "", "--compute_dtype", dtype,
-        "--synthetic_length", str(frames), "--device", device])
+        "--synthetic_length", str(frames), "--device", device, *extra])
 
 
 def count_by_stage(decoder):
@@ -775,9 +985,12 @@ def check_counts(path: str, counts: dict, per_stage: dict, per_frame: dict,
     return found
 
 
-def run_dnet_path(frames: int, exp_dir: str) -> dict:
+def run_dnet_path(frames: int, exp_dir: str, extra=(),
+                  trunk: dict = None) -> dict:
+    """The D-Net through test_dnet's code with the flags ``extra``; ``trunk``
+    holds the launches per frame of the trunk's kernels they predict."""
     args = config.setup_exp_dirs(dnet_args("cuda", "bfloat16", frames,
-                                           exp_dir))
+                                           exp_dir, extra))
     model, forward = test_dnet.prepare(args)
     outs, secs = [], []
 
@@ -796,11 +1009,10 @@ def run_dnet_path(frames: int, exp_dir: str) -> dict:
         h.remove()
     # per frame: conv_a and conv_b in up2 and in up3, the depth and the mask
     # head, one convex upsampling; nothing of the fusion or the F-Net
-    launches = check_counts("D-Net", counts, per_stage, dict(
-        dict.fromkeys(FNET_LAUNCHES, 0), conv3x3_bnact=4, up2=2, up3=2,
-        head_chain=2, upsample_mask=1, cost_volume_cw=0, gnet_update=0,
-        sweep_grad_src=0),
-        frames)
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(conv3x3_bnact=4, up2=2, up3=2, head_chain=2,
+                upsample_mask=1, **(trunk or {}))
+    launches = check_counts("D-Net", counts, per_stage, want, frames)
     for out in outs:
         if out.shape != (1, H, W, 2) or not np.isfinite(out).all():
             raise RuntimeError(f"bad D-Net output {out.shape}")
@@ -815,12 +1027,29 @@ def run_dnet_path(frames: int, exp_dir: str) -> dict:
     x = torch.from_numpy(img[None]).to("cuda", torch.bfloat16)
     with torch.inference_mode():
         ev_ms = cuda_ms(lambda: model(x), iters=10, warmup=2)
+        prof = profile_summary(lambda: model(x))
     host_ms = 1e3 * float(np.mean(secs[1:] or secs))
     log(f"  forward {host_ms:.3f} ms/frame host clock incl. copies "
         f"({1e3 / host_ms:.2f} frames/s); {ev_ms:.3f} ms/frame by CUDA "
         f"events over back-to-back forwards; bf16, batch 1")
     return dict(launches=launches, metrics=metrics, forward_ms=host_ms,
-                fps=1e3 / host_ms, events_ms=ev_ms)
+                fps=1e3 / host_ms, events_ms=ev_ms, profile=prof)
+
+
+def profile_summary(forward, frames: int = 3) -> dict:
+    """``kernel_profile`` over ``frames`` forwards, logged: busy time, idle
+    share and launches per frame, the ported kernels' time."""
+    prof = kernel_profile(forward, frames)
+    log(f"  profiler over {frames} forwards: "
+        f"{prof['device_busy_ms_per_frame']:.4f} ms busy per frame of "
+        f"{prof['wall_ms_per_frame']:.4f}, idle share "
+        f"{prof['device_idle_share']:.4f}, "
+        f"{prof['kernel_launches_per_frame']:.1f} launches per frame, ported "
+        f"kernels {prof['ported_kernels_ms_per_frame']:.4f} ms")
+    for k in prof["top_kernels"][:6]:
+        log(f"    {k['ms_per_frame']:8.4f} ms x{k['launches_per_frame']:6.1f}"
+            f"  {k['name'][:90]}")
+    return prof
 
 
 def check_f32_forward(exp_dir: str) -> float:
@@ -846,10 +1075,11 @@ def check_f32_forward(exp_dir: str) -> float:
 
 # ---- phases 6 and 7: the MaGNet main path ----------------------------------
 
-def magnet_args(device: str, dtype: str, frames: int, exp_dir: str):
+def magnet_args(device: str, dtype: str, frames: int, exp_dir: str,
+                extra=()):
     """The flags of test_scripts/magnet/scannet.txt on the synthetic
-    dataset, without checkpoints."""
-    args = eval_args(dtype, device)
+    dataset, without checkpoints, then ``extra``."""
+    args = eval_args(dtype, device, "scannet", extra)
     args.exp_name, args.exp_dir = "chip_smoke_magnet", exp_dir
     args.synthetic_length = frames
     if ((args.input_height, args.input_width, args.dpv_height,
@@ -862,9 +1092,35 @@ def magnet_args(device: str, dtype: str, frames: int, exp_dir: str):
     return args
 
 
-def run_magnet_path(frames: int, exp_dir: str) -> dict:
-    args = config.setup_exp_dirs(magnet_args("cuda", "bfloat16", frames,
-                                             exp_dir))
+def kitti_args(device: str, dtype: str, frames: int, exp_dir: str,
+               extra=("--stream_blocks",)):
+    """The flags of test_scripts/magnet/kitti_eigen.txt on the synthetic
+    dataset, without checkpoints, then ``extra``."""
+    args = eval_args(dtype, device, "kitti", extra)
+    args.exp_name, args.exp_dir = "chip_smoke_kitti", exp_dir
+    args.synthetic_length = frames
+    if ((args.input_height, args.input_width, args.dpv_height,
+         args.dpv_width, args.MAGNET_num_source_views,
+         args.MAGNET_num_samples, args.MAGNET_num_test_iter,
+         args.max_depth, args.garg_crop)
+            != (KITTI_H, KITTI_W, KITTI_HC, KITTI_WC, KITTI_VIEWS, SAMPLES,
+                ITERS, 80.0, True)):
+        raise RuntimeError("the flag file is not the KITTI eval "
+                           "configuration")
+    return args
+
+
+def run_magnet_path(frames: int, exp_dir: str, args=None,
+                    fnet: dict = FNET_LAUNCHES, trunk: dict = None,
+                    stages: bool = False) -> dict:
+    """MaGNet through test_magnet's code (bf16; ``args`` default the ScanNet
+    eval flags); ``fnet`` and ``trunk`` hold the launches per frame of the
+    F-Net's and the trunk's kernels that the flags predict. With ``stages``
+    also ``profile_magnet.stage_times`` (CUDA events per stage)."""
+    if args is None:
+        args = magnet_args("cuda", "bfloat16", frames, exp_dir)
+    args = config.setup_exp_dirs(args)
+    shape = (1, args.input_height, args.input_width, 2)
     model, forward = test_magnet.prepare(args)
     realistic_depth_init_(model)
     outs, secs, cv_peaks = [], [], []
@@ -880,8 +1136,10 @@ def run_magnet_path(frames: int, exp_dir: str) -> dict:
     hooks.append(model.g_net.register_forward_pre_hook(
         lambda m, inputs: cv_peaks.append(inputs[0].abs().max())))
     reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     metrics = test_magnet.evaluate(args, recorded)
     counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     for h in hooks:
         h.remove()
     # per frame: one batched D-Net pass over the 5 frames (conv_a and conv_b
@@ -889,13 +1147,13 @@ def run_magnet_path(frames: int, exp_dir: str) -> dict:
     # feature term and MaGNet's mask head through the head chain; per
     # iteration one cost volume and one G-Net update; one upsampling per
     # iteration's prediction; one F-Net pass over the 5 frames
-    launches = check_counts("MaGNet", counts, per_stage, dict(
-        FNET_LAUNCHES, conv3x3_bnact=4, up2=2, up3=2, head_chain=3,
-        cost_volume_cw=ITERS, gnet_update=ITERS, upsample_mask=ITERS,
-        sweep_grad_src=0),
-        frames)
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(conv3x3_bnact=4, up2=2, up3=2, head_chain=3,
+                cost_volume_cw=ITERS, gnet_update=ITERS, upsample_mask=ITERS,
+                **fnet, **(trunk or {}))
+    launches = check_counts("MaGNet", counts, per_stage, want, frames)
     for out in outs:
-        if out.shape != (1, H, W, 2) or not np.isfinite(out).all():
+        if out.shape != shape or not np.isfinite(out).all():
             raise RuntimeError(f"bad MaGNet output {out.shape}")
         if not (out[..., 1] > 0).all():
             raise RuntimeError("sigma not positive")
@@ -913,86 +1171,111 @@ def run_magnet_path(frames: int, exp_dir: str) -> dict:
                                          torch.device("cuda"))
     with torch.inference_mode():
         ev_ms = cuda_ms(lambda: model(*inputs), iters=5, warmup=1)
+        prof = profile_summary(lambda: model(*inputs))
+        split = stage_times(model, inputs) if stages else {}
+    for name, ms in split.items():
+        log(f"    {name:44s} {ms:9.4f} ms")
     host_ms = 1e3 * float(np.mean(secs[1:] or secs))
     log(f"  forward {host_ms:.3f} ms/frame host clock incl. copies "
         f"({1e3 / host_ms:.2f} frames/s); {ev_ms:.3f} ms/frame by CUDA "
-        f"events over back-to-back forwards; bf16, batch 1, {VIEWS} source "
-        f"views")
+        f"events over back-to-back forwards; bf16, batch 1, "
+        f"{args.MAGNET_num_source_views} source views; "
+        f"max_memory_allocated {peak_gb:.3f} GiB")
     return dict(launches=launches, metrics=metrics, forward_ms=host_ms,
                 fps=1e3 / host_ms, events_ms=ev_ms, cv_peak_min=min(peaks),
-                cv_peak_max=max(peaks))
+                cv_peak_max=max(peaks), max_memory_allocated_gb=peak_gb,
+                profile=prof, stages_ms=split)
 
 
-def check_f32_magnet(exp_dir: str) -> dict:
-    """One f32 MaGNet forward on the card (kernels, TF32 off) against the
-    same forward on the CPU (plain versions), at full width, and the bf16
-    forward on the card against that f32 reference. The seeded random
-    weights are brought to costs and residuals of O(1) first: as they come,
-    the costs are of order 1e5 and the first G-Net update collapses sigma,
-    after which the comparison would see no fusion.
+def magnet_outputs(args, batch: dict, dtype, device: str) -> list:
+    """Each iteration's (mu, sigma) map, f32 on the CPU, of one forward of
+    the flags' MaGNet in ``dtype`` on ``device``. The seeded random weights
+    are brought to costs and residuals of O(1) first: as they come, the
+    costs are of order 1e5 and the first G-Net update collapses sigma, after
+    which a comparison would see no fusion."""
+    model = realistic_depth_init_(build_magnet(args, "cpu"))
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        model.f_net.f_net.lastconv[2].weight.mul_(1.0 / 500.0)
+        model.g_net.gnet[6].weight.normal_(0.0, 0.05 * 128 ** -0.5,
+                                           generator=g)
+    cast_for_inference(model, dtype).to(device)
+    inputs = test_magnet.batch_to_device(batch, dtype, torch.device(device))
+    with torch.inference_mode():
+        return [o.float().cpu() for o in model(*inputs)]
 
-    The bf16 forward rounds every iteration's (mu, sigma) map to bf16, so
+
+def compare_f32_maps(outs: list, refs: list, what: str) -> dict:
+    """Each iteration's f32 map to MAGNET_TOL * max|ref| on all but
+    MAGNET_FLIPS of the pixels."""
+    worst = dict(err=0.0, over=0.0)
+    for i, (out, ref) in enumerate(zip(outs, refs)):
+        err = (out - ref).abs()
+        lim = MAGNET_TOL * ref.abs().max().item()
+        over = (err > lim).float().mean().item()
+        log(f"  {what}, iteration {i}: max_abs_err {err.max().item():.3e} "
+            f"(limit {lim:.3e}), {over:.5f} of the pixels over it (at most "
+            f"{MAGNET_FLIPS})")
+        if out.shape != ref.shape or not over <= MAGNET_FLIPS:
+            raise RuntimeError(f"{what}: the f32 forwards disagree")
+        worst.update(err=max(worst["err"], err.max().item()),
+                     over=max(worst["over"], over))
+    return worst
+
+
+def compare_bf16_maps(outs: list, refs: list, what: str) -> dict:
+    """The bf16 forward rounds every iteration's (mu, sigma) map to bf16, so
     iteration i may be off by i ulp of the map's largest value before any
     error of the networks; on top of that it gets BF16_FORWARD_TOL of the
     reference map's range (max - min, per channel: the initial map is
     constant here, so the range is what the refinement did). At most
-    MAGNET_FLIPS of the pixels may be over, as in f32. It must move, too."""
-    args = magnet_args("cuda", "float32", 1, exp_dir)
-    batch = {k: v[None] for k, v in SyntheticMultiView(args).get(0).items()
-             if isinstance(v, np.ndarray)}
-    outs = {}
-    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
-                          ("cuda", torch.bfloat16)):
-        model = realistic_depth_init_(build_magnet(args, "cpu"))
-        g = torch.Generator().manual_seed(5)
-        with torch.no_grad():
-            model.f_net.f_net.lastconv[2].weight.mul_(1.0 / 500.0)
-            model.g_net.gnet[6].weight.normal_(0.0, 0.05 * 128 ** -0.5,
-                                               generator=g)
-        cast_for_inference(model, dtype).to(device)
-        inputs = test_magnet.batch_to_device(batch, dtype,
-                                             torch.device(device))
-        with torch.inference_mode():
-            outs[device, dtype] = [o.float().cpu() for o in model(*inputs)]
-    refs = outs["cpu", torch.float32]
-    moved = (refs[-1] - refs[0]).abs().max().item()
-    if not moved > 1e-3 or not refs[-1][..., 1].min() > 1e-3:
-        raise RuntimeError("the f32 reference run shows no refinement")
-    worst = dict(err=0.0, over=0.0, bf16_err=0.0, bf16_over=0.0)
-    for i, (out, ref) in enumerate(zip(outs["cuda", torch.float32], refs)):
-        err = (out - ref).abs()
-        lim = MAGNET_TOL * ref.abs().max().item()
-        over = (err > lim).float().mean().item()
-        log(f"  f32 MaGNet card vs CPU, iteration {i}: max_abs_err "
-            f"{err.max().item():.3e} (limit {lim:.3e}), {over:.5f} of the "
-            f"pixels over it (at most {MAGNET_FLIPS})")
-        if out.shape != (1, H, W, 2) or not over <= MAGNET_FLIPS:
-            raise RuntimeError("the f32 MaGNet forward on the card "
-                               "disagrees with the CPU")
-        worst.update(err=max(worst["err"], err.max().item()),
-                     over=max(worst["over"], over))
-    bf = outs["cuda", torch.bfloat16]
-    bf_moved = (bf[-1] - bf[0]).abs().max().item()
-    for i, (out, ref) in enumerate(zip(bf, refs)):
-        for c, what in enumerate(("mu", "sigma")):
+    MAGNET_FLIPS of the pixels may be over, as in f32."""
+    worst = dict(bf16_err=0.0, bf16_over=0.0)
+    for i, (out, ref) in enumerate(zip(outs, refs)):
+        for c, name in enumerate(("mu", "sigma")):
             o, r = out[..., c], ref[..., c]
             err = (o - r).abs()
             ulp = 2.0 ** (np.floor(np.log2(r.abs().max().item())) - 7)
             lim = ((i + 1) * ulp
                    + BF16_FORWARD_TOL * (r.max() - r.min()).item())
             over = (err > lim).float().mean().item()
-            log(f"  bf16 MaGNet card vs f32 CPU, iteration {i}, {what}: "
-                f"median_abs_err {err.median().item():.3e}, max_abs_err "
+            log(f"  {what}, iteration {i}, {name}: median_abs_err "
+                f"{err.median().item():.3e}, max_abs_err "
                 f"{err.max().item():.3e} (limit {lim:.3e} = {i + 1} ulp of "
                 f"{ulp:.3e} + {BF16_FORWARD_TOL} of the range "
                 f"{(r.max() - r.min()).item():.3e}), {over:.5f} of the "
                 f"pixels over it (at most {MAGNET_FLIPS})")
-            if (out.shape != (1, H, W, 2) or not torch.isfinite(o).all()
+            if (out.shape != ref.shape or not torch.isfinite(o).all()
                     or not over <= MAGNET_FLIPS):
-                raise RuntimeError("the bf16 MaGNet forward on the card "
-                                   "disagrees with the f32 reference")
+                raise RuntimeError(f"{what}: the bf16 forward disagrees "
+                                   "with the f32 reference")
             worst.update(bf16_err=max(worst["bf16_err"], err.max().item()),
                          bf16_over=max(worst["bf16_over"], over))
+    return worst
+
+
+def check_f32_magnet(exp_dir: str) -> dict:
+    """One f32 MaGNet forward on the card (kernels, TF32 off) against the
+    same forward on the CPU (plain versions), at full width, and the bf16
+    forward on the card against that f32 reference (``magnet_outputs``,
+    ``compare_f32_maps``, ``compare_bf16_maps``). The refinement must move
+    the map in both."""
+    args = magnet_args("cuda", "float32", 1, exp_dir)
+    batch = {k: v[None] for k, v in SyntheticMultiView(args).get(0).items()
+             if isinstance(v, np.ndarray)}
+    outs = {(device, dtype): magnet_outputs(args, batch, dtype, device)
+            for device, dtype in (("cuda", torch.float32),
+                                  ("cpu", torch.float32),
+                                  ("cuda", torch.bfloat16))}
+    refs = outs["cpu", torch.float32]
+    moved = (refs[-1] - refs[0]).abs().max().item()
+    if not moved > 1e-3 or not refs[-1][..., 1].min() > 1e-3:
+        raise RuntimeError("the f32 reference run shows no refinement")
+    worst = compare_f32_maps(outs["cuda", torch.float32], refs,
+                             "f32 MaGNet card vs CPU")
+    bf = outs["cuda", torch.bfloat16]
+    worst.update(compare_bf16_maps(bf, refs, "bf16 MaGNet card vs f32 CPU"))
+    bf_moved = (bf[-1] - bf[0]).abs().max().item()
     log(f"  the refinement moved the map by {moved:.3e} in f32 and "
         f"{bf_moved:.3e} in bf16 between its first and last iteration")
     if not bf_moved > 1e-3:
@@ -1254,6 +1537,119 @@ def check_train_step(exp_dir: str, device: str = "cuda") -> dict:
                 bf16_control=control)
 
 
+# ---- phase 10: path A, the D-Net trunk's kernels ---------------------------
+
+def check_trunk_f32(exp_dir: str) -> dict:
+    """Path A in f32 on the card (TF32 off), the same seeded weights with the
+    trunk's kernels on and off: the D-Net's five trunk taps and its output to
+    FORWARD_TOL * max|ref| each, as phase 5 holds the D-Net; MaGNet's maps
+    with them on against off at phase 7's f32 limits; the bf16 MaGNet with
+    them on against that f32 one at phase 7's bf16 limits."""
+    img = SyntheticSingleView(dnet_args("cuda", "float32", 1, exp_dir)).get(
+        0)["img"][None]
+    x = torch.from_numpy(img).to("cuda")
+    outs = {}
+    for name, extra in (("off", []), ("on", TRUNK_FLAGS)):
+        model = build_dnet(dnet_args("cuda", "float32", 1, exp_dir, extra),
+                           "cuda")
+        with torch.inference_mode():
+            taps = model.d_net.encoder(nchw(x))
+            outs[name] = [t.float().cpu() for t in taps] + [model(x).cpu()]
+        del model
+    dnet_err = 0.0
+    for what, o, r in zip(("f4", "f5", "f6", "f8", "f11", "output"),
+                          outs["on"], outs["off"]):
+        err = (o - r).abs().max().item()
+        lim = FORWARD_TOL * r.abs().max().item()
+        log(f"  f32 D-Net {what}, trunk kernels on vs off: max_abs_err "
+            f"{err:.3e} (limit {lim:.3e})")
+        if o.shape != r.shape or not err <= lim:
+            raise RuntimeError("the trunk's kernels change the f32 D-Net")
+        dnet_err = max(dnet_err, err / r.abs().max().item())
+    off = magnet_args("cuda", "float32", 1, exp_dir)
+    on = magnet_args("cuda", "float32", 1, exp_dir, TRUNK_FLAGS)
+    batch = {k: v[None] for k, v in SyntheticMultiView(off).get(0).items()
+             if isinstance(v, np.ndarray)}
+    f32_on = magnet_outputs(on, batch, torch.float32, "cuda")
+    worst = compare_f32_maps(f32_on, magnet_outputs(off, batch, torch.float32,
+                                                    "cuda"),
+                             "f32 MaGNet, trunk kernels on vs off")
+    worst.update(compare_bf16_maps(
+        magnet_outputs(on, batch, torch.bfloat16, "cuda"), f32_on,
+        "bf16 MaGNet vs f32, trunk kernels on"))
+    return dict(dnet_rel_err=dnet_err, **worst)
+
+
+def trunk_compare(exp_dir: str) -> dict:
+    """The D-Net trunk alone (bf16, 480x640) at N = 1 and N = 5, its kernels
+    off and on in turns (off, on, on, off): CUDA events per pass over 10
+    back-to-back passes, and the profiler's busy time, idle share and
+    launches per pass for each."""
+    img = SyntheticSingleView(dnet_args("cuda", "float32", 1, exp_dir)).get(
+        0)["img"]
+    trunks = {}
+    for name, extra in (("off", []), ("on", TRUNK_FLAGS)):
+        model = build_dnet(dnet_args("cuda", "bfloat16", 1, exp_dir, extra),
+                           "cuda")
+        trunks[name] = cast_for_inference(model, torch.bfloat16).d_net.encoder
+    res = {}
+    for n in (1, 1 + VIEWS):
+        x = nchw(torch.from_numpy(np.stack([img] * n)).to("cuda",
+                                                           torch.bfloat16))
+        ms = {"off": [], "on": []}
+        with torch.inference_mode():
+            for name in ("off", "on", "on", "off"):
+                ms[name].append(cuda_ms(lambda: trunks[name](x), iters=10,
+                                        warmup=2))
+            prof = {}
+            for name in ("off", "on"):
+                log(f"  trunk N={n}, kernels {name}:")
+                prof[name] = profile_summary(lambda: trunks[name](x))
+        log(f"  trunk N={n}: {ms['off']} ms off, {ms['on']} ms on by events")
+        drop = (prof["off"]["kernel_launches_per_frame"]
+                - prof["on"]["kernel_launches_per_frame"])
+        if not drop > 0:
+            raise RuntimeError("the trunk's kernels did not replace its "
+                               "eager launches")
+        res[f"N={n}"] = dict(events_ms=ms, profile=prof, launches_gone=drop)
+    return res
+
+
+# ---- phase 11: path B, MaGNet at the KITTI configuration -------------------
+
+def check_kitti_fnet(exp_dir: str) -> dict:
+    """The F-Net at the KITTI shape on one sample's 3 frames, both on the
+    card: f32 (TF32 off) with ``--stream_blocks`` (row 14) against without
+    (the chains of row 6) to FORWARD_TOL * max|ref|; then both in bf16 timed
+    by CUDA events, in turns (off, on, on, off)."""
+    flags = {"off": (), "on": ("--stream_blocks",)}
+    args = {k: kitti_args("cuda", "float32", 1, exp_dir, v)
+            for k, v in flags.items()}
+    item = SyntheticMultiView(args["on"]).get(0)
+    x = torch.from_numpy(np.concatenate([item["ref_img"][None],
+                                         item["src_imgs"]])).to("cuda")
+    models, outs = {}, {}
+    for name in ("off", "on"):
+        models[name] = build_fnet(args[name], "cuda")
+        with torch.inference_mode():
+            outs[name] = models[name](x).cpu()
+    err = (outs["on"] - outs["off"]).abs().max().item()
+    lim = FORWARD_TOL * outs["off"].abs().max().item()
+    log(f"  f32 F-Net at {KITTI_H}x{KITTI_W}, 3 frames, res_block vs the "
+        f"chains: max_abs_err {err:.3e} (limit {lim:.3e})")
+    if outs["on"].shape != (3, KITTI_HC, KITTI_WC, FEAT) or not err <= lim:
+        raise RuntimeError("row 14 disagrees with row 6 in the F-Net")
+    x16 = x.to(torch.bfloat16)
+    ms = {"off": [], "on": []}
+    with torch.inference_mode():
+        for name in ("off", "on", "on", "off"):
+            m = cast_for_inference(models[name], torch.bfloat16)
+            ms[name].append(cuda_ms(lambda: m(x16), iters=5, warmup=1))
+    log(f"  bf16 F-Net, 3 frames: {ms['off']} ms with the chains, "
+        f"{ms['on']} ms with res_block, by events")
+    return dict(err=err, limit=lim, events_ms=ms)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default="", help="also write the results here")
@@ -1285,8 +1681,11 @@ def main() -> int:
     psm_rows = check_psm_kernels(dev)
     sweep_fwd_rows = check_sweep_forward(dev)
     sweep_rows = check_sweep_kernel(dev)
+    mb_rows = check_mbchain_kernel(dev)
+    dw_rows = check_dw_kernel(dev)
+    rb_rows = check_resblock_kernel(dev)
     sites = (conv_rows + head_rows + cv_rows + sweep_fwd_rows + gnet_rows
-             + up_rows + psm_rows + sweep_rows)
+             + up_rows + psm_rows + sweep_rows + mb_rows + dw_rows + rb_rows)
     for r in sites:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -1304,6 +1703,9 @@ def main() -> int:
         log(f"  {r['site']}: f32 features {r['ms_f32']:.4f} ms; compulsory "
             f"{r['compulsory_mb']:.1f} MB, {r['corners']} in-image corners "
             f"({r['corners'] * FEAT / 1e9:.3f} G atomic adds)")
+    for r in rb_rows:
+        log(f"  {r['site']}: cuDNN's two convs alone "
+            f"{r['cudnn_convs_ms']:.4f} ms")
 
     os.makedirs("exp", exist_ok=True)
     exp_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir="exp")
@@ -1325,16 +1727,42 @@ def main() -> int:
                                     train_path.pop("state")))
     log("[9] f32 training step, card against CPU")
     train_err = check_train_step(exp_dir)
+    log(f"[10] path A: the D-Net trunk's kernels (--mbconv_chain all "
+        f"--dw_kernel), D-Net {H}x{W} bf16, {DNET_FRAMES} frames; MaGNet as "
+        f"in phase 6, {MAGNET_FRAMES} samples")
+    trunk_dnet = run_dnet_path(DNET_FRAMES, exp_dir, TRUNK_FLAGS,
+                               TRUNK_LAUNCHES)
+    trunk_magnet = run_magnet_path(
+        MAGNET_FRAMES, exp_dir, magnet_args("cuda", "bfloat16", MAGNET_FRAMES,
+                                            exp_dir, TRUNK_FLAGS),
+        trunk=TRUNK_LAUNCHES, stages=True)
+    trunk_err = check_trunk_f32(exp_dir)
+    trunk_cmp = trunk_compare(exp_dir)
+    log(f"[11] path B: MaGNet at the KITTI configuration with "
+        f"--stream_blocks, {KITTI_H}x{KITTI_W}, cost volume "
+        f"{KITTI_HC}x{KITTI_WC}, {KITTI_VIEWS} source views, {SAMPLES} "
+        f"candidates, {ITERS} iterations, bf16, {KITTI_FRAMES} samples")
+    kitti_path = run_magnet_path(
+        KITTI_FRAMES, exp_dir, kitti_args("cuda", "bfloat16", KITTI_FRAMES,
+                                          exp_dir),
+        fnet=KITTI_FNET_LAUNCHES, stages=True)
+    kitti_fnet = check_kitti_fnet(exp_dir)
+
+    runs = {"magnet": (magnet_path, MAGNET_FRAMES),
+            "dnet_trunk": (trunk_dnet, DNET_FRAMES),
+            "magnet_trunk": (trunk_magnet, MAGNET_FRAMES),
+            "magnet_kitti": (kitti_path, KITTI_FRAMES)}
 
     def entry(name, source, replaces, rows, key, per_frame=1,
               path="magnet"):
         """One kernel of the line: its sites on a frame (a step on the
         training path) of its main path, summed (``per_frame`` launches of
-        each site)."""
+        each site, ``count`` sites of a row)."""
         on = [r for r in rows if r["frame"] and r["path"] in (path, "both")]
-        if path == "magnet":
-            launches = magnet_path["launches"][key]
-            per = {"launches_per_frame": launches / MAGNET_FRAMES}
+        if path in runs:
+            run, frames = runs[path]
+            launches = run["launches"][key]
+            per = {"launches_per_frame": launches / frames}
         else:
             launches = train_path["launches"][key]
             per = {"launches_per_step":
@@ -1342,19 +1770,21 @@ def main() -> int:
         if launches < 1:
             raise RuntimeError(f"{name} was not launched on the main path")
         libs = [r["library_ms"] for r in on]
+
+        def total(k):
+            return per_frame * sum(r.get("count", 1) * r[k] for r in on)
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             path=path, launches=launches,
-            launches_dnet_path=dnet_path["launches"][key],
             max_abs_err=max(r["err_bf16"] for r in rows),
             max_abs_err_f32=max(r["err_f32"] for r in rows),
-            ms=per_frame * sum(r["ms"] for r in on),
-            plain_ms=per_frame * sum(r["plain_ms"] for r in on),
-            bound_ms=per_frame * sum(r["bound_ms"] for r in on),
+            ms=total("ms"), plain_ms=total("plain_ms"),
+            bound_ms=total("bound_ms"),
             bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in on)
                       else "operations"),
-            library_ms=(None if None in libs else per_frame * sum(libs)),
-            **per)
+            library_ms=None if None in libs else total("library_ms"),
+            **per, **({"launches_dnet_path": dnet_path["launches"][key]}
+                      if path == "magnet" else {}))
 
     csrc = "magnet_tpu_torch/kernels/csrc/"
     kernels = [
@@ -1395,12 +1825,31 @@ def main() -> int:
         "cost_volume_cw (sweep forward)", csrc + "cost_volume_cw.cu",
         "magnet_tpu/kernels/costvolume_pallas.py:734", sweep_fwd_rows,
         "cost_volume_cw", path="fnet_train")
+    # rows 12 and 13 on path A per MaGNet frame (the D-Net at N = 5), with
+    # the D-Net alone (N = 1) beside; row 14 on path B per KITTI frame
+    for name, source, replaces, rows in (
+            ("mbconv_chain", "mbconv_chain.cu", "mbchain_pallas.py:164",
+             mb_rows),
+            ("dw_conv", "dw_conv.cu", "dwconv_pallas.py:83", dw_rows)):
+        kernels.append(entry(name, csrc + source,
+                             "magnet_tpu/kernels/" + replaces, rows, name,
+                             path="magnet_trunk"))
+        kernels[-1]["dnet_trunk"] = entry(
+            name, csrc + source, "magnet_tpu/kernels/" + replaces, rows, name,
+            path="dnet_trunk")
+    kernels.append(entry("res_block", csrc + "res_block.cu",
+                         "magnet_tpu/kernels/resstream_pallas.py:173",
+                         rb_rows, "res_block", path="magnet_kitti"))
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump(dict(device=smi, kernels=kernels, sites=sites,
                            dnet_path=dnet_path, f32_dnet_err=fwd_err,
                            magnet_path=magnet_path, f32_magnet=magnet_err,
-                           train_path=train_path, f32_train_step=train_err),
+                           train_path=train_path, f32_train_step=train_err,
+                           trunk_dnet_path=trunk_dnet,
+                           trunk_magnet_path=trunk_magnet,
+                           trunk_f32=trunk_err, trunk_compare=trunk_cmp,
+                           kitti_path=kitti_path, kitti_fnet=kitti_fnet),
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -5,7 +5,11 @@ build_test_dnet_parser``, ``build_test_magnet_parser`` and
 ``build_train_fnet_parser``, in the same ``@file`` format
 (whitespace-separated tokens, one or more per line), so the reference flag
 files in ``test_scripts/`` and ``train_scripts/`` parse unchanged. Added:
-``--device`` (default ``cuda``). The training parser takes the flags the
+``--device`` (default ``cuda``), and on the evaluation parsers the switches
+of the kernels the JAX package runs only on request (environment variables
+there): ``--mbconv_chain`` (``MAGNET_TPU_PALLAS_MB``), ``--dw_kernel``
+(``MAGNET_TPU_PALLAS_DW``) and, for MaGNet, ``--stream_blocks``
+(``MAGNET_TPU_PALLAS_RST``). The training parser takes the flags the
 port reads and those the reference flag files set; argparse rejects the
 JAX package's others, and ``check_train_flags`` raises on a value whose
 feature the port does not have yet, rather than ignore it.
@@ -61,7 +65,31 @@ def build_test_dnet_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the plain versions of "
                         "the kernels")
+    add_trunk_switches(p)
     return p
+
+
+def add_trunk_switches(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mbconv_chain", type=str, default="none",
+                   help="'none', 'all' or a comma list of EfficientNet stage "
+                        "indices whose stride-1 tail runs as one MBConv "
+                        "chain (kernels.mbconv_chain)")
+    p.add_argument("--dw_kernel", default=False, action="store_true",
+                   help="stride-1 depthwise convs of the trunk through "
+                        "kernels.dw_conv")
+
+
+def parse_mbconv_chain(value: str):
+    """``--mbconv_chain``: None, "all" or a tuple of stage indices."""
+    if value in ("", "none"):
+        return None
+    if value == "all":
+        return "all"
+    try:
+        return tuple(int(v) for v in value.split(","))
+    except ValueError:
+        raise ValueError(f"--mbconv_chain {value!r}: 'none', 'all' or a "
+                         "comma list of stage indices") from None
 
 
 def build_test_magnet_parser() -> argparse.ArgumentParser:
@@ -112,6 +140,10 @@ def build_test_magnet_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the plain versions of "
                         "the kernels")
+    add_trunk_switches(p)
+    p.add_argument("--stream_blocks", default=False, action="store_true",
+                   help="each stride-1 F-Net BasicBlock as one "
+                        "kernels.res_block launch")
     return p
 
 

@@ -50,6 +50,13 @@ _SIGNATURES = {
     # dtype, depth, ref, gbar, R, t, valid, K, rays, out, B, V, H, W, C, D,
     # stream
     "mt_sweep_grad_src": [_I] + [_P] * 9 + [_I] * 6 + [_P],
+    # dtype, x, w, out, N, H, W, C, K, pt, pl, stream
+    "mt_dw_conv": [_I] + [_P] * 3 + [_I] * 7 + [_P],
+    # dtype, x, wpw, s1, wdw, s2, wse1, bse1, wse2, bse2, wpwl, s3, d, pool,
+    # gate, out, N, H, W, C, M, R, K, stream
+    "mt_mbconv_block": [_I] + [_P] * 15 + [_I] * 7 + [_P],
+    # dtype, x, w1, s1, t1, w2, s2, t2, out, N, H, W, C, dil, stream
+    "mt_res_block": [_I] + [_P] * 8 + [_I] * 5 + [_P],
 }
 
 _lib = None

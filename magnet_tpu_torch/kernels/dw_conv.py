@@ -1,0 +1,72 @@
+"""Stride-1 depthwise KxK convolution with TF-SAME padding, NHWC.
+
+The port of ``magnet_tpu/kernels/dwconv_pallas.py::dw_conv_pallas``, the
+EfficientNet trunk's stride-1 ``conv_dw`` at eval: ``out[n, y, x, c] =
+sum_{dy, dx} x[n, y + dy - pt, x + dx - pl, c] * w[dy, dx, c]`` with
+``pt = pl = (K - 1) // 2`` (TF-SAME at stride 1), zero outside the image,
+no bias, f32 accumulation, one rounding to x's dtype. The CUDA kernel
+(``csrc/dw_conv.cu``, K = 3 or 5) stages an output tile's input and halo in
+shared memory; bounded by bytes on an H100, see the source note. The TPU
+version's VMEM gates (``choose_tile_h``, ``supported``) have no counterpart:
+every map size runs.
+
+``dw_conv_ref`` is the plain PyTorch version. ``dw_conv`` runs it for
+tensors on the CPU and launches the kernel for tensors on a CUDA device, or
+raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from magnet_tpu_torch.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dw_conv_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version. x: (N, H, W, C); w: (K, K, C). Returns (N, H, W, C)
+    in x's dtype, computed in f32."""
+    K, C = w.shape[0], w.shape[-1]
+    pt = (K - 1) // 2
+    xf = F.pad(x.permute(0, 3, 1, 2).float(), (pt, K - 1 - pt, pt, K - 1 - pt))
+    out = F.conv2d(xf, w.float().permute(2, 0, 1)[:, None], groups=C)
+    return out.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def dw_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The depthwise conv with the arguments of ``dw_conv_ref``. CUDA
+    tensors (f32 or bf16, x and w of one dtype, contiguous, C a multiple of
+    16 bytes, K 3 or 5) launch the kernel on the current stream."""
+    if x.device.type == "cpu":
+        return dw_conv_ref(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"dw_conv: unsupported device {x.device}")
+    dt, dev = x.dtype, x.device
+    if dt not in _DTYPES:
+        raise ValueError(f"dw_conv: unsupported dtype {dt}")
+    if x.dim() != 4 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("dw_conv: x must be a contiguous, 16-byte aligned "
+                         "(N, H, W, C) tensor")
+    N, H, W, C = x.shape
+    K = w.shape[0]
+    if K not in (3, 5) or C % (16 // x.element_size()):
+        raise ValueError(f"dw_conv: window {K}, channels {C}")
+    if (tuple(w.shape) != (K, K, C) or w.dtype != dt or w.device != dev
+            or not w.is_contiguous() or w.data_ptr() % 16):
+        raise ValueError(f"dw_conv: w must be contiguous {(K, K, C)} {dt} "
+                         f"on {dev}")
+    out = torch.empty_like(x)
+    pt = (K - 1) // 2
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.mt_dw_conv(_DTYPES[dt], x.data_ptr(), w.data_ptr(),
+                             out.data_ptr(), N, H, W, C, K, pt, pt,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "dw_conv")
+    dw_conv.launches += 1
+    return out
+
+
+dw_conv.launches = 0

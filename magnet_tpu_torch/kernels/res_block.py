@@ -1,0 +1,73 @@
+"""One stride-1 PSM-Net BasicBlock in one launch, NHWC.
+
+The port of ``magnet_tpu/kernels/resstream_pallas.py::resblock_stream``,
+the F-Net's path for maps too large for the whole-map chains (the KITTI
+shape): ``out = bn2(conv2(relu(bn1(conv1(x))))) + x``, both convs 3x3 with
+dilation d and padding d, eval BatchNorm folded to an f32 scale and shift, no
+activation after the sum. The CUDA kernel (``csrc/res_block.cu``) computes
+conv1 on a mid tile with its halo, keeps it in shared memory (zero outside
+the image) and runs conv2 from there, so the mid map never reaches device
+memory; bounded by tensor-core operations, see the source note. The TPU
+version's gates (``_tile``, ``supported``) have no counterpart: every map
+size runs, C up to 128.
+
+``res_block_ref`` is the plain version: the two convs of
+``psm_blocks._conv_ref``, the mid map rounded to x's dtype. ``res_block``
+runs it for tensors on the CPU and launches the kernel for tensors on a CUDA
+device, or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from magnet_tpu_torch.kernels import build
+from magnet_tpu_torch.kernels.psm_blocks import _DTYPES, _check, _conv_ref
+
+
+def res_block_ref(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
+                  t1: torch.Tensor, w2: torch.Tensor, s2: torch.Tensor,
+                  t2: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+    """Plain version. x: (N, H, W, C); w1, w2: (3, 3, C, C) HWIO; s*, t*:
+    (C,) f32 folded BN. Returns (N, H, W, C) in x's dtype."""
+    mid = _conv_ref(x, w1, s1, t1, 1, dilation, True, None)
+    return _conv_ref(mid, w2, s2, t2, 1, dilation, False, x)
+
+
+def res_block(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
+              t1: torch.Tensor, w2: torch.Tensor, s2: torch.Tensor,
+              t2: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+    """The block with the arguments of ``res_block_ref``. CUDA tensors (f32
+    or bf16, C a multiple of 16 bytes and at most 128) launch the kernel on
+    the current stream."""
+    if x.device.type == "cpu":
+        return res_block_ref(x, w1, s1, t1, w2, s2, t2, dilation)
+    if x.device.type != "cuda":
+        raise ValueError(f"res_block: unsupported device {x.device}")
+    dt, dev = x.dtype, x.device
+    if dt not in _DTYPES:
+        raise ValueError(f"res_block: unsupported dtype {dt}")
+    if x.dim() != 4:
+        raise ValueError("res_block: x must be (N, H, W, C)")
+    N, H, W, C = x.shape
+    if C % (16 // x.element_size()) or C > 128 or dilation < 1:
+        raise ValueError(f"res_block: channels {C}, dilation {dilation}")
+    _check(x, "x", (N, H, W, C), dt, dev)
+    for name, w, s, t in (("1", w1, s1, t1), ("2", w2, s2, t2)):
+        _check(w, "w" + name, (3, 3, C, C), dt, dev)
+        _check(s, "s" + name, (C,), torch.float32, dev)
+        _check(t, "t" + name, (C,), torch.float32, dev)
+    out = torch.empty_like(x)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.mt_res_block(
+            _DTYPES[dt], x.data_ptr(), w1.data_ptr(), s1.data_ptr(),
+            t1.data_ptr(), w2.data_ptr(), s2.data_ptr(), t2.data_ptr(),
+            out.data_ptr(), N, H, W, C, dilation,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "res_block")
+    res_block.launches += 1
+    return out
+
+
+res_block.launches = 0

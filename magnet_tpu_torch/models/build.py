@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from magnet_tpu_torch.compat.from_jax import load_state_dict
+from magnet_tpu_torch.core import config
 from magnet_tpu_torch.models.dnet import DNet
 from magnet_tpu_torch.models.fnet import FNet
 from magnet_tpu_torch.models.magnet import Magnet, MagnetF
@@ -79,12 +80,21 @@ def build_magnet_f(args, device: str = None) -> MagnetF:
     return model.train().to(device or args.device)
 
 
+def trunk_switches(args) -> dict:
+    """The D-Net trunk's kernel switches of the flags (``--mbconv_chain``,
+    ``--dw_kernel``), off where the flags lack them."""
+    return dict(mbconv_chain=config.parse_mbconv_chain(
+        getattr(args, "mbconv_chain", "none")),
+        dw_kernel=getattr(args, "dw_kernel", False))
+
+
 def build_dnet(args, device: str = None) -> DNet:
     """DNet from the parsed flags, seeded from ``--seed``, in eval mode on
     ``device`` (default ``--device``)."""
     _check_arch(args)
     model = DNet(output_dim=args.output_dim, output_type=args.output_type,
-                 downsample_ratio=args.downsample_ratio)
+                 downsample_ratio=args.downsample_ratio,
+                 **trunk_switches(args))
     init_weights_(model, getattr(args, "seed", 0))
     return model.eval().to(device or args.device)
 
@@ -97,7 +107,8 @@ def load_dnet_checkpoint(model: DNet, path: str) -> DNet:
 
 
 def build_fnet(args, device: str = None) -> FNet:
-    model = FNet(args.FNET_architecture, args.FNET_feature_dim)
+    model = FNet(args.FNET_architecture, args.FNET_feature_dim,
+                 getattr(args, "stream_blocks", False))
     init_weights_(model, getattr(args, "seed", 0))
     return model.eval().to(device or args.device)
 
@@ -114,7 +125,9 @@ def build_magnet(args, device: str = None) -> Magnet:
                    sampling_range=args.MAGNET_sampling_range,
                    n_samples=args.MAGNET_num_samples,
                    mvs_weighting=args.MAGNET_mvs_weighting,
-                   n_iters=args.MAGNET_num_test_iter)
+                   n_iters=args.MAGNET_num_test_iter,
+                   stream_blocks=getattr(args, "stream_blocks", False),
+                   **trunk_switches(args))
     init_weights_(model, getattr(args, "seed", 0))
     return model.eval().to(device or args.device)
 

@@ -33,15 +33,20 @@ def activation_gaussian_stdev(out: torch.Tensor) -> torch.Tensor:
 
 
 class DNet(nn.Module):
-    """Standalone D-Net: (B, H, W, 3) -> (B, H, W, output_dim)."""
+    """Standalone D-Net: (B, H, W, 3) -> (B, H, W, output_dim).
+    ``mbconv_chain`` and ``dw_kernel`` switch the trunk's kernels
+    (``nn.efficientnet``)."""
 
     def __init__(self, output_dim: int = 2, output_type: str = "G",
-                 downsample_ratio: int = 4):
+                 downsample_ratio: int = 4, mbconv_chain=None,
+                 dw_kernel: bool = False):
         super().__init__()
         self.output_type = output_type
         self.d_net = DenseDepth(num_classes=output_dim,
                                 downsample_ratio=downsample_ratio,
-                                learned_upsampling=True, as_dnet=True)
+                                learned_upsampling=True, as_dnet=True,
+                                mbconv_chain=mbconv_chain,
+                                dw_kernel=dw_kernel)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         out = self.d_net(img)
@@ -53,11 +58,14 @@ class DNet(nn.Module):
 class DNetCoarse(nn.Module):
     """MaGNet-internal D-Net: coarse (mu, sigma) + decoder feature."""
 
-    def __init__(self, output_dim: int = 2, downsample_ratio: int = 4):
+    def __init__(self, output_dim: int = 2, downsample_ratio: int = 4,
+                 mbconv_chain=None, dw_kernel: bool = False):
         super().__init__()
         self.d_net = DenseDepth(num_classes=output_dim,
                                 downsample_ratio=downsample_ratio,
-                                learned_upsampling=True, as_dnet=False)
+                                learned_upsampling=True, as_dnet=False,
+                                mbconv_chain=mbconv_chain,
+                                dw_kernel=dw_kernel)
 
     def forward(self, img: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -21,7 +21,7 @@ module boundary.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -86,9 +86,10 @@ def run_head(head: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
 
 
 class Encoder(nn.Module):
-    def __init__(self):
+    def __init__(self, mbconv_chain: Union[None, str, Sequence[int]] = None,
+                 dw_kernel: bool = False):
         super().__init__()
-        self.original_model = EfficientNetB5Features()
+        self.original_model = EfficientNetB5Features(mbconv_chain, dw_kernel)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         return self.original_model(x)
@@ -115,15 +116,18 @@ class DenseDepth(nn.Module):
     """Full D-Net body. forward(x (B, H, W, 3) NHWC) returns
       as_dnet=True:  (B, H, W, num_classes) learned-upsampled output
       as_dnet=False: ((B, h, w, num_classes), (B, h, w, i_dim) feature)
-    where (h, w) = (H, W) / downsample_ratio."""
+    where (h, w) = (H, W) / downsample_ratio. ``mbconv_chain`` and
+    ``dw_kernel`` switch the trunk's kernels (``nn.efficientnet``)."""
 
     def __init__(self, num_classes: int = 2, downsample_ratio: int = 4,
-                 learned_upsampling: bool = True, as_dnet: bool = True):
+                 learned_upsampling: bool = True, as_dnet: bool = True,
+                 mbconv_chain: Union[None, str, Sequence[int]] = None,
+                 dw_kernel: bool = False):
         super().__init__()
         self.downsample_ratio = downsample_ratio
         self.learned_upsampling = learned_upsampling
         self.as_dnet = as_dnet
-        self.encoder = Encoder()
+        self.encoder = Encoder(mbconv_chain, dw_kernel)
         # The mask head exists whenever upsampling is learned, as in the
         # reference checkpoints, even where as_dnet=False leaves it unused.
         self.decoder = Decoder(num_classes, downsample_ratio,

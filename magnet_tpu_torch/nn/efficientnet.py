@@ -16,19 +16,35 @@ squeeze-excitation width of 0.25 of each block's input channels. Module
 names give the reference state-dict keys (conv_stem, bn1,
 blocks.{stage}.{idx}.{conv_pw,bn1,conv_dw,bn2,se,conv_pwl,bn3}, conv_head,
 bn2). Only the inference path is ported: the trunk runs as plain PyTorch
-convolutions, as the JAX package runs it in XLA.
+convolutions, as the JAX package runs it in XLA, unless one of the two
+switches of the JAX package's opt-in TPU kernels is on (both act in eval
+mode only, as there):
+
+* ``mbconv_chain`` (``MAGNET_TPU_PALLAS_MB``): ``"all"`` or a tuple of stage
+  indices; blocks 1..n-1 of each selected inverted-residual stage run as one
+  ``kernels.mbconv_chain`` call after block 0, on operands folded by
+  ``fold_mbconv_chain`` (kept until a parameter changes, as are the
+  depthwise taps of ``dw_kernel``: ``layers.cached_fold``);
+* ``dw_kernel`` (``MAGNET_TPU_PALLAS_DW``): every stride-1 ``conv_dw`` that
+  still runs as a module goes to ``kernels.dw_conv``.
+
+The JAX package's VMEM gate (``mbchain_pallas.supported``) has no
+counterpart: with the chain on, every stage's tail runs it, stages 2 and 6
+at 480x640 included.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Sequence, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from magnet_tpu_torch.nn.layers import batch_norm, conv2d, conv2d_same
+from magnet_tpu_torch.kernels.mbconv_chain import mbconv_chain
+from magnet_tpu_torch.nn.layers import (batch_norm, cached_fold, conv2d,
+                                        conv2d_same, fold_bn, nchw, nhwc)
 
 BN_EPS_TF = 1e-3
 
@@ -98,9 +114,10 @@ class SqueezeExcite(nn.Module):
 class DepthwiseSeparable(nn.Module):
     """Stage-0 block: dw conv -> BN -> swish -> SE -> pw conv -> BN."""
 
-    def __init__(self, cfg: dict):
+    def __init__(self, cfg: dict, dw_kernel: bool = False):
         super().__init__()
         c = cfg
+        self.dw_kernel = dw_kernel
         self.conv_dw = nn.Conv2d(c["in_ch"], c["in_ch"], c["kernel"],
                                  c["stride"], groups=c["in_ch"], bias=False)
         self.bn1 = _bn(c["in_ch"])
@@ -110,7 +127,8 @@ class DepthwiseSeparable(nn.Module):
         self.residual = c["in_ch"] == c["out_ch"] and c["stride"] == 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.silu(batch_norm(conv2d_same(x, self.conv_dw), self.bn1))
+        y = conv2d_same(x, self.conv_dw, self.dw_kernel and not self.training)
+        y = F.silu(batch_norm(y, self.bn1))
         y = self.se(y)
         y = batch_norm(conv2d(y, self.conv_pw), self.bn2)
         return y + x if self.residual else y
@@ -119,9 +137,10 @@ class DepthwiseSeparable(nn.Module):
 class InvertedResidual(nn.Module):
     """MBConv: pw expand -> dw -> SE -> pw linear, residual when possible."""
 
-    def __init__(self, cfg: dict):
+    def __init__(self, cfg: dict, dw_kernel: bool = False):
         super().__init__()
         c = cfg
+        self.dw_kernel = dw_kernel
         mid = c["in_ch"] * c["expand"]
         self.conv_pw = nn.Conv2d(c["in_ch"], mid, 1, bias=False)
         self.bn1 = _bn(mid)
@@ -135,33 +154,114 @@ class InvertedResidual(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.silu(batch_norm(conv2d(x, self.conv_pw), self.bn1))
-        y = F.silu(batch_norm(conv2d_same(y, self.conv_dw), self.bn2))
+        y = conv2d_same(y, self.conv_dw, self.dw_kernel and not self.training)
+        y = F.silu(batch_norm(y, self.bn2))
         y = self.se(y)
         y = batch_norm(conv2d(y, self.conv_pwl), self.bn3)
         return y + x if self.residual else y
 
 
+CHAIN_OPERANDS = ("wpw", "s1", "wdw", "s2", "wse1", "bse1", "wse2", "bse2",
+                  "wpwl", "s3")
+
+
+def fold_mbconv_chain(blocks: Sequence[InvertedResidual],
+                      dtype: torch.dtype) -> List[torch.Tensor]:
+    """Equal-shaped stride-1 InvertedResidual blocks as the stacked operands
+    of ``kernels.mbconv_chain`` (in ``CHAIN_OPERANDS`` order), as the JAX
+    package's ``_fused_chain`` packs them: eval BatchNorm folded (eps 1e-3)
+    in f32, bn1's scale into the expand columns, bn2's into the depthwise
+    taps, bn3's into the projection columns; those three in ``dtype``, the
+    shifts and the SE layers f32."""
+    f32 = torch.float32
+    packs = {k: [] for k in CHAIN_OPERANDS}
+    with torch.no_grad():
+        for b in blocks:
+            (sc1, t1), (sc2, t2), (sc3, t3) = (fold_bn(b.bn1), fold_bn(b.bn2),
+                                               fold_bn(b.bn3))
+            M, _, K, _ = b.conv_dw.weight.shape
+            se = b.se
+            packs["wpw"].append(b.conv_pw.weight[:, :, 0, 0].to(f32).t() * sc1)
+            packs["s1"].append(t1)
+            packs["wdw"].append(
+                b.conv_dw.weight.to(f32).reshape(M, K * K).t() * sc2)
+            packs["s2"].append(t2)
+            packs["wse1"].append(se.conv_reduce.weight[:, :, 0, 0].to(f32).t())
+            packs["bse1"].append(se.conv_reduce.bias.to(f32))
+            packs["wse2"].append(se.conv_expand.weight[:, :, 0, 0].to(f32).t())
+            packs["bse2"].append(se.conv_expand.bias.to(f32))
+            packs["wpwl"].append(b.conv_pwl.weight[:, :, 0, 0].to(f32).t() * sc3)
+            packs["s3"].append(t3)
+        return [torch.stack(packs[k]).to(dtype if k in ("wpw", "wdw", "wpwl")
+                                         else f32).contiguous()
+                for k in CHAIN_OPERANDS]
+
+
+def chain_stages(selection: Union[None, str, Sequence[int]]) -> frozenset:
+    """The stage indices whose stride-1 tail runs as one chain: ``None`` none,
+    ``"all"`` every inverted-residual stage with a tail, or those of a
+    sequence of indices (a depthwise-separable stage has no chain)."""
+    stages = b5_stage_config()
+    if selection is None:
+        return frozenset()
+    chosen = range(len(stages)) if selection == "all" else selection
+    out = set()
+    for si in chosen:
+        if not 0 <= int(si) < len(stages):
+            raise ValueError(f"mbconv_chain: no stage {si}")
+        stage = stages[int(si)]
+        if len(stage) > 1 and stage[1]["btype"] == "ir":
+            out.add(int(si))
+    return frozenset(out)
+
+
 class EfficientNetB5Features(nn.Module):
     """Returns the 5 decoder taps (f4, f5, f6, f8, f11), NCHW; see the
-    module doc. ``bn2`` is held for checkpoint completeness only: the
-    decoder reads the head conv before it."""
+    module doc for ``mbconv_chain`` and ``dw_kernel``. ``bn2`` is held for
+    checkpoint completeness only: the decoder reads the head conv before
+    it."""
 
-    def __init__(self):
+    def __init__(self, mbconv_chain: Union[None, str, Sequence[int]] = None,
+                 dw_kernel: bool = False):
         super().__init__()
+        self.chain_stages = chain_stages(mbconv_chain)
+        self.dw_kernel = dw_kernel
         self.conv_stem = nn.Conv2d(3, 48, 3, 2, bias=False)
         self.bn1 = _bn(48)
         self.blocks = nn.Sequential(*[
-            nn.Sequential(*[DepthwiseSeparable(c) if c["btype"] == "ds"
-                            else InvertedResidual(c) for c in stage])
+            nn.Sequential(*[DepthwiseSeparable(c, dw_kernel)
+                            if c["btype"] == "ds"
+                            else InvertedResidual(c, dw_kernel)
+                            for c in stage])
             for stage in b5_stage_config()])
         self.conv_head = nn.Conv2d(512, 2048, 1, bias=False)
         self.bn2 = _bn(2048)
 
+    def chain_operands(self, si: int, dtype: torch.dtype
+                       ) -> List[torch.Tensor]:
+        """Stage si's tail folded for ``mbconv_chain``, refolded when a
+        parameter or buffer of it has changed (``cached_fold``)."""
+        tail = list(self.blocks[si])[1:]
+        return cached_fold(
+            self, f"chain{si}", dtype,
+            [t for b in tail for t in (*b.parameters(), *b.buffers())],
+            lambda: fold_mbconv_chain(tail, dtype))
+
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         y = F.silu(batch_norm(conv2d_same(x, self.conv_stem), self.bn1))
+        if (self.chain_stages or self.dw_kernel) and not self.training:
+            # The kernels take the maps' NHWC views, which are free only in
+            # channels-last memory; an input whose strides are ambiguous
+            # (a size-1 batch with stride 0) gives an NCHW stem output.
+            y = y.contiguous(memory_format=torch.channels_last)
         taps = []
-        for stage in self.blocks:
-            y = stage(y)
+        for si, stage in enumerate(self.blocks):
+            if si in self.chain_stages and not self.training:
+                y = stage[0](y)
+                y = nchw(mbconv_chain(nhwc(y), *self.chain_operands(
+                    si, y.dtype), stage[1].conv_dw.kernel_size[0]))
+            else:
+                y = stage(y)
             taps.append(y)
         head = conv2d(y, self.conv_head)
         return [taps[0], taps[1], taps[2], taps[4], head]

@@ -16,11 +16,13 @@ Activations inside these modules are NCHW (channels-last in memory).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from magnet_tpu_torch.kernels.dw_conv import dw_conv
 
 LEAKY_SLOPE = 0.01
 
@@ -36,10 +38,41 @@ def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv2d_same(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+def is_stride1_depthwise(conv: nn.Conv2d) -> bool:
+    """A stride-1, undilated, bias-free depthwise conv: what
+    ``kernels.dw_conv`` computes."""
+    return (conv.groups > 1 and conv.groups == conv.in_channels
+            == conv.out_channels and conv.stride == (1, 1)
+            and conv.dilation == (1, 1) and conv.bias is None)
+
+
+def cached_fold(owner: nn.Module, name: str, dtype: torch.dtype,
+                sources: Sequence[torch.Tensor], fold: Callable):
+    """``fold()`` (a module's weights prepared for a kernel), kept on
+    ``owner`` under ``name`` and recomputed when ``dtype`` or a tensor of
+    ``sources`` has changed (storage or version)."""
+    key = (dtype,) + tuple((t.data_ptr(), t._version) for t in sources)
+    cache = owner.__dict__.setdefault("_folded", {})
+    hit = cache.get(name)
+    if hit is None or hit[0] != key:
+        with torch.no_grad():
+            hit = cache[name] = (key, fold())
+    return hit[1]
+
+
+def conv2d_same(x: torch.Tensor, conv: nn.Conv2d,
+                dw_kernel: bool = False) -> torch.Tensor:
     """``conv`` applied with TF-SAME padding, in x's dtype. Symmetric pads go
     to the convolution; asymmetric ones (a stride-2 conv on an even size)
-    are applied with ``F.pad`` first."""
+    are applied with ``F.pad`` first. With ``dw_kernel``, a stride-1
+    depthwise conv goes to ``kernels.dw_conv`` (the counterpart of the JAX
+    package's ``_DWPallasConv``) on x's NHWC view, which on a CUDA device
+    must be contiguous: x channels-last in memory. Its (K, K, C) taps are
+    kept on ``conv`` (``cached_fold``)."""
+    if dw_kernel and is_stride1_depthwise(conv):
+        w = cached_fold(conv, "dw_taps", x.dtype, (conv.weight,), lambda: (
+            conv.weight.to(x.dtype)[:, 0].permute(1, 2, 0).contiguous()))
+        return nchw(dw_conv(x.permute(0, 2, 3, 1), w))
     kh, kw = conv.kernel_size
     sh, sw = conv.stride
     pt, pb = same_pads(x.shape[-2], kh, sh)

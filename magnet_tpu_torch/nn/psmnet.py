@@ -11,7 +11,13 @@ the port of the TPU kernel the JAX package runs there,
 * the 3x3 conv over the 320-channel concat, BN, ReLU and the 1x1
   projection: ``kernels.spp_tail.spp_tail``,
 
-with eval BatchNorm folded to an f32 scale and shift. The stem's first conv
+with eval BatchNorm folded to an f32 scale and shift. With ``stream_blocks``
+(the JAX package's ``MAGNET_TPU_PALLAS_RST``, for maps too large for its
+whole-map chains, as at the KITTI shape) each stride-1 BasicBlock of
+layer1-layer4 is one ``kernels.res_block.res_block`` launch instead of its
+two convs in the chain; the stem and the transition blocks stay as they are,
+and the JAX package's gates (``resstream_pallas.supported``,
+``PSMNet._chain_ok``) have no counterpart. The stem's first conv
 (3 input channels, stride 2) and the four pooled SPP branches (1x1 convs on
 maps of a few pixels) run as plain PyTorch, as the JAX package leaves them
 to XLA.
@@ -45,6 +51,7 @@ import torch.nn.functional as F
 from magnet_tpu_torch.kernels.psm_blocks import (downsample_block,
                                                  expand_block,
                                                  fused_residual_stage)
+from magnet_tpu_torch.kernels.res_block import res_block
 from magnet_tpu_torch.kernels.spp_tail import spp_tail
 from magnet_tpu_torch.nn.layers import (batch_norm, batch_norm_train,
                                         fold_bn, hwio, nchw, nhwc)
@@ -111,10 +118,12 @@ class BasicBlock(nn.Module):
         self.downsample = downsample
 
 
-def run_layer(x: torch.Tensor, layer: nn.Sequential) -> torch.Tensor:
+def run_layer(x: torch.Tensor, layer: nn.Sequential,
+              stream_blocks: bool = False) -> torch.Tensor:
     """One residual stage on an NHWC map: a first block with a projection
     shortcut goes through its transition kernel, the stride-1 blocks after
-    it through one chain."""
+    it through one chain, or with ``stream_blocks`` one ``res_block`` launch
+    each."""
     blocks = list(layer)
     if blocks[0].downsample is not None:
         b = blocks.pop(0)
@@ -127,14 +136,21 @@ def run_layer(x: torch.Tensor, layer: nn.Sequential) -> torch.Tensor:
         x = block(x, *operands)
     if any(b.stride != 1 or b.downsample is not None for b in blocks):
         raise ValueError("only a stage's first block may change the shape")
+    if stream_blocks:
+        for b in blocks:
+            cb1, cb2 = b.conv1[0], b.conv2
+            x = res_block(x, hwio(cb1[0], x.dtype), *fold_bn(cb1[1]),
+                          hwio(cb2[0], x.dtype), *fold_bn(cb2[1]), b.dilation)
+        return x
     cbs = [cb for b in blocks for cb in (b.conv1[0], b.conv2)]
     return fused_residual_stage(x, *fold_chain(cbs, x.dtype),
                                 blocks[0].dilation)
 
 
 class PSMNet(nn.Module):
-    def __init__(self, feature_dim: int = 64):
+    def __init__(self, feature_dim: int = 64, stream_blocks: bool = False):
         super().__init__()
+        self.stream_blocks = stream_blocks
         self.firstconv = nn.Sequential(
             convbn(3, 32, 3, 2, 1, 1), nn.ReLU(),
             convbn(32, 32, 3, 1, 1, 1), nn.ReLU(),
@@ -185,8 +201,9 @@ class PSMNet(nn.Module):
         y = fused_residual_stage(
             y, *fold_chain([self.firstconv[2], self.firstconv[4]], y.dtype),
             1, residual=False)
-        raw = run_layer(run_layer(y, self.layer1), self.layer2)   # stride 4
-        skip = run_layer(run_layer(raw, self.layer3), self.layer4)
+        sb = self.stream_blocks
+        raw = run_layer(run_layer(y, self.layer1, sb), self.layer2, sb)
+        skip = run_layer(run_layer(raw, self.layer3, sb), self.layer4, sb)
         # concat order: raw, skip, branch4, branch3, branch2, branch1
         br = self.spp_branches(skip, run_convbn)
         conv0, bn0 = self.lastconv[0]

@@ -29,7 +29,9 @@ from magnet_tpu_torch.ops.upsample import upsample_via_mask
 
 OURS = ("conv3x3_bnact_kernel", "head_chain_kernel", "cost_volume_cw_kernel",
         "gnet_update_kernel", "upsample_mask_kernel", "psm_conv_kernel",
-        "spp_tail_kernel", "sweep_grad_src_kernel")
+        "spp_tail_kernel", "sweep_grad_src_kernel", "dw_conv_kernel",
+        "mb_expand_dw_kernel", "mb_se_kernel", "mb_project_kernel",
+        "res_block_kernel")
 SHAPE = (1, 480, 640, 3)
 FRAMES = 5
 

@@ -1,13 +1,18 @@
 """Where the MaGNet forward spends its time on the GPU.
 
-    python -m magnet_tpu_torch.profile_magnet [--dtype bfloat16] [--out p.json]
+    python -m magnet_tpu_torch.profile_magnet [--config scannet|kitti]
+        [--dtype bfloat16] [--out p.json] [test_magnet flags, e.g.
+        --stream_blocks --mbconv_chain all --dw_kernel]
 
-Two readings of one model at the ScanNet eval shape (480x640, cost volume
-120x160, 4 source views, 5 candidates, 3 iterations, batch 1; seeded random
-weights pinned to a trained network's depth regime; one synthetic sample):
+Two readings of one model at the eval shape of ``--config``
+(test_scripts/magnet/<config>.txt: ScanNet 480x640, cost volume 120x160, 4
+source views; KITTI 352x1216, cost volume 88x304, 2 source views; 5
+candidates, 3 iterations, batch 1; seeded random weights pinned to a trained
+network's depth regime; one synthetic sample; further flags go to the
+entry point's parser):
   * per stage, with CUDA events around each stage run alone on the inputs
-    the whole forward gives it: D-Net on the 5 frames, F-Net on the 5
-    frames, then per iteration candidate sampling, cost volume and G-Net
+    the whole forward gives it: D-Net on the 1 + V frames, F-Net on them,
+    then per iteration candidate sampling, cost volume and G-Net
     update, then G-Net's feature term, the mask head, one upsampling, and
     the whole forward;
   * per kernel, with ``torch.profiler`` over five forwards: kernel launches
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from pathlib import Path
 
 import torch
 
@@ -34,16 +40,23 @@ from magnet_tpu_torch.ops.upsample import upsample_via_mask
 from magnet_tpu_torch.profile_dnet import cuda_ms, kernel_profile
 
 FRAMES = 5
+FLAG_FILES = Path(__file__).resolve().parents[1] / "test_scripts" / "magnet"
+CONFIGS = {"scannet": None, "kitti": "kitti_eigen.txt"}
 
 
-def eval_args(dtype: str, device: str = "cuda"):
-    """The flags of test_scripts/magnet/scannet.txt, on the synthetic
-    dataset and without checkpoints."""
-    return config.parse_args(config.build_test_magnet_parser(), [
+def eval_args(dtype: str, device: str = "cuda", config_name: str = "scannet",
+              extra=()):
+    """The flags of test_scripts/magnet/<config>.txt (ScanNet: the parser's
+    defaults), on the synthetic dataset and without checkpoints, then
+    ``extra``."""
+    flag_file = CONFIGS[config_name]
+    head = ["@" + str(FLAG_FILES / flag_file)] if flag_file else []
+    return config.parse_args(config.build_test_magnet_parser(), head + [
         "--exp_name", "profile_magnet", "--exp_dir", "exp",
-        "--DNET_ckpt", "", "--FNET_ckpt", "", "--dataset_name", "synthetic",
+        "--DNET_ckpt", "", "--FNET_ckpt", "", "--MAGNET_ckpt", "",
+        "--dataset_name", "synthetic",
         "--dataset_path", "none", "--compute_dtype", dtype, "--device",
-        device, "--synthetic_length", "1"])
+        device, "--synthetic_length", "1", *extra])
 
 
 def stage_times(model, inputs) -> dict:
@@ -69,8 +82,8 @@ def stage_times(model, inputs) -> dict:
     feat_contrib = model.g_net.precompute_feature(x_d3)
     mask = run_head(model.mask_head, x_d3)
     stages = {
-        "D-Net, 5 frames": lambda: model.d_net(imgs),
-        "F-Net, 5 frames (PSM kernels)": lambda: model.f_net(imgs),
+        f"D-Net, {B * (V + 1)} frames": lambda: model.d_net(imgs),
+        f"F-Net, {B * (V + 1)} frames (PSM kernels)": lambda: model.f_net(imgs),
         "G-Net feature term (head kernel)":
             lambda: model.g_net.precompute_feature(x_d3),
     }
@@ -99,11 +112,12 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--dtype", default="bfloat16",
                    choices=("bfloat16", "float32"))
+    p.add_argument("--config", default="scannet", choices=tuple(CONFIGS))
     p.add_argument("--out", default="")
-    a = p.parse_args(argv)
+    a, extra = p.parse_known_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_magnet needs a CUDA device")
-    args = eval_args(a.dtype)
+    args = eval_args(a.dtype, "cuda", a.config, extra)
     dtype = config.compute_dtype(a.dtype)
     model = build.realistic_depth_init_(build.build_magnet(args))
     build.cast_for_inference(model, dtype)
@@ -114,6 +128,7 @@ def main(argv=None) -> dict:
     imgs = torch.cat([inputs[0], inputs[1].reshape(B * V, H, W, 3)], 0)
     with torch.inference_mode():
         res = dict(device=torch.cuda.get_device_name(0), dtype=a.dtype,
+                   config=a.config, flags=extra,
                    shape=[H, W], views=V, stages_ms=stage_times(model, inputs),
                    profile=kernel_profile(lambda: model(*inputs), FRAMES),
                    fnet_profile=kernel_profile(lambda: model.f_net(imgs),
