@@ -78,8 +78,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      memory, the stage split; the F-Net's f32 output with row 14 against
      the chains of row 6 on the card to 1e-5 * max|ref|. No CPU reference
      at this shape: phase 7 holds every shared kernel to the CPU already.
-Phase 3 also holds rows 12 and 13 at their path-A sites (N = 1 and 5) and
-row 14 at the four KITTI layer shapes (3 frames), f32 and bf16.
+Phase 3 also holds rows 12 and 13 at their path-A sites (N = 1 and 5),
+row 14 at the four KITTI layer shapes (3 frames), and rows 1 and 2 at the
+KITTI decoder's four conv shapes (3 frames, maps 44x152 and 88x304; timed,
+in no frame's sum), f32 and bf16.
 Then a {"kernels": [...]} line (14 rows), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Without a CUDA device it exits
 non-zero.
@@ -100,7 +102,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from magnet_tpu_torch import test_dnet, test_magnet, train_fnet
+from magnet_tpu_torch import profile_conv, test_dnet, test_magnet, train_fnet
 from magnet_tpu_torch.core import config
 from magnet_tpu_torch.data import base
 from magnet_tpu_torch.data.synthetic import (SyntheticMultiView,
@@ -243,16 +245,11 @@ def check_close(name: str, out: torch.Tensor, ref: torch.Tensor,
 # ---- phase 3: kernels against their plain versions -------------------------
 
 def conv_sites():
-    """(site, path, x shape, skip channels, Cout, upsample) of the conv
-    kernel at 480x640: decoder stages up2 and up3, one frame on the D-Net
-    path and the 5 frames of ``encode`` on the MaGNet path."""
-    return [(f"{stage}.{conv} N={n}", path, (n,) + hw, cs, cout, ups)
-            for n, path in ((1, "dnet"), (1 + VIEWS, "magnet"))
-            for stage, conv, hw, cs, cout, ups in (
-                ("up2", "conv_a", (30, 40, 1024), 64, 512, True),
-                ("up2", "conv_b", (60, 80, 512), 0, 512, False),
-                ("up3", "conv_a", (60, 80, 512), 40, 256, True),
-                ("up3", "conv_b", (120, 160, 256), 0, 256, False))]
+    """The conv kernel's sites (``profile_conv.conv_sites``) at this
+    script's shapes; the KITTI ones are held and timed but in no frame's
+    sum."""
+    return profile_conv.conv_sites((H, W), 1 + VIEWS, (KITTI_H, KITTI_W),
+                                   KITTI_FRAMES)
 
 
 def head_sites():
@@ -276,44 +273,28 @@ def check_conv_kernel(dev):
     for site, path, xs, cs, cout, ups in conv_sites():
         n, hs, ws, cx = xs
         h, w = (2 * hs, 2 * ws) if ups else (hs, ws)
-        k = 9 * (cx + cs)
-        a = dict(x=_randn(g, *xs), w=_randn(g, 3, 3, cx, cout, scale=k ** -.5),
-                 scale=_randn(g, cout).abs() + 0.5, shift=_randn(g, cout),
-                 skip=_randn(g, n, h, w, cs) if cs else None,
-                 w_skip=_randn(g, 3, 3, cs, cout, scale=k ** -.5) if cs
-                 else None, upsample=ups)
-        a32 = {k_: v.to(dev) if torch.is_tensor(v) else v
-               for k_, v in a.items()}
+        a32 = profile_conv.site_args(xs, cs, cout, ups, g, dev, torch.float32)
         err32 = check_close(site, cb.conv3x3_bnact(**a32),
                             cb.conv3x3_bnact_ref(**a32), torch.float32)
         a16 = {k_: (v.to(torch.bfloat16) if k_ in ("x", "w", "skip", "w_skip")
                     else v) if torch.is_tensor(v) else v
                for k_, v in a32.items()}
-        out = cb.conv3x3_bnact(**a16)
+        # the weights packed once, as the up-stage keeps them
+        packed = cb.pack_weights(a16["w"], a16["w_skip"])
+        out = cb.conv3x3_bnact(**a16, packed=packed)
         err16 = check_close(site, out, cb.conv3x3_bnact_ref(**a16),
                             torch.bfloat16)
-        # cuDNN over the same contraction: one conv over [up | skip].
-        xin = a16["x"].permute(0, 3, 1, 2)
-        if ups:
-            xin = F.interpolate(xin, size=(h, w), mode="bilinear",
-                                align_corners=True)
-        if cs:
-            xin = torch.cat([xin, a16["skip"].permute(0, 3, 1, 2)], 1)
-            wlib = torch.cat([a16["w"], a16["w_skip"]], 2)
-        else:
-            wlib = a16["w"]
-        xin = xin.contiguous(memory_format=torch.channels_last)
-        wlib = wlib.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        flops = 2.0 * n * h * w * cout * k
+        flops = 2.0 * n * h * w * cout * 9 * (cx + cs)
         bms, by = bound_ms(nbytes(a16["x"], a16["skip"], a16["w"],
                                   a16["w_skip"], a16["scale"], a16["shift"],
                                   out), flops)
         rows.append(dict(
             site=site, path=path, frame=path == "magnet", err_f32=err32,
-            err_bf16=err16, ms=graph_ms(lambda: cb.conv3x3_bnact(**a16)),
+            err_bf16=err16,
+            ms=graph_ms(lambda: cb.conv3x3_bnact(**a16, packed=packed)),
             plain_ms=plain_time(lambda: cb.conv3x3_bnact_ref(**a16)),
-            library_ms=graph_ms(lambda: F.conv2d(xin, wlib, padding=1)),
+            # cuDNN over the same contraction: one conv over [up | skip]
+            library_ms=graph_ms(profile_conv.library_conv(a16)),
             bound_ms=bms, bound_by=by, gflop=flops / 1e9))
     return rows
 

@@ -3,13 +3,21 @@
 The port of two TPU kernels: ``magnet_tpu/kernels/convstream_pallas.py``
 (``conv3x3_stream`` / ``up2_fused``, D-Net decoder stage up2) and
 ``magnet_tpu/kernels/upstage_pallas.py`` (``upstage_fused``, stage up3).
-One CUDA kernel (``csrc/conv3x3_bnact.cu``) serves both: an implicit GEMM
-whose K range runs over x and then over the skip, so the channel concat is
-never built, and which in upsample mode reads x at half resolution and forms
-each align_corners bilinear value in its tile loader. The epilogue is
+One CUDA source (``csrc/conv3x3_bnact.cu``) serves both: a GEMM whose K
+range runs over x and then over the skip, so the channel concat is never
+built, and which in upsample mode reads x at half resolution and forms each
+align_corners bilinear value on its way into shared memory. The epilogue is
 ``y = acc * scale + shift`` (conv bias folded into the shift) and an
-optional LeakyReLU(0.01). Bounded by tensor-core operations on an H100; see
-the source note for the design.
+optional LeakyReLU(0.01). Bounded by tensor-core operations on an H100.
+
+bf16 runs the Hopper kernel: a block owns a patch of output pixels, stages
+the patch's halo once per 64-channel block and lets all nine taps read it
+(wgmma on shared-memory descriptors), while a producer warp streams the
+weights through a ring of shared-memory stages with the bulk-copy engine.
+It reads the weights in the layout of ``pack_weights``; callers that run
+the conv more than once (``nn.densedepth.UpSampleBN``) pack them once and
+pass ``packed``. f32 runs an FMA implicit GEMM on HWIO weights, equal to a
+full-precision reference. The source note gives the design.
 
 ``conv3x3_bnact_ref`` is the plain PyTorch version of the same function.
 ``conv3x3_bnact`` runs it for tensors on the CPU and launches the kernel for
@@ -28,6 +36,62 @@ from magnet_tpu_torch.ops.resample import resize_bilinear_align_corners
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LEAKY = 2
+KC = 64    # input channels per K block of the bf16 kernel
+NPAD = 256   # its output channels are padded to a multiple of this
+
+
+def _ceil(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def packed_shape(cx: int, cs: int, cout: int) -> tuple:
+    """Shape of ``pack_weights``' result for Cx, Cs input and Cout output
+    channels."""
+    return ((_ceil(cx, KC) + _ceil(cs, KC)) // KC, 9, _ceil(cout, NPAD), KC)
+
+
+def _permute_rows(t: torch.Tensor) -> torch.Tensor:
+    """t (..., N, KC), N a multiple of 8, with the 16-byte chunk c of row n
+    moved to chunk c ^ (n % 8) of the row: the 128-byte swizzle, its own
+    inverse."""
+    j = torch.arange(KC)
+    idx = torch.stack([((j // 8) ^ r) * 8 + j % 8 for r in range(8)])
+    idx = idx.repeat(t.shape[-2] // 8, 1).to(t.device)
+    return torch.gather(t, -1, idx.expand(t.shape))
+
+
+def pack_weights(w: torch.Tensor,
+                 w_skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The HWIO weights of x (3, 3, Cx, Cout) and of the skip (3, 3, Cs,
+    Cout) in the layout the bf16 kernel reads: (K blocks, 9 taps, Cout
+    padded to 256, 64). K block b holds input channels [64 b, 64 b + 64) of
+    x, then of the skip; row [b, t, n] holds the weights of those channels
+    to output n at tap t = 3 kh + kw, its 16-byte chunks swizzled
+    (chunk c at c ^ (n % 8)), so that 128 rows from a multiple of 8 are one
+    wgmma operand slab in the 128-byte swizzle layout. Padding is zero."""
+    cout = w.shape[-1]
+    blocks = []
+    for t in (w, w_skip):
+        if t is None:
+            continue
+        c = t.shape[2]
+        cp = _ceil(c, KC)
+        t = F.pad(t, (0, _ceil(cout, NPAD) - cout, 0, cp - c))
+        blocks.append(t.reshape(9, cp // KC, KC, -1).permute(1, 0, 3, 2))
+    return _permute_rows(torch.cat(blocks)).contiguous()
+
+
+def unpack_weights(packed: torch.Tensor, cx: int, cs: int, cout: int
+                   ) -> tuple:
+    """The HWIO (w, w_skip) that ``pack_weights`` packed (w_skip None when
+    cs is 0)."""
+    rows = _permute_rows(packed)
+
+    def hwio(blocks, c):
+        return blocks.permute(1, 0, 3, 2).reshape(3, 3, -1, blocks.shape[2])[
+            :, :, :c, :cout]
+    nxb = _ceil(cx, KC) // KC
+    return (hwio(rows[:nxb], cx), hwio(rows[nxb:], cs) if cs else None)
 
 
 def conv3x3_bnact_ref(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -67,11 +131,14 @@ def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
 def conv3x3_bnact(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                   shift: torch.Tensor, skip: Optional[torch.Tensor] = None,
                   w_skip: Optional[torch.Tensor] = None,
-                  upsample: bool = False, act: bool = True) -> torch.Tensor:
+                  upsample: bool = False, act: bool = True,
+                  packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """LeakyReLU((conv3x3(up(x)) + conv3x3(skip)) * scale + shift), with the
     arguments of ``conv3x3_bnact_ref``. CPU tensors take the plain version;
     CUDA tensors (f32 or bf16, channels a multiple of 16 bytes) launch the
-    kernel on the current stream."""
+    kernel on the current stream. ``packed``: ``pack_weights(w, w_skip)``,
+    made once by the caller (bf16 on a CUDA device only; packed here when
+    None)."""
     if x.device.type == "cpu":
         return conv3x3_bnact_ref(x, w, scale, shift, skip, w_skip, upsample,
                                  act)
@@ -99,14 +166,20 @@ def conv3x3_bnact(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         _check(w_skip, "w_skip", (3, 3, Cs, Cout), dt, dev)
     _check(scale, "scale", (Cout,), torch.float32, dev)
     _check(shift, "shift", (Cout,), torch.float32, dev)
+    wx, ws = w, w_skip
+    if dt == torch.bfloat16:
+        if packed is None:
+            packed = pack_weights(w, w_skip)
+        _check(packed, "packed", packed_shape(Cx, Cs, Cout), dt, dev)
+        wx, ws = packed, None
 
     out = torch.empty((N, H, W, Cout), dtype=dt, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
         err = lib.mt_conv3x3_bnact(
             _DTYPES[dt], x.data_ptr(),
-            skip.data_ptr() if skip is not None else None, w.data_ptr(),
-            w_skip.data_ptr() if skip is not None else None,
+            skip.data_ptr() if skip is not None else None, wx.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
             scale.data_ptr(), shift.data_ptr(), out.data_ptr(), N, H, W, Hs,
             Ws, Cx, Cs, Cout, int(upsample), _LEAKY if act else 0,
             torch.cuda.current_stream(dev).cuda_stream)

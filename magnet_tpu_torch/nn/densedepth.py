@@ -7,7 +7,8 @@ predict (mu, sigma-param) and the convex-upsampling mask.
 
 Where the JAX package runs a TPU kernel, the port runs a Hopper kernel:
 * up2 (512 features) and up3 (256): ``kernels.conv3x3_bnact``, two launches
-  per stage, conv_a in upsample mode over [x | skip], then conv_b;
+  per stage, conv_a in upsample mode over [x | skip], then conv_b, on
+  operands prepared once and kept on the stage (``UpSampleBN.operands``);
 * the depth and mask heads: ``kernels.head_chain``.
 up1 (1024 features) and the 1x1 ``conv2`` run as plain PyTorch convs, as
 the JAX package runs them in XLA.
@@ -26,11 +27,11 @@ from typing import List, Sequence, Union
 import torch
 import torch.nn as nn
 
-from magnet_tpu_torch.kernels.conv3x3_bnact import conv3x3_bnact
+from magnet_tpu_torch.kernels.conv3x3_bnact import conv3x3_bnact, pack_weights
 from magnet_tpu_torch.kernels.head_chain import head_chain
 from magnet_tpu_torch.nn.efficientnet import EfficientNetB5Features
-from magnet_tpu_torch.nn.layers import (batch_norm, conv2d, fold_bn, hwio,
-                                        leaky_relu, nchw, nhwc)
+from magnet_tpu_torch.nn.layers import (batch_norm, cached_fold, conv2d,
+                                        fold_bn, hwio, leaky_relu, nchw, nhwc)
 from magnet_tpu_torch.ops.resample import resize_bilinear_align_corners
 from magnet_tpu_torch.ops.upsample import upsample_bilinear, upsample_via_mask
 
@@ -50,20 +51,36 @@ class UpSampleBN(nn.Module):
             nn.Conv2d(features, features, 3, padding=1),
             nn.BatchNorm2d(features), nn.LeakyReLU())
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        """x: (N, h, w, Cx), skip: (N, H, W, Cs), NHWC."""
-        conv_a, bn_a, _, conv_b, bn_b, _ = self._net
-        if self.features in KERNEL_STAGE_FEATURES:
-            dt = x.dtype
-            cx = x.shape[-1]
-            wa = hwio(conv_a, dt)
+    def operands(self, dtype: torch.dtype, cx: int) -> tuple:
+        """The keyword operands of ``conv3x3_bnact`` for conv_a (its HWIO
+        weight split at x's cx channels into w and w_skip) and for conv_b, in
+        ``dtype``, each with its BatchNorm folded into (scale, shift) and, in
+        bf16, ``packed``: kept on the stage until a parameter or buffer
+        changes (``cached_fold``)."""
+        def fold():
+            conv_a, bn_a, _, conv_b, bn_b, _ = self._net
+            wa = hwio(conv_a, dtype)
             sa, ta = fold_bn(bn_a, conv_a.bias)
             sb, tb = fold_bn(bn_b, conv_b.bias)
-            mid = conv3x3_bnact(x, wa[:, :, :cx].contiguous(), sa, ta,
-                                skip=skip.to(dt),
-                                w_skip=wa[:, :, cx:].contiguous(),
-                                upsample=True)
-            return conv3x3_bnact(mid, hwio(conv_b, dt), sb, tb)
+            op_a = dict(w=wa[:, :, :cx].contiguous(),
+                        w_skip=wa[:, :, cx:].contiguous(), scale=sa, shift=ta)
+            op_b = dict(w=hwio(conv_b, dtype), scale=sb, shift=tb)
+            if dtype == torch.bfloat16:
+                op_a["packed"] = pack_weights(op_a["w"], op_a["w_skip"])
+                op_b["packed"] = pack_weights(op_b["w"])
+            return op_a, op_b
+        return cached_fold(self, f"operands{cx}", dtype,
+                           [*self._net.parameters(), *self._net.buffers()],
+                           fold)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        """x: (N, h, w, Cx), skip: (N, H, W, Cs), NHWC."""
+        if self.features in KERNEL_STAGE_FEATURES:
+            op_a, op_b = self.operands(x.dtype, x.shape[-1])
+            mid = conv3x3_bnact(x, skip=skip.to(x.dtype), upsample=True,
+                                **op_a)
+            return conv3x3_bnact(mid, **op_b)
+        conv_a, bn_a, _, conv_b, bn_b, _ = self._net
         up = resize_bilinear_align_corners(x, skip.shape[1], skip.shape[2])
         y = conv2d(torch.cat([nchw(up), nchw(skip).to(x.dtype)], 1), conv_a)
         y = leaky_relu(batch_norm(y, bn_a))

@@ -184,18 +184,20 @@ def test_single_conv_chain_matches_jax(jax_kernel):
 # ---- dispatch ----------------------------------------------------------
 
 def _conv_args(device, dtype, Hs=6, Ws=5, cx=32, cs=16, cout=32,
-               upsample=True, seed=0):
+               upsample=True, seed=0, n=1, size=None):
+    """The conv's arguments; in upsample mode x (Hs, Ws) is resized to the
+    skip's ``size``, by default (2 Hs, 2 Ws)."""
     g = torch.Generator().manual_seed(seed)
 
     def r(*s, scale=1.0):
         return (torch.randn(*s, generator=g) * scale).to(device)
 
-    H, W = (2 * Hs, 2 * Ws) if upsample else (Hs, Ws)
+    H, W = (size or (2 * Hs, 2 * Ws)) if upsample else (Hs, Ws)
     return dict(
-        x=r(1, Hs, Ws, cx).to(dtype),
+        x=r(n, Hs, Ws, cx).to(dtype),
         w=r(3, 3, cx, cout, scale=(9 * (cx + cs)) ** -0.5).to(dtype),
         scale=r(cout).abs() + 0.5, shift=r(cout),
-        skip=r(1, H, W, cs).to(dtype) if cs else None,
+        skip=r(n, H, W, cs).to(dtype) if cs else None,
         w_skip=r(3, 3, cs, cout, scale=(9 * (cx + cs)) ** -0.5).to(dtype)
         if cs else None,
         upsample=upsample)
@@ -309,6 +311,116 @@ def test_cpu_tensors_take_the_plain_version():
     assert [w.launches for w in wrappers] == before
 
 
+# ---- the bf16 conv kernel's operands ---------------------------------------
+
+@pytest.mark.parametrize("cx,cs,cout", [(32, 16, 32), (1024, 64, 512),
+                                        (512, 40, 256), (64, 0, 136)],
+                         ids=["small", "up2", "up3", "ragged_cout"])
+def test_pack_weights_round_trips_to_hwio(cx, cs, cout):
+    g = torch.Generator().manual_seed(2)
+    w = torch.randn(3, 3, cx, cout, generator=g)
+    w_skip = torch.randn(3, 3, cs, cout, generator=g) if cs else None
+    packed = cb.pack_weights(w, w_skip)
+    assert tuple(packed.shape) == cb.packed_shape(cx, cs, cout)
+    w2, ws2 = cb.unpack_weights(packed, cx, cs, cout)
+    assert torch.equal(w2, w)
+    assert (ws2 is None) if not cs else torch.equal(ws2, w_skip)
+    # everything else is zero padding
+    assert int(torch.count_nonzero(packed)) == w.numel() + (
+        w_skip.numel() if cs else 0)
+
+
+def _conv_from_packed(x, packed, scale, shift, skip=None, upsample=False,
+                      act=True):
+    """The conv as the bf16 kernel reads its operands: for each 64-channel
+    block and tap, the block's channels of the (upsampled) input, shifted by
+    the tap with zeros outside the image and past the last channel, times
+    the block's (Cout, 64) slab of ``packed``, each row's 16-byte chunks
+    read back from their swizzled places (chunk c of row n at c ^ n % 8)."""
+    from magnet_tpu_torch.ops.resample import resize_bilinear_align_corners
+    xf = x.float()
+    if upsample:
+        xf = resize_bilinear_align_corners(xf, skip.shape[1], skip.shape[2])
+    n, h, w = xf.shape[:3]
+    cout = scale.shape[0]
+    rows = torch.arange(packed.shape[2])[:, None]
+    chunk = (torch.arange(cb.KC) // 8)[None] ^ (rows % 8)
+    unswizzle = chunk * 8 + torch.arange(cb.KC)[None] % 8     # (Cout_pad, 64)
+    acc = torch.zeros(n, h, w, packed.shape[2])
+    b = 0
+    for t in (xf, skip):
+        if t is None:
+            continue
+        c = t.shape[-1]
+        t = torch.nn.functional.pad(t.float(), (0, -c % cb.KC, 1, 1, 1, 1))
+        for kb in range(t.shape[-1] // cb.KC):
+            for tap in range(9):
+                dy, dx = divmod(tap, 3)
+                a = t[:, dy:dy + h, dx:dx + w, kb * cb.KC:(kb + 1) * cb.KC]
+                slab = torch.gather(packed[b, tap].float(), 1, unswizzle)
+                acc += a @ slab.T
+            b += 1
+    y = acc[..., :cout] * scale + shift
+    return torch.nn.functional.leaky_relu(y, 0.01) if act else y
+
+
+@pytest.mark.parametrize("case", [
+    dict(upsample=True, cs=40, Hs=5, Ws=7, cout=136, n=2),
+    dict(upsample=False, cs=0, cx=72, cout=32),
+    dict(upsample=False, cs=24, cx=16, cout=256),
+], ids=["ups_skip40", "no_skip", "same_skip24"])
+def test_conv_over_packed_operands_matches_plain(case):
+    a = _conv_args("cpu", torch.float32, **case)
+    packed = cb.pack_weights(a["w"], a["w_skip"])
+    out = _conv_from_packed(a["x"], packed, a["scale"], a["shift"], a["skip"],
+                            a["upsample"])
+    _close(out.numpy(), cb.conv3x3_bnact_ref(**a).numpy())
+
+
+def _upstage_plain(m, x, skip):
+    """UpSampleBN's function in plain torch ops on NCHW, from its modules."""
+    from magnet_tpu_torch.ops.resample import resize_bilinear_align_corners
+    conv_a, bn_a, _, conv_b, bn_b, _ = m._net
+    up = resize_bilinear_align_corners(x, skip.shape[1], skip.shape[2])
+    y = torch.cat([up, skip], -1).permute(0, 3, 1, 2)
+    y = torch.nn.functional.leaky_relu(bn_a(conv_a(y)), 0.01)
+    y = torch.nn.functional.leaky_relu(bn_b(conv_b(y)), 0.01)
+    return y.permute(0, 2, 3, 1)
+
+
+def test_upstage_operands_are_kept_until_a_weight_changes():
+    """UpSampleBN prepares the conv kernel's operands (split, folded, packed
+    in bf16) once, reuses them on the next forward, and prepares them anew
+    after an in-place update of a weight or a BatchNorm buffer."""
+    g = torch.Generator().manual_seed(4)
+    m = UpSampleBN(64 + 16, 256).eval()
+    with torch.no_grad():
+        for t in (*m._net.parameters(), *m._net.buffers()):
+            if t.is_floating_point():
+                t.copy_(torch.rand(t.shape, generator=g) * 0.5 + 0.3)
+    x = torch.randn(1, 4, 5, 64, generator=g)
+    skip = torch.randn(1, 8, 10, 16, generator=g)
+    with torch.no_grad():
+        m(x, skip)
+        ops = m._folded["operands64"][1]
+        m(x, skip)
+        assert m._folded["operands64"][1] is ops
+        m._net[0].weight.mul_(2.0)
+        y = m(x, skip)
+        assert m._folded["operands64"][1] is not ops
+        ops = m._folded["operands64"][1]
+        m._net[4].running_var.add_(0.5)
+        y2 = m(x, skip)
+        assert m._folded["operands64"][1] is not ops
+        ref = _upstage_plain(m, x, skip)
+        op_a, op_b = m.operands(torch.bfloat16, 64)
+    _close(y2.numpy(), ref.numpy())
+    assert not np.allclose(y.numpy(), y2.numpy())
+    assert torch.equal(op_a["packed"],
+                       cb.pack_weights(op_a["w"], op_a["w_skip"]))
+    assert torch.equal(op_b["packed"], cb.pack_weights(op_b["w"]))
+
+
 def test_gnet_update_refuses_what_the_kernel_does_not_take():
     """D > 16 and hidden != 128 raise on any device: there is no other
     path."""
@@ -356,6 +468,63 @@ def test_conv_kernel_matches_plain(cuda, dtype, case):
     out = cb.conv3x3_bnact(**a)
     assert cb.conv3x3_bnact.launches == before + 1
     _close_cuda(out, cb.conv3x3_bnact_ref(**a), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["small", "wide"])
+@pytest.mark.parametrize("upsample", [True, False], ids=["ups", "same"])
+@pytest.mark.parametrize("tap", range(9))
+def test_conv_kernel_single_tap(cuda, tap, upsample, size):
+    """A weight that is non-zero at one tap only: a wrong start address or
+    stride of that tap's operand cannot hide behind the other eight. "small"
+    runs the 8x8 patches; "wide" (512 outputs over 60x80) the 8x8 ones in
+    upsample mode and the 16x16 ones without."""
+    hs, ws, cout = (5, 7, 32) if size == "small" else (30, 40, 512)
+    if not upsample:
+        hs, ws = 2 * hs, 2 * ws
+    a = _conv_args(cuda, torch.bfloat16, hs, ws, cx=64, cs=24, cout=cout,
+                   upsample=upsample)
+    only = torch.zeros(3, 3, 1, 1, device=cuda, dtype=torch.bfloat16)
+    only[tap // 3, tap % 3] = 1
+    a.update(w=a["w"] * only, w_skip=a["w_skip"] * only,
+             shift=torch.zeros_like(a["shift"]), act=False)
+    _close_cuda(cb.conv3x3_bnact(**a), cb.conv3x3_bnact_ref(**a),
+                torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(n=3, Hs=22, Ws=76, cx=1024, cs=64, cout=512),          # KITTI up2.a
+    dict(n=3, Hs=44, Ws=152, cx=512, cs=0, cout=512, upsample=False),
+    dict(n=3, Hs=44, Ws=152, cx=512, cs=40, cout=256),          # KITTI up3.a
+    dict(n=3, Hs=9, Ws=13, cx=64, cs=40, cout=136),
+    dict(n=5, Hs=6, Ws=10, cx=128, cs=24, cout=256),
+    dict(n=5, Hs=30, Ws=40, cx=256, cs=64, cout=512),
+    dict(n=2, Hs=24, Ws=40, cx=128, cs=24, cout=136, size=(24, 40)),
+    dict(n=2, Hs=7, Ws=9, cx=128, cs=24, cout=136, size=(21, 27)),
+], ids=["kitti_up2", "kitti_up2_b", "kitti_up3", "batch3", "batch5",
+        "batch5_wide", "resize_1x", "resize_3x"])
+def test_conv_kernel_edges_and_batches(cuda, case):
+    """Patches cut by the image edge (44 and 88 rows, 152 and 304 columns),
+    batches whose patches meet at image boundaries, and resize factors whose
+    source windows do (3x) and do not (1x) fit a staged tile, bf16."""
+    a = _conv_args(cuda, torch.bfloat16, **case)
+    _close_cuda(cb.conv3x3_bnact(**a), cb.conv3x3_bnact_ref(**a),
+                torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout", [136, 256, 512])
+@pytest.mark.parametrize("cs", [0, 24, 40, 64])
+def test_conv_kernel_skip_and_output_widths(cuda, cs, cout):
+    """Every skip width of the decoder (none, 24, 40, 64: a 64-channel block
+    zero-filled past its width) against ragged and full output widths, bf16,
+    with the packed weights passed in as the up-stage passes them."""
+    a = _conv_args(cuda, torch.bfloat16, 12, 20, cx=64, cs=cs, cout=cout,
+                   upsample=cs > 0)
+    packed = cb.pack_weights(a["w"], a["w_skip"])
+    _close_cuda(cb.conv3x3_bnact(**a, packed=packed),
+                cb.conv3x3_bnact_ref(**a), torch.bfloat16)
 
 
 @pytest.mark.cuda
