@@ -79,9 +79,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      the chains of row 6 on the card to 1e-5 * max|ref|. No CPU reference
      at this shape: phase 7 holds every shared kernel to the CPU already.
 Phase 3 also holds rows 12 and 13 at their path-A sites (N = 1 and 5),
-row 14 at the four KITTI layer shapes (3 frames), and rows 1 and 2 at the
-KITTI decoder's four conv shapes (3 frames, maps 44x152 and 88x304; timed,
-in no frame's sum), f32 and bf16.
+row 14 at the four KITTI layer shapes (3 frames), rows 1 and 2 at the
+KITTI decoder's four conv shapes (3 frames, maps 44x152 and 88x304), rows
+6-8 at the F-Net's chains and transition blocks on the 3 frames of a KITTI
+sample (maps 176x608 and 88x304) and row 3 at the KITTI heads (88x304),
+f32 and bf16 (timed, in no frame's sum). The bf16 F-Net convs and heads
+are timed on packed operands made once, as the modules keep them.
 Then a {"kernels": [...]} line (14 rows), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Without a CUDA device it exits
 non-zero.
@@ -260,6 +263,12 @@ def head_sites():
              (128, 128, 2)),
             ("gnet_feature_term", "magnet", (1, HC, WC, 256), (128,)),
             ("magnet_mask_head", "magnet", (1, HC, WC, 256),
+             (128, 128, 128, 144)),
+            (f"depth_head KITTI N={KITTI_FRAMES}", "kitti",
+             (KITTI_FRAMES, KITTI_HC, KITTI_WC, 256), (128, 128, 2)),
+            ("gnet_feature_term KITTI", "kitti", (1, KITTI_HC, KITTI_WC, 256),
+             (128,)),
+            ("magnet_mask_head KITTI", "kitti", (1, KITTI_HC, KITTI_WC, 256),
              (128, 128, 128, 144))]
 
 
@@ -316,7 +325,8 @@ def check_head_kernel(dev):
                             hc.head_chain_ref(x, convs), torch.float32)
         x16 = x.to(torch.bfloat16)
         c16 = [(k.to(torch.bfloat16), b, r) for k, b, r in convs]
-        out = hc.head_chain(x16, c16)
+        ops = hc.head_operands(c16)   # kept on the module, as run_head does
+        out = hc.head_chain(x16, c16, ops)
         err16 = check_close(site, out, hc.head_chain_ref(x16, c16),
                             torch.bfloat16)
         xin = x16.permute(0, 3, 1, 2)
@@ -329,7 +339,7 @@ def check_head_kernel(dev):
                                   *[b for _, b, _ in c16]), flops)
         rows.append(dict(
             site=site, path=path, frame=path == "magnet", err_f32=err32,
-            err_bf16=err16, ms=graph_ms(lambda: hc.head_chain(x16, c16)),
+            err_bf16=err16, ms=graph_ms(lambda: hc.head_chain(x16, c16, ops)),
             plain_ms=plain_time(lambda: hc.head_chain_ref(x16, c16)),
             library_ms=graph_ms(lambda: F.conv2d(xin, w0, padding=1)),
             bound_ms=bms, bound_by=by, gflop=flops / 1e9))
@@ -509,21 +519,26 @@ def _oihw_cl(w):
     return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
 
-def _psm_row(site, name, fn, ref, a32, typed, convs, n_bytes_of, flops):
+def _psm_row(site, name, fn, ref, a32, typed, convs, n_bytes_of, flops,
+             path="magnet", pack=None):
     """Check ``fn`` against ``ref`` in f32 and bf16 on the operands ``a32``
     (those at ``typed`` take the compute type) and time it in bf16.
     ``convs``: (x NHWC, w HWIO, stride, padding, dilation) of the cuDNN
-    calls over the same contractions, built from the bf16 operands."""
+    calls over the same contractions, built from the bf16 operands.
+    ``pack``: the bf16 operands' packed weights, made once as the module
+    keeps them and passed as ``packed``. Rows off the MaGNet path (KITTI)
+    are held and timed but in no frame's sum."""
     err32 = check_close(site, fn(*a32), ref(*a32), torch.float32)
     a16 = [t.to(torch.bfloat16) if i in typed else t
            for i, t in enumerate(a32)]
-    out = fn(*a16)
+    kw = {"packed": pack(a16)} if pack else {}
+    out = fn(*a16, **kw)
     err16 = check_close(site, out, ref(*a16), torch.bfloat16)
     lib = [(_nchw_cl(x), _oihw_cl(w), s, p, d) for x, w, s, p, d in convs(a16)]
     bms, by = bound_ms(n_bytes_of(a16, out), flops)
     return dict(
-        site=site, kernel=name, path="magnet", frame=True, err_f32=err32,
-        err_bf16=err16, ms=graph_ms(lambda: fn(*a16)),
+        site=site, kernel=name, path=path, frame=path == "magnet",
+        err_f32=err32, err_bf16=err16, ms=graph_ms(lambda: fn(*a16, **kw)),
         plain_ms=plain_time(lambda: ref(*a16)),
         library_ms=graph_ms(lambda: [F.conv2d(x, w, None, s, p, d)
                                      for x, w, s, p, d in lib]),
@@ -532,49 +547,59 @@ def _psm_row(site, name, fn, ref, a32, typed, convs, n_bytes_of, flops):
 
 def check_psm_kernels(dev):
     """The F-Net's four kernels at the shapes one pass over the 5 frames of
-    a MaGNet sample gives them. The library time is cuDNN's over the same
-    convs alone (no BN, ReLU or sum), each on an input of the right shape."""
+    a MaGNet sample gives them, and rows 6-8 at those of the 3 frames of a
+    KITTI sample (352x1216: maps of 176x608 and 88x304). The library time is
+    cuDNN's over the same convs alone (no BN, ReLU or sum), each on an input
+    of the right shape."""
     g = torch.Generator().manual_seed(6)
-    n = 1 + VIEWS
     rows = []
-    # (site, channels, blocks, map, dilation, residual)
-    for site, c, blocks, hw, dil, residual in (
-            ("stem convs 2-3", 32, 1, (H // 2, W // 2), 1, False),
-            ("layer1", 32, 3, (H // 2, W // 2), 1, True),
-            ("layer2 blocks 1-15", 64, 15, (HC, WC), 1, True),
-            ("layer3 blocks 1-2", 128, 2, (HC, WC), 1, True),
-            ("layer4 (dilation 2)", 128, 3, (HC, WC), 2, True)):
-        nc = 2 * blocks
-        a32 = [_randn(g, n, *hw, c, scale=0.5).to(dev),
-               _randn(g, nc, 3, 3, c, c, scale=(9 * c) ** -0.5).to(dev),
-               *_bn_pair(g, nc, c, dev)]
-        rows.append(_psm_row(
-            f"fused_residual_stage ({site})", "fused_residual_stage",
-            lambda *a, d=dil, r=residual: pb.fused_residual_stage(*a, d, r),
-            lambda *a, d=dil, r=residual: pb.fused_residual_stage_ref(
-                *a, d, r),
-            a32, (0, 1),
-            lambda a, d=dil: [(a[0], w, 1, d, d) for w in a[1]],
-            lambda a, out: nbytes(*a, out),
-            2.0 * n * hw[0] * hw[1] * c * 9 * c * nc))
-    for name, ci, co, hw, stride in (
-            ("downsample_block", 32, 64, (H // 2, W // 2), 2),
-            ("expand_block", 64, 128, (HC, WC), 1)):
-        a32 = [_randn(g, n, *hw, ci, scale=0.5).to(dev)]
-        for k, cin in ((3, ci), (3, co), (1, ci)):
-            s_, t_ = _bn_pair(g, 1, co, dev)
-            a32 += [_randn(g, k, k, cin, co,
-                           scale=(k * k * cin) ** -0.5).to(dev), s_[0], t_[0]]
-        ho, wo = hw[0] // stride, hw[1] // stride
-        mid = torch.zeros(n, ho, wo, co, device=dev, dtype=torch.bfloat16)
-        rows.append(_psm_row(
-            name, name, getattr(pb, name), getattr(pb, name + "_ref"), a32,
-            (0, 1, 4, 7),
-            lambda a, s=stride, m=mid: [(a[0], a[1], s, 1, 1),
-                                        (m, a[4], 1, 1, 1),
-                                        (a[0], a[7], s, 0, 1)],
-            lambda a, out: nbytes(*a, out),
-            2.0 * n * ho * wo * co * (9 * ci + 9 * co + ci)))
+    for tag, path, n, (h, w) in (("", "magnet", 1 + VIEWS, (H, W)),
+                                 (" KITTI", "kitti", KITTI_FRAMES,
+                                  (KITTI_H, KITTI_W))):
+        half, quarter = (h // 2, w // 2), (h // 4, w // 4)
+        # (site, channels, blocks, map, dilation, residual)
+        for site, c, blocks, hw, dil, residual in (
+                ("stem convs 2-3", 32, 1, half, 1, False),
+                ("layer1", 32, 3, half, 1, True),
+                ("layer2 blocks 1-15", 64, 15, quarter, 1, True),
+                ("layer3 blocks 1-2", 128, 2, quarter, 1, True),
+                ("layer4 (dilation 2)", 128, 3, quarter, 2, True)):
+            nc = 2 * blocks
+            a32 = [_randn(g, n, *hw, c, scale=0.5).to(dev),
+                   _randn(g, nc, 3, 3, c, c, scale=(9 * c) ** -0.5).to(dev),
+                   *_bn_pair(g, nc, c, dev)]
+            rows.append(_psm_row(
+                f"fused_residual_stage ({site}){tag}", "fused_residual_stage",
+                lambda *a, d=dil, r=residual, packed=None:
+                    pb.fused_residual_stage(*a, d, r, packed=packed),
+                lambda *a, d=dil, r=residual: pb.fused_residual_stage_ref(
+                    *a, d, r),
+                a32, (0, 1),
+                lambda a, d=dil: [(a[0], w_, 1, d, d) for w_ in a[1]],
+                lambda a, out: nbytes(*a, out),
+                2.0 * n * hw[0] * hw[1] * c * 9 * c * nc, path,
+                lambda a: pb.pack_chain(a[1])))
+        for name, ci, co, hw, stride in (
+                ("downsample_block", 32, 64, half, 2),
+                ("expand_block", 64, 128, quarter, 1)):
+            a32 = [_randn(g, n, *hw, ci, scale=0.5).to(dev)]
+            for k, cin in ((3, ci), (3, co), (1, ci)):
+                s_, t_ = _bn_pair(g, 1, co, dev)
+                a32 += [_randn(g, k, k, cin, co,
+                               scale=(k * k * cin) ** -0.5).to(dev), s_[0],
+                        t_[0]]
+            ho, wo = (hw[0] - 1) // stride + 1, (hw[1] - 1) // stride + 1
+            mid = torch.zeros(n, ho, wo, co, device=dev, dtype=torch.bfloat16)
+            rows.append(_psm_row(
+                name + tag, name, getattr(pb, name), getattr(pb, name + "_ref"),
+                a32, (0, 1, 4, 7),
+                lambda a, s=stride, m=mid: [(a[0], a[1], s, 1, 1),
+                                            (m, a[4], 1, 1, 1),
+                                            (a[0], a[7], s, 0, 1)],
+                lambda a, out: nbytes(*a, out),
+                2.0 * n * ho * wo * co * (9 * ci + 9 * co + ci), path,
+                lambda a: pb.pack_chain((a[1], a[4], a[7]))))
+    n = 1 + VIEWS
     a32 = [_randn(g, n, HC, WC, c, scale=0.5).to(dev) for c in (64, 128, 128)]
     s_, t_ = _bn_pair(g, 1, 128, dev)
     a32 += [_randn(g, 3, 3, 320, 128, scale=2880 ** -0.5).to(dev), s_[0],

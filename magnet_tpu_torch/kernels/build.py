@@ -42,8 +42,8 @@ _SIGNATURES = {
     # dtype, depth, mask, out, B, H, W, C, k, stream
     "mt_upsample_mask": [_I] + [_P] * 3 + [_I] * 5 + [_P],
     # dtype, x0, x1, x2, w, scale, shift, res, out, N, H, W, C0, C1, C2,
-    # Cout, taps, stride, dil, relu, stream
-    "mt_psm_conv": [_I] + [_P] * 8 + [_I] * 11 + [_P],
+    # Cout, taps, stride, dil, relu, kblock, stream
+    "mt_psm_conv": [_I] + [_P] * 8 + [_I] * 12 + [_P],
     # dtype, raw, skip, br, w0, scale, shift, w1, zero, out, N, H, W, C0,
     # C1, C2, c_out, stream
     "mt_spp_tail": [_I] + [_P] * 9 + [_I] * 7 + [_P],

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from magnet_tpu_torch.kernels import build
+from magnet_tpu_torch.kernels.psm_blocks import swizzle_rows
 from magnet_tpu_torch.ops.resample import resize_bilinear_align_corners
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,16 +49,6 @@ def packed_shape(cx: int, cs: int, cout: int) -> tuple:
     """Shape of ``pack_weights``' result for Cx, Cs input and Cout output
     channels."""
     return ((_ceil(cx, KC) + _ceil(cs, KC)) // KC, 9, _ceil(cout, NPAD), KC)
-
-
-def _permute_rows(t: torch.Tensor) -> torch.Tensor:
-    """t (..., N, KC), N a multiple of 8, with the 16-byte chunk c of row n
-    moved to chunk c ^ (n % 8) of the row: the 128-byte swizzle, its own
-    inverse."""
-    j = torch.arange(KC)
-    idx = torch.stack([((j // 8) ^ r) * 8 + j % 8 for r in range(8)])
-    idx = idx.repeat(t.shape[-2] // 8, 1).to(t.device)
-    return torch.gather(t, -1, idx.expand(t.shape))
 
 
 def pack_weights(w: torch.Tensor,
@@ -78,14 +69,14 @@ def pack_weights(w: torch.Tensor,
         cp = _ceil(c, KC)
         t = F.pad(t, (0, _ceil(cout, NPAD) - cout, 0, cp - c))
         blocks.append(t.reshape(9, cp // KC, KC, -1).permute(1, 0, 3, 2))
-    return _permute_rows(torch.cat(blocks)).contiguous()
+    return swizzle_rows(torch.cat(blocks)).contiguous()
 
 
 def unpack_weights(packed: torch.Tensor, cx: int, cs: int, cout: int
                    ) -> tuple:
     """The HWIO (w, w_skip) that ``pack_weights`` packed (w_skip None when
     cs is 0)."""
-    rows = _permute_rows(packed)
+    rows = swizzle_rows(packed)
 
     def hwio(blocks, c):
         return blocks.permute(1, 0, 3, 2).reshape(3, 3, -1, blocks.shape[2])[

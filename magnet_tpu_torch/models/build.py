@@ -3,8 +3,10 @@
 Counterpart of ``magnet_tpu/models/build.py``. ``build_dnet``,
 ``build_fnet`` and ``build_magnet`` make a model with seeded random weights
 on the requested device; ``load_dnet_checkpoint`` and
-``load_magnet_checkpoints`` load reference torch ``.pt`` files natively, and
-an empty path keeps the seeded weights (smoke runs without a checkpoint).
+``load_magnet_checkpoints`` load reference torch ``.pt`` files natively and
+the port's own training checkpoints (``train/checkpoint.py``: a directory of
+steps, one step's directory or its ``state.pt``), and an empty path keeps
+the seeded weights (smoke runs without a checkpoint).
 ``build_magnet_f`` makes the F-Net training head with the JAX package's
 training initialisation (``init_train_weights_``).
 ``cast_for_inference`` applies the compute-dtype policy;
@@ -13,6 +15,8 @@ of a trained network.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn as nn
@@ -23,6 +27,7 @@ from magnet_tpu_torch.models.dnet import DNet
 from magnet_tpu_torch.models.fnet import FNet
 from magnet_tpu_torch.models.magnet import Magnet, MagnetF
 from magnet_tpu_torch.nn.efficientnet import SqueezeExcite
+from magnet_tpu_torch.train import checkpoint
 
 
 def _check_arch(args) -> None:
@@ -99,10 +104,29 @@ def build_dnet(args, device: str = None) -> DNet:
     return model.eval().to(device or args.device)
 
 
+def stage_state_dict(path: str, prefix: str = "") -> dict:
+    """The weights of a stage checkpoint: a reference ``.pt`` file
+    (``load_state_dict``), or a training checkpoint of the port (the parent
+    of its step directories, meaning the latest step, one step's directory,
+    or its ``state.pt``), whose ``"model"`` entry is taken with ``prefix``
+    stripped from its keys and the keys without it dropped, as the
+    reference takes ``params["f_net"]`` of a ``train_FNet.py`` state."""
+    if os.path.isdir(path):
+        saved = checkpoint.restore(path)
+    elif os.path.basename(path) == checkpoint.STATE_FILE:
+        saved = checkpoint.restore(os.path.dirname(os.path.abspath(path)))
+    else:
+        return load_state_dict(path)
+    return {k[len(prefix):]: v for k, v in saved["model"].items()
+            if k.startswith(prefix)}
+
+
 def load_dnet_checkpoint(model: DNet, path: str) -> DNet:
+    """A D-Net checkpoint (``stage_state_dict``; a training state holds the
+    D-Net's own state dict) into ``model``; an empty path keeps it."""
     if not path:
         return model
-    model.load_state_dict(load_state_dict(path))
+    model.load_state_dict(stage_state_dict(path))
     return model
 
 
@@ -137,12 +161,16 @@ def load_magnet_checkpoints(model: Magnet, args) -> Magnet:
     (keys ``d_net.*``) and the F-Net checkpoint (``f_net.*``) into the
     frozen backbones, then the MAGNET checkpoint over the whole model
     (``g_net``, ``mask_head`` and the same backbones). Empty paths are
-    skipped. The MAGNET file may lack the D-Net decoder's own mask head,
-    which MaGNet does not use; nothing else may be missing."""
+    skipped. The D-Net and F-Net checkpoints may also be the port's training
+    checkpoints (``stage_state_dict``): a ``train_fnet`` state holds
+    ``MagnetF``'s keys, whose ``f_net.`` prefix is stripped. The MAGNET file
+    may lack the D-Net decoder's own mask head, which MaGNet does not use;
+    nothing else may be missing."""
     if getattr(args, "DNET_ckpt", ""):
-        model.d_net.load_state_dict(load_state_dict(args.DNET_ckpt))
+        model.d_net.load_state_dict(stage_state_dict(args.DNET_ckpt))
     if getattr(args, "FNET_ckpt", ""):
-        model.f_net.load_state_dict(load_state_dict(args.FNET_ckpt))
+        model.f_net.load_state_dict(stage_state_dict(args.FNET_ckpt,
+                                                     "f_net."))
     if getattr(args, "MAGNET_ckpt", ""):
         res = model.load_state_dict(load_state_dict(args.MAGNET_ckpt),
                                     strict=False)

@@ -9,7 +9,8 @@ Where the JAX package runs a TPU kernel, the port runs a Hopper kernel:
 * up2 (512 features) and up3 (256): ``kernels.conv3x3_bnact``, two launches
   per stage, conv_a in upsample mode over [x | skip], then conv_b, on
   operands prepared once and kept on the stage (``UpSampleBN.operands``);
-* the depth and mask heads: ``kernels.head_chain``.
+* the depth and mask heads: ``kernels.head_chain``, on operands kept on
+  the head (``run_head``).
 up1 (1024 features) and the 1x1 ``conv2`` run as plain PyTorch convs, as
 the JAX package runs them in XLA.
 
@@ -28,7 +29,7 @@ import torch
 import torch.nn as nn
 
 from magnet_tpu_torch.kernels.conv3x3_bnact import conv3x3_bnact, pack_weights
-from magnet_tpu_torch.kernels.head_chain import head_chain
+from magnet_tpu_torch.kernels.head_chain import head_chain, head_operands
 from magnet_tpu_torch.nn.efficientnet import EfficientNetB5Features
 from magnet_tpu_torch.nn.layers import (batch_norm, cached_fold, conv2d,
                                         fold_bn, hwio, leaky_relu, nchw, nhwc)
@@ -96,10 +97,18 @@ def _head(in_ch: int, out_ch: int, hidden: int = 128) -> nn.Sequential:
 
 def run_head(head: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
     """conv3x3 -> ReLU -> conv1x1 -> ReLU -> conv1x1 through the head-chain
-    kernel. x: (N, H, W, C) NHWC."""
-    convs = [m for m in head if isinstance(m, nn.Conv2d)]
-    return head_chain(x, [(hwio(c, x.dtype), c.bias, i < len(convs) - 1)
-                          for i, c in enumerate(convs)])
+    kernel. x: (N, H, W, C) NHWC. The chain's HWIO weights and, on a CUDA
+    device, the kernel's operands are kept on ``head`` until a parameter
+    changes (``cached_fold``)."""
+    mods = [m for m in head if isinstance(m, nn.Conv2d)]
+
+    def fold():
+        convs = [(hwio(c, x.dtype), c.bias, i < len(mods) - 1)
+                 for i, c in enumerate(mods)]
+        return convs, (head_operands(convs) if x.is_cuda else None)
+    convs, operands = cached_fold(head, "head_chain", x.dtype,
+                                  list(head.parameters()), fold)
+    return head_chain(x, convs, operands)
 
 
 class Encoder(nn.Module):

@@ -22,8 +22,8 @@ import torch
 import torch.nn as nn
 
 from magnet_tpu_torch.kernels.gnet_update import gnet_update
-from magnet_tpu_torch.kernels.head_chain import head_chain
-from magnet_tpu_torch.nn.layers import hwio
+from magnet_tpu_torch.kernels.head_chain import head_chain, head_operands
+from magnet_tpu_torch.nn.layers import cached_fold, hwio
 
 
 class GNet(nn.Module):
@@ -39,10 +39,17 @@ class GNet(nn.Module):
 
     def precompute_feature(self, feat: torch.Tensor) -> torch.Tensor:
         """The decoder feature's term of the first layer, bias included.
-        feat: (B, H, W, 256) -> (B, H, W, 128)."""
+        feat: (B, H, W, 256) -> (B, H, W, 128). Its weights and the kernel's
+        operands are kept on the module (``cached_fold``)."""
         conv0 = self.gnet[0]
-        w = hwio(conv0, feat.dtype)[:, :, self.n_samples:].contiguous()
-        return head_chain(feat, [(w, conv0.bias, False)])
+
+        def fold():
+            w = hwio(conv0, feat.dtype)[:, :, self.n_samples:].contiguous()
+            convs = [(w, conv0.bias, False)]
+            return convs, (head_operands(convs) if feat.is_cuda else None)
+        convs, operands = cached_fold(self, "feature_term", feat.dtype,
+                                      list(conv0.parameters()), fold)
+        return head_chain(feat, convs, operands)
 
     def forward(self, cost_volume: torch.Tensor, feat_contrib: torch.Tensor,
                 ref_gaussian: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,11 @@ the port of the TPU kernel the JAX package runs there,
 * the 3x3 conv over the 320-channel concat, BN, ReLU and the 1x1
   projection: ``kernels.spp_tail.spp_tail``,
 
-with eval BatchNorm folded to an f32 scale and shift. With ``stream_blocks``
+with eval BatchNorm folded to an f32 scale and shift. The folded operands
+(HWIO weights, scale and shift, and in bf16 on a CUDA device the packed
+weights of ``psm_blocks.pack_weights``) are kept on the modules until a
+weight or BatchNorm buffer changes (``nn.layers.cached_fold``), so a
+forward prepares nothing but its activations. With ``stream_blocks``
 (the JAX package's ``MAGNET_TPU_PALLAS_RST``, for maps too large for its
 whole-map chains, as at the KITTI shape) each stride-1 BasicBlock of
 layer1-layer4 is one ``kernels.res_block.res_block`` launch instead of its
@@ -50,11 +54,13 @@ import torch.nn.functional as F
 
 from magnet_tpu_torch.kernels.psm_blocks import (downsample_block,
                                                  expand_block,
-                                                 fused_residual_stage)
+                                                 fused_residual_stage,
+                                                 pack_chain)
 from magnet_tpu_torch.kernels.res_block import res_block
 from magnet_tpu_torch.kernels.spp_tail import spp_tail
 from magnet_tpu_torch.nn.layers import (batch_norm, batch_norm_train,
-                                        fold_bn, hwio, nchw, nhwc)
+                                        cached_fold, fold_bn, hwio, nchw,
+                                        nhwc)
 from magnet_tpu_torch.ops.resample import (avg_pool,
                                            resize_bilinear_align_corners)
 
@@ -103,6 +109,28 @@ def fold_chain(cbs: Sequence[nn.Sequential], dtype: torch.dtype
             (beta - mean * scale).contiguous())
 
 
+def kept_operands(owner: nn.Module, name: str, cbs: Sequence[nn.Sequential],
+                  x: torch.Tensor, stacked: bool = True,
+                  pack: bool = True) -> tuple:
+    """The conv-BN pairs ``cbs`` folded for x's dtype: ``fold_chain``'s
+    stacked (weights, scales, shifts), or with ``stacked=False`` lists of
+    ``hwio`` and ``fold_bn`` per conv (pairs of other shapes); and, with
+    ``pack`` for a bf16 x on a CUDA device, the packed weights of each conv
+    (else None). Kept on ``owner`` under ``name`` until a weight or
+    BatchNorm buffer of ``cbs`` changes."""
+    def fold():
+        if stacked:
+            w, scale, shift = fold_chain(cbs, x.dtype)
+        else:
+            w = [hwio(cb[0], x.dtype) for cb in cbs]
+            scale, shift = zip(*[fold_bn(cb[1]) for cb in cbs])
+        packed = (pack_chain(w) if pack and x.is_cuda
+                  and x.dtype == torch.bfloat16 else None)
+        return w, scale, shift, packed
+    sources = [t for cb in cbs for t in (*cb.parameters(), *cb.buffers())]
+    return cached_fold(owner, name, x.dtype, sources, fold)
+
+
 class BasicBlock(nn.Module):
     """Residual block with no activation after the sum. It only holds the
     parameters: ``PSMNet.forward`` runs the blocks through the kernels,
@@ -123,28 +151,32 @@ def run_layer(x: torch.Tensor, layer: nn.Sequential,
     """One residual stage on an NHWC map: a first block with a projection
     shortcut goes through its transition kernel, the stride-1 blocks after
     it through one chain, or with ``stream_blocks`` one ``res_block`` launch
-    each."""
+    each; their operands kept on the modules (``kept_operands``)."""
     blocks = list(layer)
     if blocks[0].downsample is not None:
         b = blocks.pop(0)
         if b.dilation != 1:
             raise ValueError("a projection block with a dilation")
-        operands = []
-        for cb in (b.conv1[0], b.conv2, b.downsample):
-            operands += [hwio(cb[0], x.dtype), *fold_bn(cb[1])]
+        w, scale, shift, packed = kept_operands(
+            b, "transition", [b.conv1[0], b.conv2, b.downsample], x,
+            stacked=False)
+        operands = [t for i in range(3) for t in (w[i], scale[i], shift[i])]
         block = downsample_block if b.stride == 2 else expand_block
-        x = block(x, *operands)
+        x = block(x, *operands, packed=packed)
     if any(b.stride != 1 or b.downsample is not None for b in blocks):
         raise ValueError("only a stage's first block may change the shape")
     if stream_blocks:
         for b in blocks:
-            cb1, cb2 = b.conv1[0], b.conv2
-            x = res_block(x, hwio(cb1[0], x.dtype), *fold_bn(cb1[1]),
-                          hwio(cb2[0], x.dtype), *fold_bn(cb2[1]), b.dilation)
+            w, scale, shift, _ = kept_operands(
+                b, "res_block", [b.conv1[0], b.conv2], x, stacked=False,
+                pack=False)
+            x = res_block(x, w[0], scale[0], shift[0], w[1], scale[1],
+                          shift[1], b.dilation)
         return x
     cbs = [cb for b in blocks for cb in (b.conv1[0], b.conv2)]
-    return fused_residual_stage(x, *fold_chain(cbs, x.dtype),
-                                blocks[0].dilation)
+    w, scale, shift, packed = kept_operands(layer, "chain", cbs, x)
+    return fused_residual_stage(x, w, scale, shift, blocks[0].dilation,
+                                packed=packed)
 
 
 class PSMNet(nn.Module):
@@ -198,18 +230,23 @@ class PSMNet(nn.Module):
         if self.training:
             return self.train_forward(x)
         y = nhwc(F.relu(run_convbn(nchw(x), self.firstconv[0])))
-        y = fused_residual_stage(
-            y, *fold_chain([self.firstconv[2], self.firstconv[4]], y.dtype),
-            1, residual=False)
+        w, scale, shift, packed = kept_operands(
+            self.firstconv, "chain", [self.firstconv[2], self.firstconv[4]], y)
+        y = fused_residual_stage(y, w, scale, shift, 1, residual=False,
+                                 packed=packed)
         sb = self.stream_blocks
         raw = run_layer(run_layer(y, self.layer1, sb), self.layer2, sb)
         skip = run_layer(run_layer(raw, self.layer3, sb), self.layer4, sb)
         # concat order: raw, skip, branch4, branch3, branch2, branch1
         br = self.spp_branches(skip, run_convbn)
         conv0, bn0 = self.lastconv[0]
-        proj = self.lastconv[2].weight.to(y.dtype)[:, :, 0, 0].t().contiguous()
-        return spp_tail(raw, skip, br, hwio(conv0, y.dtype), *fold_bn(bn0),
-                        proj)
+        proj = self.lastconv[2].weight
+        tail = cached_fold(
+            self.lastconv, "tail", y.dtype,
+            [*self.lastconv.parameters(), *self.lastconv.buffers()],
+            lambda: (hwio(conv0, y.dtype), *fold_bn(bn0),
+                     proj.to(y.dtype)[:, :, 0, 0].t().contiguous()))
+        return spp_tail(raw, skip, br, *tail)
 
     def train_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The training forward: library convs with autograd, train-mode

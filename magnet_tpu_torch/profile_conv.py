@@ -137,20 +137,25 @@ def time_sites(library: bool) -> list:
     return rows
 
 
-def ablated_copy(name: str) -> Path:
-    """A copy of the package with ABLATIONS[name] applied to SOURCE."""
-    root = ABLATE_DIR / name
+def edited_copy(root: Path, edits) -> Path:
+    """A copy of the package under ``root`` with ``edits``, (file in the
+    repository, text that is in it once, its replacement), applied."""
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(ROOT / "magnet_tpu_torch", root / "magnet_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    src = root / SOURCE
-    text = src.read_text()
-    for old, new in ABLATIONS[name]:
+    for source, old, new in edits:
+        src = root / source
+        text = src.read_text()
         if text.count(old) != 1:
-            raise RuntimeError(f"{name}: {old!r} is not in {SOURCE} once")
-        text = text.replace(old, new)
-    src.write_text(text)
+            raise RuntimeError(f"{root.name}: {old!r} is not in {source} once")
+        src.write_text(text.replace(old, new))
     return root
+
+
+def ablated_copy(name: str) -> Path:
+    """A copy of the package with ABLATIONS[name] applied to SOURCE."""
+    return edited_copy(ABLATE_DIR / name,
+                       [(SOURCE, old, new) for old, new in ABLATIONS[name]])
 
 
 def main(argv=None) -> dict:

@@ -27,8 +27,8 @@ from magnet_tpu_torch.nn.densedepth import run_head
 from magnet_tpu_torch.nn.layers import conv2d, nchw, nhwc
 from magnet_tpu_torch.ops.upsample import upsample_via_mask
 
-OURS = ("conv3x3_bnact", "head_chain_kernel", "cost_volume_cw_kernel",
-        "gnet_update_kernel", "upsample_mask_kernel", "psm_conv_kernel",
+OURS = ("conv3x3_bnact", "head_chain", "cost_volume_cw_kernel",
+        "gnet_update_kernel", "upsample_mask_kernel", "psm_conv",
         "spp_tail_kernel", "sweep_grad_src_kernel", "dw_conv_kernel",
         "mb_expand_dw_kernel", "mb_se_kernel", "mb_project_kernel",
         "res_block_kernel")

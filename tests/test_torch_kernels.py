@@ -377,6 +377,74 @@ def test_conv_over_packed_operands_matches_plain(case):
     _close(out.numpy(), cb.conv3x3_bnact_ref(**a).numpy())
 
 
+# ---- the bf16 head chain's operands ----------------------------------------
+
+@pytest.mark.parametrize("c_out", [2, 128, 144])
+def test_pack_head_slabs(c_out):
+    """The head's weights as the kernel reads them: the 3x3 in 64-channel K
+    blocks of 128 outputs, each 1x1 in two K blocks of 64 rows, the last
+    layer's c_out zero padded to whole 128-column chunks; biases f32, zero
+    padded to the same widths. Each unpacks to its HWIO weight."""
+    from magnet_tpu_torch.kernels import psm_blocks as pb
+    x, convs = _head_args("cpu", torch.bfloat16, 3, c_out, c0=256)
+    packed = hc.pack_head(convs)
+    cpad = -(-c_out // 128) * 128
+    assert [tuple(p_.shape) for p_ in packed] == [
+        (4, 9, 128, 64), (2, 1, 128, 64), (2, 1, cpad, 64)]
+    for (k, _, _), p_ in zip(convs, packed):
+        assert p_.dtype == torch.bfloat16
+        assert torch.equal(pb.unpack_weights(p_, *k.shape[1:]), k)
+    ws, bs = hc.head_operands(convs)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(ws, packed))
+    assert [tuple(b_.shape) for b_ in bs] == [(128,), (128,), (cpad,)]
+    assert torch.equal(bs[-1][:c_out], convs[-1][1].float())
+    assert not bs[-1][c_out:].any()
+
+
+@pytest.mark.parametrize("n_convs,c_out", [(1, 128), (3, 2), (4, 144)])
+def test_head_chain_over_packed_operands_matches_plain(n_convs, c_out):
+    """The chain on the weights unpacked from the kernel's slabs equals the
+    plain chain bit for bit (bf16, hidden layers rounded between layers)."""
+    from magnet_tpu_torch.kernels import psm_blocks as pb
+    x, convs = _head_args("cpu", torch.bfloat16, n_convs, c_out, c0=72)
+    ws, _ = hc.head_operands(convs)
+    unpacked = [(pb.unpack_weights(w_, *k.shape[1:]), b, r)
+                for w_, (k, b, r) in zip(ws, convs)]
+    assert torch.equal(hc.head_chain_ref(x, unpacked),
+                       hc.head_chain_ref(x, convs))
+
+
+def test_head_operands_are_kept_until_a_weight_changes():
+    """run_head (the D-Net and MaGNet heads) and G-Net's feature term
+    prepare the chain's weights once, reuse them, and prepare them anew
+    after an in-place update of a weight or an optimizer step."""
+    from magnet_tpu_torch.nn.densedepth import _head, run_head
+    from magnet_tpu_torch.nn.gnet import GNet
+    g = torch.Generator().manual_seed(5)
+    head, gnet = _head(16, 2), GNet(n_samples=5, feature_dim=16)
+    x = torch.randn(1, 4, 6, 16, generator=g)
+    with torch.no_grad():
+        y0 = run_head(head, x)
+        kept = head._folded["head_chain"][1]
+        f0 = gnet.precompute_feature(x)
+        kept_g = gnet._folded["feature_term"][1]
+        assert torch.equal(run_head(head, x), y0)
+        assert head._folded["head_chain"][1] is kept
+        gnet.precompute_feature(x)
+        assert gnet._folded["feature_term"][1] is kept_g
+        head[2].weight.mul_(2.0)
+        y1 = run_head(head, x)
+    assert head._folded["head_chain"][1] is not kept
+    assert not torch.equal(y1, y0)
+    for p_ in gnet.gnet[0].parameters():
+        p_.grad = torch.ones_like(p_)
+    torch.optim.SGD(gnet.gnet[0].parameters(), lr=0.5).step()
+    with torch.no_grad():
+        f1 = gnet.precompute_feature(x)
+    assert gnet._folded["feature_term"][1] is not kept_g
+    assert not torch.equal(f1, f0)
+
+
 def _upstage_plain(m, x, skip):
     """UpSampleBN's function in plain torch ops on NCHW, from its modules."""
     from magnet_tpu_torch.ops.resample import resize_bilinear_align_corners
@@ -538,6 +606,38 @@ def test_head_kernel_matches_plain(cuda, dtype, n_convs, c_out):
     out = hc.head_chain(x, convs)
     assert hc.head_chain.launches == before + 1
     _close_cuda(out, hc.head_chain_ref(x, convs), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_out", [2, 128, 144])
+@pytest.mark.parametrize("n_convs", [2, 3, 4])
+def test_head_kernel_chain_widths(cuda, n_convs, c_out):
+    """Every chain length with the last widths of the heads (the depth
+    head's 2, one 128-column chunk, the mask head's 144 in two), bf16, on
+    operands made once as the call sites keep them: one launch a call."""
+    x, convs = _head_args(cuda, torch.bfloat16, n_convs, c_out, c0=256)
+    ops = hc.head_operands(convs)
+    before = hc.head_chain.launches
+    out = hc.head_chain(x, convs, ops)
+    assert hc.head_chain.launches == before + 1
+    _close_cuda(out, hc.head_chain_ref(x, convs), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,n_convs,c_out", [
+    (1, 9, 7, 3, 144), (3, 88, 304, 3, 2), (1, 88, 304, 1, 128),
+    (5, 24, 40, 4, 144), (1, 120, 160, 1, 128)],
+    ids=["odd", "kitti_depth", "kitti_gnet", "batch5_mask", "scannet_gnet"])
+def test_head_kernel_maps_and_batches(cuda, N, H, W, n_convs, c_out):
+    """Maps that are not patch multiples (9x7, 88x304), batches of 1, 3 and
+    5 whose patches meet at image boundaries, and the G-Net feature term's
+    single conv (150 patches over the SMs), bf16."""
+    g = torch.Generator().manual_seed(7)
+    x, convs = _head_args(cuda, torch.bfloat16, n_convs, c_out, H=H, W=W,
+                          c0=256)
+    x = torch.randn(N, H, W, 256, generator=g).to(cuda, torch.bfloat16)
+    _close_cuda(hc.head_chain(x, convs), hc.head_chain_ref(x, convs),
+                torch.bfloat16)
 
 
 # The cost volume's f32 and bf16 paths both accumulate exact products in

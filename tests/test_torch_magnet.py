@@ -13,6 +13,8 @@ consistency threshold may flip and move its pixel by a G-Net update, so up
 to 1 % of the whole forward's pixels may exceed it.
 """
 
+import os
+import types
 from pathlib import Path
 
 import numpy as np
@@ -34,7 +36,11 @@ from magnet_tpu_torch.models import build
 from magnet_tpu_torch.models.fnet import FNet
 from magnet_tpu_torch.models.magnet import Magnet
 
+from magnet_tpu_torch import train_fnet
+from magnet_tpu_torch.models.dnet import DNet
+from magnet_tpu_torch.train import checkpoint
 from test_torch_dnet import _random_variables
+from test_torch_train import ENTRY_FLAGS
 
 H, W, V = 64, 96, 2
 SCANNET_FLAGS = str(Path(__file__).resolve().parents[1] / "test_scripts"
@@ -179,6 +185,65 @@ def test_checkpoints_load_in_stages(tmp_path, magnet_case):
     bad = _args(["--MAGNET_ckpt", save("g.pt", "g_net.")])
     with pytest.raises(KeyError):
         build.load_magnet_checkpoints(build.build_magnet(bad), bad)
+
+
+@pytest.fixture(scope="module")
+def fnet_run(tmp_path_factory):
+    """One F-Net training step of ``train_fnet`` at a tiny shape, saved by
+    the entry point as ``<exp>/models/<step>/state.pt``."""
+    out = train_fnet.main(ENTRY_FLAGS + [
+        "--exp_dir", str(tmp_path_factory.mktemp("fnet")), "--device",
+        "cpu", "--synthetic_length", "2"])
+    assert len(out["losses"]) == 1
+    return out
+
+
+def _ckpt_path(step_dir: str, form: str) -> str:
+    return {"parent": os.path.dirname(step_dir), "step": step_dir,
+            "state.pt": os.path.join(step_dir, checkpoint.STATE_FILE)}[form]
+
+
+@pytest.mark.parametrize("form", ["parent", "step", "state.pt"])
+def test_fnet_training_checkpoint_loads(fnet_run, form):
+    """``--FNET_ckpt`` takes the checkpoint of the port's own ``train_fnet``
+    (``MagnetF``'s keys, ``f_net.f_net.*``) in each of its three forms;
+    every F-Net tensor is the trained one, bit for bit."""
+    args = _args(["--FNET_feature_dim", "16", "--FNET_ckpt",
+                  _ckpt_path(fnet_run["ckpt"], form)])
+    model = build.load_magnet_checkpoints(build.build_magnet(args), args)
+    trained = fnet_run["state"].model.f_net.state_dict()
+    loaded = model.f_net.state_dict()
+    assert loaded.keys() == trained.keys()
+    for k, v in trained.items():
+        torch.testing.assert_close(loaded[k], v, rtol=0, atol=0)
+
+
+def test_entry_point_loads_a_training_checkpoint(tmp_path, fnet_run):
+    """``test_magnet`` evaluates with the F-Net of a ``train_fnet`` run."""
+    m = test_magnet.main(
+        ["--exp_name", "t", "--exp_dir", str(tmp_path), "--dataset_path",
+         "none", "--synthetic_length", "1"] + SMALL +
+        ["--FNET_feature_dim", "16", "--FNET_ckpt",
+         os.path.dirname(fnet_run["ckpt"])])
+    assert len(m) == 12 and all(np.isfinite(v) for v in m.values())
+
+
+@pytest.mark.parametrize("form", ["parent", "step", "state.pt"])
+def test_dnet_training_checkpoint_loads(tmp_path, form):
+    """``--DNET_ckpt`` and ``load_dnet_checkpoint`` take a training
+    checkpoint whose model is the D-Net's own state dict."""
+    dnet = build.init_weights_(DNet(), seed=7)
+    state = types.SimpleNamespace(
+        step=3, model=dnet, generator=torch.Generator(),
+        optimizer=torch.optim.SGD(dnet.parameters(), lr=0.1))
+    path = _ckpt_path(checkpoint.save(str(tmp_path), state), form)
+    args = _args(["--DNET_ckpt", path])
+    model = build.load_magnet_checkpoints(build.build_magnet(args), args)
+    alone = build.load_dnet_checkpoint(build.init_weights_(DNet(), 0), path)
+    for got in (model.d_net.state_dict(), alone.state_dict()):
+        assert got.keys() == dnet.state_dict().keys()
+        for k, v in dnet.state_dict().items():
+            torch.testing.assert_close(got[k], v, rtol=0, atol=0)
 
 
 def test_realistic_depth_init():

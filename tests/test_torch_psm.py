@@ -194,6 +194,171 @@ def test_a_chain_takes_its_convs_in_pairs():
         pb.fused_residual_stage(x, w[:1], s[:1], t[:1], 1)
 
 
+# ---- the bf16 kernel's operand layouts --------------------------------
+
+@pytest.mark.parametrize("k,ci,co", [(3, 32, 32), (3, 32, 64), (1, 32, 64),
+                                     (3, 64, 64), (3, 64, 128), (1, 64, 128),
+                                     (3, 128, 128), (3, 136, 136), (1, 8, 24)])
+def test_pack_weights_round_trips_to_hwio(k, ci, co):
+    """C = 32 in 32-channel K blocks (64-byte swizzle), wider inputs in
+    64-channel ones (128-byte swizzle), outputs padded to 32, 64 or blocks
+    of 128; everything else is zero padding."""
+    w = torch.randn(k, k, ci, co, generator=torch.Generator().manual_seed(1))
+    packed = pb.pack_weights(w)
+    assert tuple(packed.shape) == pb.packed_shape(k, ci, co)
+    assert packed.shape[-1] == (32 if ci <= 32 else 64)
+    assert torch.equal(pb.unpack_weights(packed, k, ci, co), w)
+    assert int(torch.count_nonzero(packed)) == w.numel()
+
+
+@pytest.mark.parametrize("kb", [32, 64])
+def test_swizzle_rows_moves_chunks_by_row(kb):
+    """Chunk c of row r lands at c ^ (r % 8) (kb 64) or c ^ (r // 2 % 4)
+    (kb 32): the 128- and 64-byte swizzle patterns of rows of 2 kb bytes."""
+    rows = torch.arange(16 * kb, dtype=torch.float32).reshape(16, kb)
+    out = pb.swizzle_rows(rows)
+    for r in range(16):
+        phase = r % 8 if kb == 64 else (r // 2) % 4
+        for c in range(kb // 8):
+            assert torch.equal(out[r, 8 * (c ^ phase):8 * (c ^ phase) + 8],
+                               rows[r, 8 * c:8 * c + 8])
+    assert torch.equal(pb.swizzle_rows(out), rows)
+
+
+def _halo_rows(stride, dil, taps, mt):
+    """The halo layout of csrc/hopper_conv.cuh for a patch of 8 x 16 mt
+    outputs: (phases, rows, columns) and each halo row's input pixel
+    (dy, dx) from the halo's origin (the patch's first output times the
+    stride, less the padding)."""
+    pad = dil if taps == 9 else 0
+    if stride == 1:
+        nph, hp, hw = 1, 8 + 2 * pad, 16 * mt + 2 * pad
+    elif taps == 9:
+        nph, hp, hw = 4, 9, 16 * mt + 1
+    else:
+        nph, hp, hw = 1, 8, 16 * mt
+    q = torch.arange(nph * hp * hw)
+    ph, ly, lx = q // (hp * hw), q % (hp * hw) // hw, q % hw
+    return (nph, hp, hw), stride * ly + ph // 2, stride * lx + ph % 2
+
+
+def _window(shape, stride, dil, tap):
+    """The first halo row of tap `tap`'s descriptor window."""
+    nph, hp, hw = shape
+    ky, kx = divmod(tap, 3)
+    if nph == 4:
+        return ((ky % 2) * 2 + kx % 2) * hp * hw + (ky // 2) * hw + kx // 2
+    return ky * dil * hw + kx * dil
+
+
+def _conv_from_packed(x, packed, scale, shift, stride, dil, taps, co,
+                      relu, res):
+    """One conv as the bf16 kernel reads its operands: each 8 x 16 mt patch's
+    halo staged row by row from the row table (zeros outside the image and
+    past the channels), each tap's 8 x 16 mt outputs read as the window
+    rows (window + 8 mt wg + 8 m) + hw y + x of the halo, times the slab of
+    ``packed`` read back from its swizzled places; the epilogue in f32."""
+    n, h, w, ci = x.shape
+    nkb, _, npad, kb = packed.shape
+    bn = pb.n_block(co)
+    mt = 128 // bn
+    shape, dy, dx = _halo_rows(stride, dil, taps, mt)
+    pad = dil if taps == 9 else 0
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    slabs = pb.swizzle_rows(packed).float()            # (nkb, taps, npad, kb)
+    xp = torch.nn.functional.pad(x.float(), (0, nkb * kb - ci))
+    acc = torch.zeros(n, ho, wo, npad)
+    pw = 16 * mt
+    for img in range(n):
+        for y0 in range(0, ho, 8):
+            for x0 in range(0, wo, pw):
+                iy, ix = y0 * stride - pad + dy, x0 * stride - pad + dx
+                ok = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+                halo = torch.zeros(len(dy), nkb * kb)
+                halo[ok] = xp[img, iy[ok], ix[ok]]
+                oy, ox = torch.meshgrid(torch.arange(8), torch.arange(pw),
+                                        indexing="ij")
+                for tap in range(taps):
+                    rows = _window(shape, stride, dil, tap) + oy * shape[2] + ox
+                    a = halo[rows.reshape(-1)]
+                    wt = slabs[:, tap].permute(0, 2, 1).reshape(nkb * kb, npad)
+                    out = (a @ wt).reshape(8, pw, npad)
+                    yy, xx = min(8, ho - y0), min(pw, wo - x0)
+                    acc[img, y0:y0 + yy, x0:x0 + xx] += out[:yy, :xx]
+    y = acc[..., :co] * scale + shift
+    if res is not None:
+        y = y + res.float()
+    return torch.relu(y) if relu else y
+
+
+@pytest.mark.parametrize("case", [
+    dict(N=1, H=9, W=7, ci=32, co=32, k=3, stride=1, dil=1, relu=True),
+    dict(N=2, H=10, W=20, ci=64, co=64, k=3, stride=1, dil=1, res=True),
+    dict(N=1, H=9, W=18, ci=128, co=128, k=3, stride=1, dil=2, res=True),
+    dict(N=1, H=17, W=35, ci=32, co=64, k=3, stride=2, dil=1, relu=True),
+    dict(N=1, H=17, W=35, ci=32, co=64, k=1, stride=2, dil=1),
+    dict(N=1, H=9, W=19, ci=64, co=128, k=1, stride=1, dil=1),
+    dict(N=1, H=9, W=18, ci=64, co=136, k=3, stride=1, dil=4, res=True),
+], ids=["stem_odd", "layer2", "layer4_dil2", "down_stride2", "down_proj",
+        "expand_proj", "ragged_dil4"])
+def test_conv_over_packed_operands_matches_plain(case):
+    """The kernel's halo layout (stride 2 as four phases, dilation as a wider
+    halo), descriptor windows and packed weights give ``_conv_ref``'s conv."""
+    g = torch.Generator().manual_seed(3)
+    n, h, w, ci, co, k = (case[c] for c in ("N", "H", "W", "ci", "co", "k"))
+    stride, dil = case["stride"], case["dil"]
+    x = torch.randn(n, h, w, ci, generator=g)
+    wt = torch.randn(k, k, ci, co, generator=g) * (k * k * ci) ** -0.5
+    scale, shift = torch.rand(co, generator=g) + 0.5, torch.randn(co, generator=g)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    res = torch.randn(n, ho, wo, co, generator=g) if case.get("res") else None
+    relu = case.get("relu", False)
+    out = _conv_from_packed(x, pb.pack_weights(wt), scale, shift, stride, dil,
+                            k * k, co, relu, res)
+    ref = pb._conv_ref(x, wt, scale, shift, stride, dil, relu, res)
+    _close(out.numpy(), ref.numpy())
+
+
+def test_psmnet_operands_are_kept_until_a_weight_changes():
+    """PSMNet folds each chain's, transition block's and the tail's operands
+    once and reuses them on the next forward; an in-place update of a weight
+    or a BatchNorm buffer, or an optimizer step (which updates every weight
+    in place and, through the train forward, the running statistics), makes
+    them anew, and the output is the one a fresh model gives."""
+    from magnet_tpu_torch.models.build import init_weights_
+    from magnet_tpu_torch.nn.psmnet import PSMNet
+
+    def kept(m):
+        return {(id(mod), name): entry[1] for mod in m.modules()
+                for name, entry in mod.__dict__.get("_folded", {}).items()}
+
+    m = init_weights_(PSMNet(16), seed=2).eval()
+    x = torch.rand(1, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        m(x)
+        first = kept(m)
+        assert len(first) == 8   # stem, layers 1-4, 2 transitions, tail
+        m(x)
+        assert all(kept(m)[k] is v for k, v in first.items())
+        m.layer3[1].conv2[1].running_var.add_(0.5)
+        m(x)
+    changed = [k for k, v in kept(m).items() if v is not first[k]]
+    assert changed == [(id(m.layer3), "chain")]
+    opt = torch.optim.SGD(m.parameters(), lr=0.1)
+    m.train()
+    m(x).square().mean().backward()
+    opt.step()
+    m.eval()
+    with torch.no_grad():
+        before = kept(m)
+        out = m(x)
+        assert all(v is not before[k] for k, v in kept(m).items())
+        fresh = PSMNet(16).eval()
+        fresh.load_state_dict(m.state_dict())
+        ref = fresh(x)
+    assert torch.equal(out, ref)
+
+
 # ---- on the card -------------------------------------------------------
 
 @pytest.fixture
@@ -262,6 +427,105 @@ def test_spp_tail_kernel_matches_plain(cuda, dtype, case):
     out = st.spp_tail(*a)
     assert st.spp_tail.launches == before + 1
     _close_cuda(out, st.spp_tail_ref(*a), dtype)
+
+
+def _conv_case(dev, N, H, W, ci, co, k=3, stride=1, dil=1, epi="res",
+               tap=None, seed=0):
+    """One conv's operands on ``dev`` in bf16 (weight one-hot at ``tap``
+    when given, shift 0), its packed weights and a launch counter."""
+    import types
+    g = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+    x = torch.randn(N, H, W, ci, generator=g).to(dev, bf)
+    w = torch.randn(k, k, ci, co, generator=g) * (k * k * ci) ** -0.5
+    if tap is not None:
+        only = torch.zeros(3, 3, 1, 1)
+        only[tap // 3, tap % 3] = 1
+        w = w * only
+    w = w.to(dev, bf)
+    scale = (torch.rand(co, generator=g) + 0.5).to(dev)
+    shift = (torch.randn(co, generator=g) * (tap is None)).to(dev)
+    ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    res = (torch.randn(N, ho, wo, co, generator=g).to(dev, bf)
+           if "res" in epi else None)
+    args = (x, w, scale, shift, stride, dil, "relu" in epi, res)
+    return args, pb.pack_weights(w), types.SimpleNamespace(launches=0)
+
+
+def _check_conv(cuda, **case):
+    args, packed, counter = _conv_case(cuda, **case)
+    out = pb._conv_cuda(*args, counter, packed)
+    assert counter.launches == 1
+    _close_cuda(out, pb._conv_ref(*args), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["stride2", "dilation2", "c32", "c64",
+                                  "c128"])
+@pytest.mark.parametrize("tap", range(9))
+def test_conv_kernel_single_tap(cuda, mode, tap):
+    """A weight that is non-zero at one tap only: a wrong descriptor window
+    (a stride-2 phase, a dilated offset, a 64-byte swizzle start) cannot
+    hide behind the other eight taps."""
+    case = dict(stride2=dict(ci=32, co=64, stride=2),
+                dilation2=dict(ci=128, co=128, dil=2),
+                c32=dict(ci=32, co=32), c64=dict(ci=64, co=64),
+                c128=dict(ci=128, co=128))[mode]
+    _check_conv(cuda, N=2, H=19, W=37, epi="none", tap=tap, **case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(N=1, H=9, W=7, ci=32, co=32),
+    dict(N=3, H=176, W=608, ci=32, co=32),              # KITTI stem, layer1
+    dict(N=3, H=176, W=608, ci=32, co=64, stride=2, epi="relu"),
+    dict(N=3, H=88, W=304, ci=64, co=64),               # KITTI layer2
+    dict(N=3, H=88, W=304, ci=128, co=128, dil=2),      # KITTI layer4
+    dict(N=5, H=120, W=160, ci=64, co=128, epi="relu"),  # layer3_0 conv1
+    dict(N=5, H=9, W=7, ci=128, co=128),
+    dict(N=1, H=33, W=17, ci=64, co=64, dil=2),
+    dict(N=2, H=7, W=9, ci=136, co=136, dil=4),         # two output blocks
+], ids=["odd32", "kitti_stem", "kitti_down", "kitti_layer2", "kitti_layer4",
+        "expand_conv1", "odd128_n5", "odd64_dil2", "ragged_two_blocks"])
+def test_conv_kernel_maps_and_batches(cuda, case):
+    """Maps that are not patch multiples, batches of 1, 3 and 5 whose patches
+    meet at image boundaries, C = 32, 64, 128 and wider, bf16."""
+    _check_conv(cuda, **case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("ci,co", [(32, 64), (64, 128), (8, 24)])
+def test_projection_kernel_alone(cuda, stride, ci, co):
+    """The transition blocks' 1x1 projection: one tap, no halo."""
+    _check_conv(cuda, N=3, H=23, W=41, ci=ci, co=co, k=1, stride=stride,
+                epi="none")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", ["none", "relu", "res", "res_relu"])
+@pytest.mark.parametrize("co", [32, 64, 128])
+def test_conv_kernel_epilogues(cuda, epi, co):
+    """acc * scale + shift, then the residual add and / or the ReLU, rounded
+    once, at every output width."""
+    _check_conv(cuda, N=2, H=17, W=21, ci=co, co=co, epi=epi)
+
+
+@pytest.mark.cuda
+def test_chains_launch_once_a_conv_on_packed_operands(cuda):
+    """A chain and a transition block on operands packed once, as PSMNet
+    keeps them: one launch a conv, the plain result."""
+    bf = torch.bfloat16
+    a = _on(stage_inputs(64, 2, N=3, H=15, W=20), cuda, bf, STAGE)
+    before = pb.fused_residual_stage.launches
+    out = pb.fused_residual_stage(*a, 1, packed=pb.pack_chain(a[1]))
+    assert pb.fused_residual_stage.launches == before + 4
+    _close_cuda(out, pb.fused_residual_stage_ref(*a, 1), bf)
+    a = _on(transition_inputs(H=18, W=22), cuda, bf, TRANSITION)
+    before = pb.downsample_block.launches
+    out = pb.downsample_block(*a, packed=pb.pack_chain((a[1], a[4], a[7])))
+    assert pb.downsample_block.launches == before + 3
+    _close_cuda(out, pb.downsample_block_ref(*a), bf)
 
 
 @pytest.mark.cuda
