@@ -79,12 +79,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      the chains of row 6 on the card to 1e-5 * max|ref|. No CPU reference
      at this shape: phase 7 holds every shared kernel to the CPU already.
 Phase 3 also holds rows 12 and 13 at their path-A sites (N = 1 and 5),
-row 14 at the four KITTI layer shapes (3 frames), rows 1 and 2 at the
-KITTI decoder's four conv shapes (3 frames, maps 44x152 and 88x304), rows
-6-8 at the F-Net's chains and transition blocks on the 3 frames of a KITTI
-sample (maps 176x608 and 88x304) and row 3 at the KITTI heads (88x304),
-f32 and bf16 (timed, in no frame's sum). The bf16 F-Net convs and heads
-are timed on packed operands made once, as the modules keep them.
+row 14 at the four KITTI layer shapes (3 frames; row 6's chain over the
+same blocks timed beside it), rows 1 and 2 at the KITTI decoder's four
+conv shapes (3 frames, maps 44x152 and 88x304), rows 6-8 at the F-Net's
+chains and transition blocks on the 3 frames of a KITTI sample (maps
+176x608 and 88x304), row 9 at the KITTI tail (88x304) and row 3 at the
+KITTI heads (88x304), f32 and bf16 (timed, in no frame's sum). The bf16
+F-Net convs, blocks, tail and heads are timed on packed operands made once,
+as the modules keep them.
 Then a {"kernels": [...]} line (14 rows), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Without a CUDA device it exits
 non-zero.
@@ -599,17 +601,21 @@ def check_psm_kernels(dev):
                 lambda a, out: nbytes(*a, out),
                 2.0 * n * ho * wo * co * (9 * ci + 9 * co + ci), path,
                 lambda a: pb.pack_chain((a[1], a[4], a[7]))))
-    n = 1 + VIEWS
-    a32 = [_randn(g, n, HC, WC, c, scale=0.5).to(dev) for c in (64, 128, 128)]
-    s_, t_ = _bn_pair(g, 1, 128, dev)
-    a32 += [_randn(g, 3, 3, 320, 128, scale=2880 ** -0.5).to(dev), s_[0],
-            t_[0], _randn(g, 128, FEAT, scale=128 ** -0.5).to(dev)]
-    rows.append(_psm_row(
-        "spp_tail", "spp_tail", st.spp_tail, st.spp_tail_ref, a32,
-        (0, 1, 2, 3, 6),
-        lambda a: [(torch.cat(a[:3], -1), a[3], 1, 1, 1)],
-        lambda a, out: nbytes(*a, out),
-        2.0 * n * HC * WC * 128 * (9 * 320 + FEAT)))
+    widths = (64, 128, 128)
+    for tag, path, n, (hc, wc) in (("", "magnet", 1 + VIEWS, (HC, WC)),
+                                   (" KITTI", "kitti", KITTI_FRAMES,
+                                    (KITTI_HC, KITTI_WC))):
+        a32 = [_randn(g, n, hc, wc, c, scale=0.5).to(dev) for c in widths]
+        s_, t_ = _bn_pair(g, 1, 128, dev)
+        a32 += [_randn(g, 3, 3, 320, 128, scale=2880 ** -0.5).to(dev), s_[0],
+                t_[0], _randn(g, 128, FEAT, scale=128 ** -0.5).to(dev)]
+        rows.append(_psm_row(
+            "spp_tail" + tag, "spp_tail", st.spp_tail, st.spp_tail_ref, a32,
+            (0, 1, 2, 3, 6),
+            lambda a: [(torch.cat(a[:3], -1), a[3], 1, 1, 1)],
+            lambda a, out: nbytes(*a, out),
+            2.0 * n * hc * wc * 128 * (9 * 320 + FEAT), path,
+            lambda a: st.tail_operands(a[3], a[6], widths)))
     return rows
 
 
@@ -913,11 +919,13 @@ def resblock_sites() -> list:
 
 
 def check_resblock_kernel(dev):
-    """Row 14 at the four layer shapes of one KITTI F-Net pass (3 frames).
-    Bound: both convs at the bf16 tensor-core rate, or x, the weights and
-    the folded BN read once and the output written once. cuDNN's time for
-    the block's two convs alone is kept beside it (no one library call
-    computes the block)."""
+    """Row 14 at the four layer shapes of one KITTI F-Net pass (3 frames),
+    on operands packed once as ``PSMNet`` keeps them. Bound: both convs at
+    the bf16 tensor-core rate, or x, the weights and the folded BN read
+    once and the output written once. cuDNN's time for the block's two
+    convs alone is kept beside it (no one library call computes the block),
+    and row 6's chain over the site's blocks (the default path), timed as
+    one chain of ``count`` blocks on the same operands."""
     g = torch.Generator().manual_seed(13)
     n = 1 + KITTI_VIEWS
     bf = torch.bfloat16
@@ -932,19 +940,24 @@ def check_resblock_kernel(dev):
         err32 = check_close(site, rbk.res_block(*a32, dil),
                             rbk.res_block_ref(*a32, dil), torch.float32)
         a16 = [t.to(bf) if i in (0, 1, 4) else t for i, t in enumerate(a32)]
-        out = rbk.res_block(*a16, dil)
+        packed = pb.pack_chain((a16[1], a16[4]))
+        out = rbk.res_block(*a16, dil, packed)
         err16 = check_close(site, out, rbk.res_block_ref(*a16, dil), bf)
         flops = 2.0 * 2 * n * hw[0] * hw[1] * 9 * c * c
         bms, by = bound_ms(nbytes(*a16, out), flops)
         xin, w1, w2 = _nchw_cl(a16[0]), _oihw_cl(a16[1]), _oihw_cl(a16[4])
+        chain = [torch.stack([a16[i], a16[i + 3]] * count) for i in (1, 2, 3)]
+        chain_packed = pb.pack_chain(chain[0])
         rows.append(dict(
             site=site, path="magnet_kitti", frame=True, count=count,
             err_f32=err32, err_bf16=err16,
-            ms=graph_ms(lambda: rbk.res_block(*a16, dil)),
+            ms=graph_ms(lambda: rbk.res_block(*a16, dil, packed)),
             plain_ms=plain_time(lambda: rbk.res_block_ref(*a16, dil)),
             library_ms=None,
             cudnn_convs_ms=graph_ms(lambda: [
                 F.conv2d(xin, w, None, 1, dil, dil) for w in (w1, w2)]),
+            chain_ms=graph_ms(lambda: pb.fused_residual_stage(
+                a16[0], *chain, dil, packed=chain_packed)),
             bound_ms=bms, bound_by=by, gflop=flops / 1e9))
     return rows
 
@@ -1711,7 +1724,9 @@ def main() -> int:
             f"({r['corners'] * FEAT / 1e9:.3f} G atomic adds)")
     for r in rb_rows:
         log(f"  {r['site']}: cuDNN's two convs alone "
-            f"{r['cudnn_convs_ms']:.4f} ms")
+            f"{r['cudnn_convs_ms']:.4f} ms; {r['count']} blocks: res_block "
+            f"{r['count'] * r['ms']:.4f} ms, row 6's chain "
+            f"{r['chain_ms']:.4f} ms")
 
     os.makedirs("exp", exist_ok=True)
     exp_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir="exp")

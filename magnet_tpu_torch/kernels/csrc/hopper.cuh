@@ -336,5 +336,21 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       : "memory");
 }
 
+// ---- added for the one-launch BasicBlock ---------------------------------------
+
+// Sets the registers of each thread of the calling warpgroup to N (a
+// multiple of 8): every thread of the warpgroup executes it. A kernel whose
+// copy warps need few registers gives theirs to the consumer warpgroups
+// (reg_release in the copy warpgroup, reg_claim in the others); the total
+// must stay within the 65536 of an SM.
+template <int N>
+__device__ __forceinline__ void reg_claim() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_release() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
 }  // namespace hp
 }  // namespace mt

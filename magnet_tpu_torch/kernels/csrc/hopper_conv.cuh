@@ -1,5 +1,8 @@
 // A bf16 convolution on Hopper's tensor cores, shared by the F-Net conv
-// kernel (psm_conv.cu) and the head chain (head_chain.cu): a block owns an
+// kernel (psm_conv.cu), the head chain (head_chain.cu), the SPP tail
+// (spp_tail.cu: its input a table of K blocks from three maps,
+// stage_halos_src) and the one-launch BasicBlock (res_block.cu: its convs
+// on windows it names, conv_windows): a block owns an
 // 8 x 16 mt patch of output pixels at a time, stages the patch's halo once
 // per K block (64 or 32 input channels) and lets every tap read it as a
 // shifted wgmma descriptor window; a producer warp streams the packed
@@ -247,6 +250,50 @@ __device__ __forceinline__ void stage_halos(const Geom& g, const bf* x, unsigned
   }
 }
 
+// A K block of stage_halos_src: channels [c0, c0 + kb) of the (N, H, W, C)
+// map p, those at or past C zero. A conv whose input is a channel concat
+// (the SPP tail's raw | skip | branches) names one K block per kb channels
+// of each map, so that no K block mixes two maps and the concat is never
+// built.
+struct KSrc {
+  const bf* p;
+  int C, c0;
+};
+constexpr int MAX_KSRC = 16;  // K blocks of a table
+
+// stage_halos for an input given as a table of K blocks: K block kb of each
+// patch's sequence is staged from src[kb] (g.nkb entries).
+__device__ __forceinline__ void stage_halos_src(const Geom& g, const KSrc* src,
+                                                unsigned char* smem, const Bars& b, int bt) {
+  const int* tab = reinterpret_cast<const int*>(smem + g.off_tab);
+  const int rb = 2 * g.kb, cpr = g.kb / 8;
+  const int c = bt % cpr, r0 = bt / cpr, rstep = HALO_THREADS / cpr;
+  int hseq = 0;
+  for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+    const Patch p = patch(g, t);
+    const int iy0 = p.y0 - g.pad, ix0 = p.x0 - g.pad;
+    for (int kb = 0; kb < g.nkb; ++kb, ++hseq) {
+      const int s = hseq % HALOS;
+      if (hseq >= HALOS) hp::mbar_wait(&b.hempty[s], (hseq / HALOS - 1) & 1);
+      unsigned char* stage = smem + s * g.halo_bytes;
+      const KSrc k = src[kb];
+      const int ch = k.c0 + 8 * c;
+      const bool cvalid = ch < k.C;
+      const bf* img = k.p + (size_t)p.img * g.H * g.W * k.C;
+      for (int row = r0; row < g.rows; row += rstep) {
+        const int v = tab[row];
+        const int iy = iy0 + (v >> 16), ix = ix0 + (v & 0xFFFF);
+        const bool ok = cvalid && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
+        hp::cp_async16(stage + hp::swizzled(row, c, rb),
+                       ok ? img + ((size_t)iy * g.W + ix) * k.C + ch : k.p, ok);
+      }
+      hp::cp_async_wait_all();
+      hp::fence_proxy_async();
+      hp::mbar_arrive(&b.hfull[s]);
+    }
+  }
+}
+
 // The weight producer's thread: slab i of each of the block's work items t,
 // from src(t, i) (wstage bytes each), through the ring; or, resident (one
 // block of output channels), every slab once into place (the consumers wait
@@ -371,6 +418,59 @@ __device__ __forceinline__ void conv_patch(Consumer& cs, float (&acc)[MT][BN / 2
     hp::wgmma_wait<0>();
     cs.release(held_slab, held_halo);
   }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) hp::fence_operand(acc[m][i]);
+}
+
+// A 3x3 conv over shared-memory operands that the caller names, for
+// kernels whose A tiles are not conv_patch's (res_block.cu: conv1 over rows
+// of a halo in flat order, conv2 over a tile that the block computed
+// itself): for K block kb < NKB and tap < 9, slab i0 + 9 kb + tap of the
+// sequence (resident, RES, or the ring's next) times the window win(kb,
+// tap, m) of tile m (8-row groups sbo bytes apart) into MT m64 x BN
+// accumulators, which it overwrites. MMA = false runs no wgmma (an
+// ablation). Returns with every group complete and every ring stage
+// released; halo stages are the caller's. The accumulators are set to zero
+// first (the first product overwrites them anyway): the wgmma's operand
+// constraint reads them, and without a definition here the compiler would
+// keep them live from the previous use, beside a second conv's.
+template <int BN, int MT, int KB, int NKB, bool RES, bool MMA, class Win>
+__device__ __forceinline__ void conv_windows(Consumer& cs, float (&acc)[MT][BN / 2], int i0,
+                                             uint32_t sbo, Win win) {
+  constexpr int RB = 2 * KB;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[m][i] = 0.f;
+  int held = -1;  // the ring stage the last group read
+  // the taps stay a loop at run time: unrolled, the compiler would hoist
+  // every window's descriptors out of the patch loop and spill them
+#pragma unroll 1
+  for (int kb = 0; kb < NKB; ++kb)
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const unsigned char* w = cs.slab<RES>(i0 + 9 * kb + tap);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < KB / 16; ++k) {
+        const uint64_t db = desc<KB>(w + 32 * k, 8 * RB);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          if (MMA)
+            hp::wgmma_ss<BN>(acc[m], desc<KB>(win(kb, tap, m) + 32 * k, sbo), db,
+                             (kb | tap | k) != 0);
+      }
+      hp::wgmma_commit();
+      if (!RES) {
+        hp::wgmma_wait<1>();
+        cs.release(held, -1);
+        held = cs.stage_of_last();
+      }
+    }
+  hp::wgmma_wait<0>();
+  if (!RES) cs.release(held, -1);
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll

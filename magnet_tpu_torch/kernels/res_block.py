@@ -9,7 +9,10 @@ conv1 on a mid tile with its halo, keeps it in shared memory (zero outside
 the image) and runs conv2 from there, so the mid map never reaches device
 memory; bounded by tensor-core operations, see the source note. The TPU
 version's gates (``_tile``, ``supported``) have no counterpart: every map
-size runs, C up to 128.
+size runs, C up to 128, and in bf16 (the Hopper kernel) dilation 1 or 2, the
+TPU kernel's. In bf16 the kernel reads both convs' weights as
+``psm_blocks.pack_weights`` packs them (``pack_chain((w1, w2))``);
+``nn.psmnet.PSMNet`` keeps them and passes ``packed``, else each call packs.
 
 ``res_block_ref`` is the plain version: the two convs of
 ``psm_blocks._conv_ref``, the mid map rounded to x's dtype. ``res_block``
@@ -19,10 +22,15 @@ device, or raises.
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 
 from magnet_tpu_torch.kernels import build
-from magnet_tpu_torch.kernels.psm_blocks import _DTYPES, _check, _conv_ref
+from magnet_tpu_torch.kernels.psm_blocks import (_DTYPES, _check, _conv_ref,
+                                                 pack_chain, packed_shape)
+
+DILATIONS = (1, 2)   # the bf16 kernel's
 
 
 def res_block_ref(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
@@ -36,10 +44,14 @@ def res_block_ref(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
 
 def res_block(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
               t1: torch.Tensor, w2: torch.Tensor, s2: torch.Tensor,
-              t2: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+              t2: torch.Tensor, dilation: int = 1,
+              packed: Optional[Sequence[torch.Tensor]] = None
+              ) -> torch.Tensor:
     """The block with the arguments of ``res_block_ref``. CUDA tensors (f32
-    or bf16, C a multiple of 16 bytes and at most 128) launch the kernel on
-    the current stream."""
+    or bf16, C a multiple of 16 bytes and at most 128; in bf16 a dilation of
+    1 or 2) launch the kernel on the current stream. ``packed``:
+    ``pack_chain((w1, w2))``, made once by the caller (read in bf16 on a
+    CUDA device; packed here when None)."""
     if x.device.type == "cpu":
         return res_block_ref(x, w1, s1, t1, w2, s2, t2, dilation)
     if x.device.type != "cuda":
@@ -57,12 +69,24 @@ def res_block(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
         _check(w, "w" + name, (3, 3, C, C), dt, dev)
         _check(s, "s" + name, (C,), torch.float32, dev)
         _check(t, "t" + name, (C,), torch.float32, dev)
+    wk1, wk2 = w1, w2
+    if dt == torch.bfloat16:
+        if dilation not in DILATIONS:
+            raise ValueError(f"res_block: dilation {dilation}, the bf16 "
+                             f"kernel takes {DILATIONS}")
+        if packed is None:
+            packed = pack_chain((w1, w2))
+        if len(packed) != 2:
+            raise ValueError("res_block: packed holds both convs' weights")
+        for name, p in zip(("packed w1", "packed w2"), packed):
+            _check(p, name, packed_shape(3, C, C), dt, dev)
+        wk1, wk2 = packed
     out = torch.empty_like(x)
     lib = build.library()
     with torch.cuda.device(dev):
         err = lib.mt_res_block(
-            _DTYPES[dt], x.data_ptr(), w1.data_ptr(), s1.data_ptr(),
-            t1.data_ptr(), w2.data_ptr(), s2.data_ptr(), t2.data_ptr(),
+            _DTYPES[dt], x.data_ptr(), wk1.data_ptr(), s1.data_ptr(),
+            t1.data_ptr(), wk2.data_ptr(), s2.data_ptr(), t2.data_ptr(),
             out.data_ptr(), N, H, W, C, dilation,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "res_block")

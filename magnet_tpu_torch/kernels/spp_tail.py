@@ -2,11 +2,16 @@
 eval BatchNorm, ReLU, 1x1 projection (no bias) to the feature width. NHWC.
 
 The port of ``magnet_tpu/kernels/spptail_pallas.py::spp_tail_fused``. The
-CUDA kernel (``csrc/spp_tail.cu``) reads the three maps as three K ranges of
-one implicit GEMM, so the 320-channel concat is never built, and keeps the
-128-channel hidden tile in shared memory, so only the projected features
-reach device memory. Bounded by tensor-core operations on an H100; see the
-source note.
+CUDA kernel (``csrc/spp_tail.cu``) reads the three maps as K blocks of one
+conv, so the 320-channel concat is never built, and keeps the 128-channel
+hidden tile on chip, so only the projected features reach device memory.
+Bounded by tensor-core operations on an H100; see the source note.
+
+In bf16 the kernel reads the weights that ``tail_operands`` packs: the 3x3
+in 64-channel K blocks per map (each map padded with zeros to its own K
+blocks), the 1x1 in two K blocks with its columns padded to 128.
+``nn.psmnet.PSMNet`` keeps them and passes ``packed``; else each call packs.
+In f32 it reads the HWIO weights.
 
 ``spp_tail_ref`` is the plain PyTorch version. ``spp_tail`` runs it for
 tensors on the CPU and launches the kernel for tensors on a CUDA device, or
@@ -15,12 +20,18 @@ raises.
 
 from __future__ import annotations
 
+from typing import Optional, Sequence, Tuple
+
 import torch
 import torch.nn.functional as F
 
 from magnet_tpu_torch.kernels import build
+from magnet_tpu_torch.kernels.psm_blocks import (_ceil, _check,
+                                                 pack_weights)
 
 HIDDEN = 128
+KBLOCK = 64        # input channels of a K block of the bf16 kernel
+MAX_KBLOCKS = 16   # K blocks the bf16 kernel takes, over the three maps
 MAX_OUT = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -42,13 +53,36 @@ def spp_tail_ref(raw: torch.Tensor, skip: torch.Tensor, br: torch.Tensor,
     return out.permute(0, 2, 3, 1).to(raw.dtype).contiguous()
 
 
+def tail_operands(w0: torch.Tensor, w1: torch.Tensor,
+                  widths: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernel's weights: w0 (3, 3, sum(widths), 128) HWIO, its
+    input channels the maps' of ``widths`` in order, packed per map
+    (``pack_weights`` in K blocks of 64, each map zero padded to its own K
+    blocks) and the maps' K blocks concatenated: (K blocks, 9, 128, 64); w1
+    (128, Cout) as a 1x1 in two K blocks, (2, 1, Cout padded to 128, 64)."""
+    parts, off = [], 0
+    for c in widths:
+        parts.append(pack_weights(w0[:, :, off:off + c], kb=KBLOCK,
+                                  n_pad=HIDDEN))
+        off += c
+    if off != w0.shape[2]:
+        raise ValueError(f"spp_tail: widths {tuple(widths)} for "
+                         f"{w0.shape[2]} input channels")
+    return (torch.cat(parts), pack_weights(
+        w1[None, None], kb=KBLOCK, n_pad=_ceil(w1.shape[-1], HIDDEN)))
+
+
 def spp_tail(raw: torch.Tensor, skip: torch.Tensor, br: torch.Tensor,
              w0: torch.Tensor, scale0: torch.Tensor, shift0: torch.Tensor,
-             w1: torch.Tensor) -> torch.Tensor:
+             w1: torch.Tensor,
+             packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+             ) -> torch.Tensor:
     """The tail with the arguments of ``spp_tail_ref``. CPU tensors take the
     plain version; CUDA tensors (f32 or bf16, every channel count a multiple
     of 16 bytes, Cout a multiple of 16 and at most 256) launch the kernel on
-    the current stream."""
+    the current stream. ``packed``: ``tail_operands(w0, w1, (C0, C1,
+    C2))``, made once by the caller (read in bf16 on a CUDA device; packed
+    here when None)."""
     if raw.device.type == "cpu":
         return spp_tail_ref(raw, skip, br, w0, scale0, shift0, w1)
     if raw.device.type != "cuda":
@@ -79,15 +113,29 @@ def spp_tail(raw: torch.Tensor, skip: torch.Tensor, br: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"spp_tail: {name} must be contiguous and "
                              "16-byte aligned")
-    zero = torch.zeros(cout, dtype=torch.float32, device=dev)
+    zero, wk0, wk1 = None, w0, w1
+    if dt == torch.bfloat16:
+        nkb = sum(_ceil(c, KBLOCK) // KBLOCK for c in (C0, C1, C2))
+        if nkb > MAX_KBLOCKS:
+            raise ValueError(f"spp_tail: {nkb} K blocks of {KBLOCK} channels, "
+                             f"the kernel takes {MAX_KBLOCKS}")
+        if packed is None:
+            packed = tail_operands(w0, w1, (C0, C1, C2))
+        wk0, wk1 = packed
+        _check(wk0, "spp_tail: packed w0", (nkb, 9, HIDDEN, KBLOCK), dt, dev)
+        _check(wk1, "spp_tail: packed w1", (2, 1, _ceil(cout, HIDDEN), KBLOCK),
+               dt, dev)
+    else:
+        zero = torch.zeros(cout, dtype=torch.float32, device=dev)
     out = torch.empty((N, H, W, cout), dtype=dt, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
         err = lib.mt_spp_tail(
             _DTYPES[dt], raw.data_ptr(), skip.data_ptr(), br.data_ptr(),
-            w0.data_ptr(), scale0.data_ptr(), shift0.data_ptr(),
-            w1.data_ptr(), zero.data_ptr(), out.data_ptr(), N, H, W, C0, C1,
-            C2, cout, torch.cuda.current_stream(dev).cuda_stream)
+            wk0.data_ptr(), scale0.data_ptr(), shift0.data_ptr(),
+            wk1.data_ptr(), None if zero is None else zero.data_ptr(),
+            out.data_ptr(), N, H, W, C0, C1, C2, cout,
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "spp_tail")
     spp_tail.launches += 1
     return out

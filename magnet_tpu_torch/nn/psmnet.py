@@ -13,9 +13,10 @@ the port of the TPU kernel the JAX package runs there,
 
 with eval BatchNorm folded to an f32 scale and shift. The folded operands
 (HWIO weights, scale and shift, and in bf16 on a CUDA device the packed
-weights of ``psm_blocks.pack_weights``) are kept on the modules until a
-weight or BatchNorm buffer changes (``nn.layers.cached_fold``), so a
-forward prepares nothing but its activations. With ``stream_blocks``
+weights of ``psm_blocks.pack_weights`` and ``spp_tail.tail_operands``) are
+kept on the modules until a weight or BatchNorm buffer changes
+(``nn.layers.cached_fold``), so a forward prepares nothing but its
+activations. With ``stream_blocks``
 (the JAX package's ``MAGNET_TPU_PALLAS_RST``, for maps too large for its
 whole-map chains, as at the KITTI shape) each stride-1 BasicBlock of
 layer1-layer4 is one ``kernels.res_block.res_block`` launch instead of its
@@ -57,7 +58,7 @@ from magnet_tpu_torch.kernels.psm_blocks import (downsample_block,
                                                  fused_residual_stage,
                                                  pack_chain)
 from magnet_tpu_torch.kernels.res_block import res_block
-from magnet_tpu_torch.kernels.spp_tail import spp_tail
+from magnet_tpu_torch.kernels.spp_tail import spp_tail, tail_operands
 from magnet_tpu_torch.nn.layers import (batch_norm, batch_norm_train,
                                         cached_fold, fold_bn, hwio, nchw,
                                         nhwc)
@@ -109,14 +110,19 @@ def fold_chain(cbs: Sequence[nn.Sequential], dtype: torch.dtype
             (beta - mean * scale).contiguous())
 
 
+def packs(x: torch.Tensor) -> bool:
+    """Whether the kernels read packed weights for x: bf16 on a CUDA
+    device."""
+    return x.is_cuda and x.dtype == torch.bfloat16
+
+
 def kept_operands(owner: nn.Module, name: str, cbs: Sequence[nn.Sequential],
-                  x: torch.Tensor, stacked: bool = True,
-                  pack: bool = True) -> tuple:
+                  x: torch.Tensor, stacked: bool = True) -> tuple:
     """The conv-BN pairs ``cbs`` folded for x's dtype: ``fold_chain``'s
     stacked (weights, scales, shifts), or with ``stacked=False`` lists of
-    ``hwio`` and ``fold_bn`` per conv (pairs of other shapes); and, with
-    ``pack`` for a bf16 x on a CUDA device, the packed weights of each conv
-    (else None). Kept on ``owner`` under ``name`` until a weight or
+    ``hwio`` and ``fold_bn`` per conv (pairs of other shapes); and, where
+    the kernels read packed weights (``packs``), those of each conv (else
+    None). Kept on ``owner`` under ``name`` until a weight or
     BatchNorm buffer of ``cbs`` changes."""
     def fold():
         if stacked:
@@ -124,8 +130,7 @@ def kept_operands(owner: nn.Module, name: str, cbs: Sequence[nn.Sequential],
         else:
             w = [hwio(cb[0], x.dtype) for cb in cbs]
             scale, shift = zip(*[fold_bn(cb[1]) for cb in cbs])
-        packed = (pack_chain(w) if pack and x.is_cuda
-                  and x.dtype == torch.bfloat16 else None)
+        packed = pack_chain(w) if packs(x) else None
         return w, scale, shift, packed
     sources = [t for cb in cbs for t in (*cb.parameters(), *cb.buffers())]
     return cached_fold(owner, name, x.dtype, sources, fold)
@@ -167,11 +172,10 @@ def run_layer(x: torch.Tensor, layer: nn.Sequential,
         raise ValueError("only a stage's first block may change the shape")
     if stream_blocks:
         for b in blocks:
-            w, scale, shift, _ = kept_operands(
-                b, "res_block", [b.conv1[0], b.conv2], x, stacked=False,
-                pack=False)
+            w, scale, shift, packed = kept_operands(
+                b, "res_block", [b.conv1[0], b.conv2], x, stacked=False)
             x = res_block(x, w[0], scale[0], shift[0], w[1], scale[1],
-                          shift[1], b.dilation)
+                          shift[1], b.dilation, packed)
         return x
     cbs = [cb for b in blocks for cb in (b.conv1[0], b.conv2)]
     w, scale, shift, packed = kept_operands(layer, "chain", cbs, x)
@@ -241,11 +245,17 @@ class PSMNet(nn.Module):
         br = self.spp_branches(skip, run_convbn)
         conv0, bn0 = self.lastconv[0]
         proj = self.lastconv[2].weight
+        widths = (raw.shape[-1], skip.shape[-1], br.shape[-1])
+
+        def fold_tail():
+            w0 = hwio(conv0, y.dtype)
+            w1 = proj.to(y.dtype)[:, :, 0, 0].t().contiguous()
+            packed = tail_operands(w0, w1, widths) if packs(y) else None
+            return w0, *fold_bn(bn0), w1, packed
         tail = cached_fold(
             self.lastconv, "tail", y.dtype,
             [*self.lastconv.parameters(), *self.lastconv.buffers()],
-            lambda: (hwio(conv0, y.dtype), *fold_bn(bn0),
-                     proj.to(y.dtype)[:, :, 0, 0].t().contiguous()))
+            fold_tail)
         return spp_tail(raw, skip, br, *tail)
 
     def train_forward(self, x: torch.Tensor) -> torch.Tensor:

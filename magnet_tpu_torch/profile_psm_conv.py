@@ -1,29 +1,44 @@
 """Where the F-Net conv kernel (``kernels/csrc/psm_conv.cu``, TPU kernel rows
-6-8) and the head chain (``kernels/csrc/head_chain.cu``, row 3) spend their
-time on the GPU, bf16. Both run the conv of ``kernels/csrc/hopper_conv.cuh``.
+6-8), the head chain (``kernels/csrc/head_chain.cu``, row 3), the SPP tail
+(``kernels/csrc/spp_tail.cu``, row 9) and the one-launch BasicBlock
+(``kernels/csrc/res_block.cu``, row 14) spend their time on the GPU, bf16.
+All four run on ``kernels/csrc/hopper_conv.cuh``.
 
-    python -m magnet_tpu_torch.profile_psm_conv [--ablate] [--out p.json]
+    python -m magnet_tpu_torch.profile_psm_conv [--ablate [NAME,...]]
+        [--sites TEXT,...] [--out p.json]
 
 Times each kernel (calls captured in a CUDA graph, the replay timed with
 events) and cuDNN over the same convolutions at the sites of ``sites``: one
 conv of each kind the F-Net runs on the 5 frames of a MaGNet sample at
 480x640 (stem and layer1 at 240x320 with 32 channels, layer2 64, layers 3-4
-128, layer4's dilation 2, both transition blocks' convs and projections) and
+128, layer4's dilation 2, both transition blocks' convs and projections),
 the three heads (the depth head at N = 5, G-Net's feature term and MaGNet's
-mask head at N = 1); each output is held against the plain version
-(2e-2 * max|ref|). With ``--ablate`` it also builds copies of the package
-under ``build/profile_psm_conv/`` with one part of the kernels switched off
-and times them the same way, a process each:
+mask head at N = 1), the SPP tail at N = 5, and the BasicBlock at the
+KITTI layer2, layer3 and layer4 sites (3 frames, 88x304; row 6's chain of
+the same block beside cuDNN); each output is held against the plain version
+(2e-2 * max|ref|). ``--sites`` keeps the sites whose name holds one of the
+comma-separated TEXT. With
+``--ablate`` it also builds copies of the package under
+``build/profile_psm_conv/`` with one part of the kernels switched off (all
+of ``ABLATIONS``, or the names given) and times them the same way, a
+process each:
   * ``no_halo``: the halo warps publish halo stages without staging them;
   * ``no_weights``: the weight ring loads its first slabs only, and the
     consumers reuse them (no change where the weights stay resident);
   * ``mma_only``: both;
-  * ``no_mma``: the consumers issue no wgmma for the 3x3 (the head's 1x1
-    layers still run);
-  * ``no_1x1``: the head's 1x1 layers issue no wgmma;
+  * ``no_mma``: the consumers run no wgmma for the 3x3 convs (the head's
+    and the tail's 1x1 layers still run);
+  * ``no_1x1``: the head's 1x1 layers run no wgmma;
   * ``kb64``: 32-channel inputs in 64-channel K blocks, 32 of them zeros,
-    in place of the 64-byte swizzle's 32-channel blocks.
-Their outputs are wrong by design (all but ``kb64``); the times split a
+    in place of the 64-byte swizzle's 32-channel blocks;
+  * ``conv1_only`` / ``conv2_only``: the BasicBlock runs the wgmma of one
+    of its two convs only;
+  * ``c128_n64``: the BasicBlock at C = 128 and dilation 1 runs conv1 in
+    two rounds of 64 output channels in place of one of 128 (two m64n128
+    tiles a warpgroup); ``d2_n128``: at dilation 2 in one round of 128
+    (three tiles, 192 accumulators a thread) in place of two of 64.
+Their outputs are wrong by design (all but ``kb64``, ``c128_n64`` and
+``d2_n128``); the times split a
 kernel's between its MMA, its halo staging and its weight stream. Needs a
 CUDA device.
 """
@@ -41,36 +56,52 @@ import torch.nn.functional as F
 
 from magnet_tpu_torch.kernels import head_chain as hc
 from magnet_tpu_torch.kernels import psm_blocks as pb
+from magnet_tpu_torch.kernels import res_block as rbk
+from magnet_tpu_torch.kernels import spp_tail as st
 from magnet_tpu_torch.profile_conv import PEAK_BF16_FLOPS, ROOT, edited_copy
 from magnet_tpu_torch.profile_dnet import graph_ms
 
 ABLATE_DIR = ROOT / "build" / "profile_psm_conv"
 CONV = "magnet_tpu_torch/kernels/csrc/hopper_conv.cuh"
 HEAD = "magnet_tpu_torch/kernels/csrc/head_chain.cu"
+BLOCK = "magnet_tpu_torch/kernels/csrc/res_block.cu"
 _NO_HALO = ((CONV, "for (int r = r0; r < g.rows; r += rstep) {",
-             "for (int r = r0; r < 0; r += rstep) {"),)
+             "for (int r = r0; r < 0; r += rstep) {"),
+            (CONV, "for (int row = r0; row < g.rows; row += rstep) {",
+             "for (int row = r0; row < 0; row += rstep) {"))
+_RING_WAIT = ("if (it >= g.stages) hp::mbar_wait(&b.wempty[s], (it / g.stages - 1) & 1);",
+              "if (it >= g.stages) break;")
 _NO_WEIGHTS = (
     (CONV, "hp::mbar_wait(&b.wfull[s], (it / g.stages) & 1);",
      "if (it < g.stages) hp::mbar_wait(&b.wfull[s], 0);"),
-    (CONV, "if (it >= g.stages) hp::mbar_wait(&b.wempty[s], (it / g.stages - 1) & 1);",
-     "if (it >= g.stages) break;"))
+    (CONV, *_RING_WAIT), (BLOCK, *_RING_WAIT))
+_BOTH_MMA = "CONV1_MMA = true, CONV2_MMA = true"
 # variant -> (file, text in it, its replacement) edits
 ABLATIONS = {
     "no_halo": _NO_HALO,
     "no_weights": _NO_WEIGHTS,
     "mma_only": _NO_HALO + _NO_WEIGHTS,
-    "no_mma": ((CONV, "hp::wgmma_ss<BN>(acc[m],",
-                "if (k < 0) hp::wgmma_ss<BN>(acc[m],"),),
+    "no_mma": ((CONV, "hp::wgmma_ss<BN>(acc[m], desc<KB>(a + 8 * m * RB",
+                "if (k < 0) hp::wgmma_ss<BN>(acc[m], desc<KB>(a + 8 * m * RB"),
+               (CONV, "if (MMA)", "if (MMA && k < 0)")),
     "no_1x1": ((HEAD, "hp::wgmma_rs<128>(acc, frag", "if (k < 0) hp::wgmma_rs<128>(acc, frag"),),
     "kb64": (("magnet_tpu_torch/kernels/psm_blocks.py",
               "return 32 if ci <= 32 else 64", "return 64"),),
+    "conv1_only": ((BLOCK, _BOTH_MMA, "CONV1_MMA = true, CONV2_MMA = false"),),
+    "conv2_only": ((BLOCK, _BOTH_MMA, "CONV1_MMA = false, CONV2_MMA = true"),),
+    "c128_n64": ((BLOCK, "launch_block<RbShape<128, 64, 1, 1, 1>>",
+                  "launch_block<RbShape<128, 64, 1, 2, 1>>"),),
+    "d2_n128": ((BLOCK, "launch_block<RbShape<128, 64, 1, 2, 2>>",
+                 "launch_block<RbShape<128, 64, 1, 1, 2>>"),),
 }
 
 
 def sites(h: int = 480, w: int = 640, frames: int = 5) -> list:
-    """(site, kind, spec) at the ScanNet eval shape: "conv" specs are (N, H,
-    W, Ci, Co, k, stride, dilation, epilogue) of one F-Net conv, "head"
-    specs (N, H, W, C0, widths after the 3x3)."""
+    """(site, kind, spec) at the ScanNet eval shape and two KITTI sites:
+    "conv" specs are (N, H, W, Ci, Co, k, stride, dilation, epilogue) of one
+    F-Net conv, "head" specs (N, H, W, C0, widths after the 3x3), "tail"
+    specs (N, H, W, map widths, Cout), "block" specs (N, H, W, C,
+    dilation)."""
     hh, wh, hc_, wc = h // 2, w // 2, h // 4, w // 4
     n = frames
     return [
@@ -89,6 +120,10 @@ def sites(h: int = 480, w: int = 640, frames: int = 5) -> list:
         ("depth head N=5", "head", (n, hc_, wc, 256, (128, 128, 2))),
         ("gnet feature term N=1", "head", (1, hc_, wc, 256, (128,))),
         ("magnet mask head N=1", "head", (1, hc_, wc, 256, (128, 128, 128, 144))),
+        ("spp tail N=5", "tail", (n, hc_, wc, (64, 128, 128), 64)),
+        ("res_block KITTI layer2 (64)", "block", (3, 88, 304, 64, 1)),
+        ("res_block KITTI layer3 (128)", "block", (3, 88, 304, 128, 1)),
+        ("res_block KITTI layer4 (128, dilation 2)", "block", (3, 88, 304, 128, 2)),
     ]
 
 
@@ -139,14 +174,63 @@ def head_case(spec, g):
             flops)
 
 
-def time_sites(library: bool, tolerate: bool = False) -> list:
+def tail_case(spec, g):
+    """(kernel call, plain call, cuDNN call over the 3x3, flops) of the SPP
+    tail on operands packed once."""
+    n, h, w, widths, cout = spec
+    bf = torch.bfloat16
+    maps = [_r(g, n, h, w, c, scale=0.5).to(bf) for c in widths]
+    k = sum(widths)
+    w0 = _r(g, 3, 3, k, 128, scale=(9 * k) ** -0.5).to(bf)
+    s0, t0 = _r(g, 128).abs() + 0.5, _r(g, 128, scale=0.1)
+    w1 = _r(g, 128, cout, scale=128 ** -0.5).to(bf)
+    args = (*maps, w0, s0, t0, w1)
+    packed = st.tail_operands(w0, w1, widths)
+    xin = torch.cat(maps, -1).permute(0, 3, 1, 2)
+    wl = w0.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return (lambda: st.spp_tail(*args, packed=packed),
+            lambda: st.spp_tail_ref(*args),
+            lambda: F.conv2d(xin, wl, None, 1, 1),
+            2.0 * n * h * w * 128 * (9 * k + cout))
+
+
+def block_case(spec, g):
+    """(kernel call, plain call, cuDNN's two convs, flops) of one BasicBlock
+    on operands packed once; the fifth item times row 6's chain of the same
+    block."""
+    n, h, w, c, dil = spec
+    bf = torch.bfloat16
+    x = _r(g, n, h, w, c, scale=0.5).to(bf)
+    ws = [_r(g, 3, 3, c, c, scale=(9 * c) ** -0.5).to(bf) for _ in range(2)]
+    bn = [(_r(g, c).abs() + 0.5, _r(g, c, scale=0.1)) for _ in range(2)]
+    args = (x, ws[0], *bn[0], ws[1], *bn[1], dil)
+    packed = pb.pack_chain(ws)
+    chain = (torch.stack(ws), torch.stack([b[0] for b in bn]),
+             torch.stack([b[1] for b in bn]))
+    xin = x.permute(0, 3, 1, 2)
+    wl = [k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+          for k in ws]
+    return (lambda: rbk.res_block(*args, packed),
+            lambda: rbk.res_block_ref(*args),
+            lambda: [F.conv2d(xin, k, None, 1, dil, dil) for k in wl],
+            2.0 * 2 * n * h * w * 9 * c * c,
+            lambda: pb.fused_residual_stage(x, *chain, dil, packed=packed))
+
+
+CASES = {"conv": conv_case, "head": head_case, "tail": tail_case,
+         "block": block_case}
+
+
+def time_sites(library: bool, tolerate: bool = False, only: str = "") -> list:
     """The kernels (and cuDNN) at every site; with ``tolerate`` a site whose
     launch raises (an ablated kernel's shared memory too large) is recorded
     with ``ms`` None."""
     g = torch.Generator().manual_seed(0)
     rows = []
     for site, kind, spec in sites():
-        call, plain, lib, flops = (conv_case if kind == "conv" else head_case)(spec, g)
+        if not any(text in site for text in only.split(",")):
+            continue
+        call, plain, lib, flops, *chain = CASES[kind](spec, g)
         try:
             out = call().float()
         except RuntimeError as e:
@@ -162,14 +246,20 @@ def time_sites(library: bool, tolerate: bool = False) -> list:
             max_abs_err=(out - ref).abs().max().item(),
             limit=2e-2 * ref.abs().max().item(),
             peak_share=flops / PEAK_BF16_FLOPS / (ms * 1e-3),
-            library_ms=graph_ms(lib) if library else None))
+            library_ms=graph_ms(lib) if library else None,
+            chain_ms=graph_ms(chain[0]) if library and chain else None))
     return rows
 
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--ablate", action="store_true",
-                   help="also time the ablated copies of the kernels")
+    p.add_argument("--ablate", nargs="?", const=",".join(ABLATIONS),
+                   default="", metavar="NAME,...",
+                   help="also time the ablated copies of the kernels (all, "
+                        "or the variants named)")
+    p.add_argument("--sites", default="",
+                   help="only the sites whose name holds one of these "
+                        "comma-separated texts")
     p.add_argument("--sites-only", action="store_true",
                    help=argparse.SUPPRESS)   # one ablated copy's process
     p.add_argument("--out", default="")
@@ -178,24 +268,27 @@ def main(argv=None) -> dict:
         raise RuntimeError("profile_psm_conv needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     if a.sites_only:
-        print(json.dumps(time_sites(library=False, tolerate=True)))
+        print(json.dumps(time_sites(library=False, tolerate=True,
+                                    only=a.sites)))
         return {}
     res = dict(device=torch.cuda.get_device_name(0),
-               kernel=time_sites(library=True), ablations={})
-    for name in ABLATIONS if a.ablate else ():
+               kernel=time_sites(library=True, only=a.sites), ablations={})
+    for name in filter(None, a.ablate.split(",")):
         root = edited_copy(ABLATE_DIR / name, ABLATIONS[name])
         env = dict(os.environ, PYTHONPATH=str(root))
         done = subprocess.run(
             [sys.executable, "-m", "magnet_tpu_torch.profile_psm_conv",
-             "--sites-only"], cwd=root, env=env, capture_output=True,
-            text=True, check=True)
+             "--sites-only", "--sites", a.sites], cwd=root, env=env,
+            capture_output=True, text=True, check=True)
         res["ablations"][name] = json.loads(done.stdout.splitlines()[-1])
     for i, r in enumerate(res["kernel"]):
         ablated = "".join(f", {name} {rows[i]['ms'] or float('nan'):.4f}"
                           for name, rows in res["ablations"].items())
+        chain = ("" if r["chain_ms"] is None
+                 else f", row 6's chain {r['chain_ms']:.4f} ms")
         print(f"{r['site']:38s} kernel {r['ms']:.4f} ms "
               f"({100 * r['peak_share']:.1f} % of bf16 peak), cuDNN "
-              f"{r['library_ms']:.4f} ms, err {r['max_abs_err']:.3e} "
+              f"{r['library_ms']:.4f} ms{chain}, err {r['max_abs_err']:.3e} "
               f"(limit {r['limit']:.3e}){ablated}")
     bad = [r["site"] for r in res["kernel"]
            if not r["max_abs_err"] <= r["limit"]]

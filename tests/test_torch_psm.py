@@ -319,6 +319,55 @@ def test_conv_over_packed_operands_matches_plain(case):
     _close(out.numpy(), ref.numpy())
 
 
+TAIL_WIDTHS = {"maps": (64, 128, 128), "padded": (16, 48, 32)}
+
+
+@pytest.mark.parametrize("widths", TAIL_WIDTHS.values(), ids=TAIL_WIDTHS)
+def test_tail_operands_round_trip_to_hwio(widths):
+    """The tail's 3x3 in 64-channel K blocks per map, a map narrower than a
+    K block padded with zeros to its own (no K block mixes two maps); the
+    1x1 as two K blocks, its columns padded to 128."""
+    g = torch.Generator().manual_seed(4)
+    w0 = torch.randn(3, 3, sum(widths), 128, generator=g)
+    w1 = torch.randn(128, 48, generator=g)
+    p0, p1 = st.tail_operands(w0, w1, widths)
+    nkb = [-(-c // 64) for c in widths]
+    assert tuple(p0.shape) == (sum(nkb), 9, 128, 64)
+    assert tuple(p1.shape) == (2, 1, 128, 64)
+    kb = off = 0
+    for c, n in zip(widths, nkb):
+        assert torch.equal(pb.unpack_weights(p0[kb:kb + n], 3, c, 128),
+                           w0[:, :, off:off + c])
+        kb, off = kb + n, off + c
+    assert int(torch.count_nonzero(p0)) == w0.numel()
+    assert torch.equal(pb.unpack_weights(p1, 1, 128, 48)[0, 0], w1)
+    with pytest.raises(ValueError):
+        st.tail_operands(w0, w1, widths[:2])
+
+
+@pytest.mark.parametrize("widths,cout", [((64, 128, 128), 64),
+                                         ((16, 48, 32), 144)],
+                         ids=["maps", "padded_wide"])
+def test_tail_over_packed_operands_matches_plain(widths, cout):
+    """The bf16 kernel's view of the tail: each map zero padded to its own
+    64-channel K blocks (the halo table of ``stage_halos_src``), the 3x3
+    through the halo windows and packed slabs, BN and ReLU, then the 1x1
+    over the packed projection in 128-column chunks, equals
+    ``spp_tail_ref``."""
+    g = torch.Generator().manual_seed(5)
+    maps = [torch.randn(1, 9, 19, c, generator=g) for c in widths]
+    w0 = torch.randn(3, 3, sum(widths), 128, generator=g) * sum(widths) ** -.5
+    s0, t0 = torch.rand(128, generator=g) + 0.5, torch.randn(128, generator=g)
+    w1 = torch.randn(128, cout, generator=g) * 128 ** -0.5
+    p0, p1 = st.tail_operands(w0, w1, widths)
+    blocks = torch.cat([torch.nn.functional.pad(m, (0, -c % 64))
+                        for m, c in zip(maps, widths)], -1)
+    hidden = _conv_from_packed(blocks, p0, s0, t0, 1, 1, 9, 128, True, None)
+    proj = pb.swizzle_rows(p1).float()[:, 0]            # (2, cpad, 64)
+    out = hidden @ proj.permute(0, 2, 1).reshape(128, -1)[:, :cout]
+    _close(out.numpy(), st.spp_tail_ref(*maps, w0, s0, t0, w1).numpy())
+
+
 def test_psmnet_operands_are_kept_until_a_weight_changes():
     """PSMNet folds each chain's, transition block's and the tail's operands
     once and reuses them on the next forward; an in-place update of a weight
@@ -427,6 +476,43 @@ def test_spp_tail_kernel_matches_plain(cuda, dtype, case):
     out = st.spp_tail(*a)
     assert st.spp_tail.launches == before + 1
     _close_cuda(out, st.spp_tail_ref(*a), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", TAIL_WIDTHS.values(), ids=TAIL_WIDTHS)
+@pytest.mark.parametrize("source", range(3), ids=["raw", "skip", "br"])
+@pytest.mark.parametrize("tap", range(9))
+def test_spp_tail_kernel_single_tap_and_channel(cuda, widths, source, tap):
+    """A 3x3 weight that is non-zero at one tap and one input channel, in
+    the last K block of one map: a K block read from the wrong map or at
+    the wrong channel offset, or a wrong window, cannot hide behind the
+    other taps and channels."""
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(tap)
+    maps = [torch.randn(2, 19, 37, c, generator=g).to(cuda, bf) for c in widths]
+    ch = sum(widths[:source]) + widths[source] - 3
+    w0 = torch.zeros(3, 3, sum(widths), 128)
+    w0[tap // 3, tap % 3, ch] = torch.randn(128, generator=g)
+    s0 = (torch.rand(128, generator=g) + 0.5).to(cuda)
+    t0 = (torch.randn(128, generator=g) * 0.1).to(cuda)
+    w1 = (torch.randn(128, 64, generator=g) * 128 ** -0.5).to(cuda, bf)
+    a = (*maps, w0.to(cuda, bf), s0, t0, w1)
+    _close_cuda(st.spp_tail(*a), st.spp_tail_ref(*a), bf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [dict(N=3, H=88, W=304), dict(N=5, H=120, W=160)],
+                         ids=["kitti", "scannet"])
+def test_spp_tail_kernel_at_the_frame_shapes(cuda, case):
+    """The main path's tail sites (maps that are not patch multiples at the
+    KITTI shape) on operands packed once, as PSMNet keeps them."""
+    bf = torch.bfloat16
+    a = _on(tail_inputs(**case), cuda, bf, TAIL)
+    packed = st.tail_operands(a[3], a[6], (64, 128, 128))
+    before = st.spp_tail.launches
+    out = st.spp_tail(*a, packed=packed)
+    assert st.spp_tail.launches == before + 1
+    _close_cuda(out, st.spp_tail_ref(*a), bf)
 
 
 def _conv_case(dev, N, H, W, ci, co, k=3, stride=1, dil=1, epi="res",
@@ -561,3 +647,8 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     a = _on(tail_inputs(H=6, W=6), cuda, bf, TAIL)
     with pytest.raises(ValueError):                  # scale in bf16
         st.spp_tail(*a[:4], a[4].to(bf), *a[5:])
+    p0, p1 = st.tail_operands(a[3], a[6], (64, 128, 128))
+    with pytest.raises(ValueError):                  # packed for other maps
+        st.spp_tail(*a, packed=(p0[1:], p1))
+    with pytest.raises(ValueError):                  # packed w1 unpadded
+        st.spp_tail(*a, packed=(p0, p1[:, :, :64]))

@@ -11,9 +11,19 @@ flag file parses, and the entry point runs it on the CPU at a tiny shape with
 all three switches, equal to the same run without them to 1e-5 of the
 output's largest value.
 
+The bf16 kernel's operands and geometry on the CPU: both convs' packed
+weights round trip to HWIO, and a plain emulation of the kernel (conv1 in
+the input halo's flat row order, rows past the staged halo read as NaN, mid
+written into its tile with zero outside the image, conv2 over the mid
+tile's windows) equals ``res_block_ref``. ``PSMNet(stream_blocks=True)``
+keeps each block's packed operands until a weight or BatchNorm buffer
+changes.
+
 CUDA (marker ``cuda``, skipped without a card): the kernel against its plain
 version on the card, f32 at 1e-4 * max|ref| and bf16 at 2e-2 * max|ref|, at
-the KITTI layer shapes and at sizes that are not tile multiples; the launch
+the KITTI layer shapes and at sizes that are not tile multiples; one-hot
+conv1 taps with conv2 the identity (conv1's windows); a positive BN1 shift
+at the borders (mid outside the image is zero, not relu(shift)); the launch
 count; a CUDA tensor never reaches the plain version; what the wrapper
 refuses. These import no JAX: ``python -m pytest --noconftest -m cuda
 tests/test_torch_resblock.py``.
@@ -141,6 +151,153 @@ def test_kitti_entry_point_cpu_with_the_switches(tmp_path, monkeypatch):
     _close(outs[0], outs[1], 1e-5)
 
 
+# ---- the bf16 kernel's operands and geometry ---------------------------
+
+@pytest.mark.parametrize("C", [24, 32, 64, 128])
+def test_block_operands_round_trip_to_hwio(C):
+    """Both convs packed as the bf16 kernel reads them: K blocks of 32 at C
+    <= 32 (C = 24 zero padded), else of 64; outputs padded to 32, 64, 128."""
+    a = [torch.from_numpy(v) for v in block_inputs(C, H=4, W=4)]
+    packed = pb.pack_chain((a[1], a[4]))
+    for p, w in zip(packed, (a[1], a[4])):
+        assert tuple(p.shape) == pb.packed_shape(3, C, C)
+        assert torch.equal(pb.unpack_weights(p, 3, C, C), w)
+        assert int(torch.count_nonzero(p)) == w.numel()
+
+
+def _block_shape(C, dil):
+    """The kernel's instance (csrc/res_block.cu::RbShape) for (C, d): its
+    output width BN, K block KB, patch 8 x PW, conv1's tiles a warpgroup MT1
+    and rounds NR1."""
+    bn, kb = pb.n_block(C), pb.k_block(C)
+    mt2, nr1 = {(32, 1): (4, 1), (32, 2): (2, 1), (64, 1): (2, 1),
+                (64, 2): (1, 1), (128, 1): (1, 1), (128, 2): (1, 2)}[bn, dil]
+    pw = 16 * mt2
+    hw, mh, mw = pw + 4 * dil, 8 + 2 * dil, pw + 2 * dil
+    flat = (mh - 1) * hw + mw
+    mt1 = (-(-flat // 64) + 1) // 2
+    return bn, kb, pw, mt1, nr1
+
+
+def _block_from_packed(x, packed, s1, t1, s2, t2, dil):
+    """One block as the bf16 kernel computes it, in f32: per 8 x PW patch,
+    the (8 + 4d) x (PW + 4d) halo of x (zero outside the image and past C)
+    in flat row order, followed by NaN rows (what a tile's window reads past
+    the staged halo); conv1 as 2 MT1 m64 tiles of 64 consecutive halo rows,
+    tap (ky, kx) the window shifted by d (ky hw + kx) rows, over the packed
+    slabs (in NR1 rounds of output channels); rows r hw + c with r < 8 + 2d,
+    c < PW + 2d kept as mid pixel (r, c), relu(bn1) inside the image and
+    zero outside; conv2 over the mid tile's windows (rows of 8 pixels, PW +
+    2d apart); bn2 + x."""
+    n, h, w, c = x.shape
+    bn, kb, pw, mt1, nr1 = _block_shape(c, dil)
+    d = dil
+    hw, hp, mh, mw = pw + 4 * d, 8 + 4 * d, 8 + 2 * d, pw + 2 * d
+    w1, w2 = (pb.swizzle_rows(p).float() for p in packed)   # (nkb, 9, bn, kb)
+    k = w1.shape[0] * kb
+    xp = torch.nn.functional.pad(x.float(), (0, k - c))
+    rows = 128 * mt1 + d * (2 * hw + 2)
+    out = torch.zeros(n, h, w, c)
+    ly, lx = torch.arange(hp * hw) // hw, torch.arange(hp * hw) % hw
+    f = torch.arange(128 * mt1)
+    rr, cc = f // hw, f % hw
+    keep = (rr < mh) & (cc < mw)
+    for img in range(n):
+        for y0 in range(0, h, 8):
+            for x0 in range(0, w, pw):
+                halo = torch.full((rows, k), float("nan"))
+                iy, ix = y0 - 2 * d + ly, x0 - 2 * d + lx
+                ok = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+                halo[:hp * hw] = 0
+                halo[:hp * hw][ok] = xp[img, iy[ok], ix[ok]]
+                acc = torch.zeros(128 * mt1, bn)
+                for r in range(nr1):
+                    cols = slice(r * bn // nr1, (r + 1) * bn // nr1)
+                    for tap in range(9):
+                        off = d * (tap // 3 * hw + tap % 3)
+                        wt = w1[:, tap, cols].permute(0, 2, 1).reshape(k, -1)
+                        acc[:, cols] += halo[f + off] @ wt
+                gy, gx = y0 - d + rr, x0 - d + cc
+                inside = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
+                y = torch.relu(acc[:, :c] * s1 + t1) * inside[:, None]
+                mid = torch.zeros(mh * mw, k)
+                mid[(rr * mw + cc)[keep], :c] = y[keep].to(x.dtype).float()
+                assert not torch.isnan(mid).any()
+                oy, ox = torch.meshgrid(torch.arange(8), torch.arange(pw),
+                                        indexing="ij")
+                acc2 = torch.zeros(8, pw, bn)
+                for tap in range(9):
+                    at = (oy + tap // 3 * d) * mw + ox + tap % 3 * d
+                    wt = w2[:, tap].permute(0, 2, 1).reshape(k, bn)
+                    acc2 += mid[at.reshape(-1)].reshape(8, pw, k) @ wt
+                yy, xx = min(8, h - y0), min(pw, w - x0)
+                res = x[img, y0:y0 + yy, x0:x0 + xx].float()
+                out[img, y0:y0 + yy, x0:x0 + xx] = (
+                    acc2[:yy, :xx, :c] * s2 + t2 + res)
+    return out
+
+
+@pytest.mark.parametrize("C,dil,hw", [
+    (32, 1, (9, 70)), (24, 1, (10, 17)), (32, 2, (9, 35)), (64, 1, (9, 33)),
+    (64, 2, (5, 7)), (128, 1, (9, 17)), (128, 2, (10, 18))],
+    ids=["c32", "c24", "c32_d2", "c64", "c64_d2", "c128", "c128_d2"])
+def test_block_over_packed_operands_matches_plain(C, dil, hw):
+    """The kernel's flat conv1 windows, its mid tile and conv2's windows on
+    the packed weights give ``res_block_ref``, with a positive BN1 shift so
+    that mid outside the image being zero (not relu(shift)) shows; rows
+    that only dropped conv1 rows read are NaN and must not reach mid."""
+    a = [torch.from_numpy(v) for v in block_inputs(C, N=1, H=hw[0], W=hw[1],
+                                                   seed=C + dil)]
+    a[3] = a[3].abs() + 0.5
+    out = _block_from_packed(a[0], pb.pack_chain((a[1], a[4])), *a[2:4],
+                             *a[5:7], dil)
+    _close(out.numpy(), rb.res_block_ref(*a, dil).numpy())
+
+
+def test_stream_blocks_operands_are_kept_until_a_weight_changes(monkeypatch):
+    """With the kernels' packed operands made (``psmnet.packs`` forced on
+    for the CPU), ``PSMNet(stream_blocks=True)`` folds and packs each of the
+    23 blocks' operands (``pack_chain`` of both convs) and the tail's once,
+    reuses them on the next forward, and makes one block's anew when its
+    BatchNorm buffer changes; the output is the plain one."""
+    from magnet_tpu_torch.kernels import spp_tail as st
+    from magnet_tpu_torch.models.build import init_weights_
+    monkeypatch.setattr(psmnet, "packs", lambda x: True)
+    m = init_weights_(psmnet.PSMNet(16, stream_blocks=True), seed=3).eval()
+    x = torch.rand(1, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+
+    def kept():
+        return {(id(mod), name): entry[1] for mod in m.modules()
+                for name, entry in mod.__dict__.get("_folded", {}).items()}
+
+    with torch.no_grad():
+        out = m(x)
+        first = kept()
+        blocks = [b for li in range(1, 5) for b in getattr(m, f"layer{li}")
+                  if b.downsample is None]
+        assert len(blocks) == 23
+        for b in blocks:
+            w, _, _, packed = first[(id(b), "res_block")]
+            assert len(packed) == 2
+            for p, wi in zip(packed, w):
+                assert torch.equal(p, pb.pack_weights(wi))
+        tail = first[(id(m.lastconv), "tail")]
+        for p, q in zip(tail[4], st.tail_operands(tail[0], tail[3],
+                                                  (64, 128, 128))):
+            assert torch.equal(p, q)
+        assert torch.equal(m(x), out)
+        assert all(kept()[k] is v for k, v in first.items())
+        m.layer4[1].conv1[0][1].running_var.add_(0.5)
+        m(x)
+    changed = [k for k, v in kept().items() if v is not first[k]]
+    assert changed == [(id(m.layer4[1]), "res_block")]
+    monkeypatch.undo()
+    with torch.no_grad():
+        fresh = psmnet.PSMNet(16, stream_blocks=True).eval()
+        fresh.load_state_dict(m.state_dict())
+        assert torch.equal(m(x), fresh(x))
+
+
 def test_cpu_tensors_take_the_plain_version():
     before = rb.res_block.launches
     a = [torch.from_numpy(v) for v in block_inputs(H=5, W=3)]
@@ -188,6 +345,60 @@ def test_res_block_kernel_matches_plain(cuda, dtype, case, dil):
     assert err <= _TOL[dtype] * ref.float().abs().max().item(), err
 
 
+def _check_bf16(a, dil):
+    bf = torch.bfloat16
+    out = rb.res_block(*a, dil)
+    ref = rb.res_block_ref(*a, dil)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == bf
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= _TOL[bf] * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,dil", [(32, 1), (32, 2), (128, 1), (128, 2)],
+                         ids=["c32_d1", "c32_d2", "c128_d1", "c128_d2"])
+@pytest.mark.parametrize("tap", range(9))
+def test_res_block_kernel_conv1_single_tap(cuda, C, dil, tap):
+    """conv1 non-zero at one tap only and conv2 the centre-tap identity, so
+    out = relu(bn1(conv1(x))) + x: a wrong conv1 window (its flat halo
+    offset d (ky hw + kx)) cannot hide behind the other taps."""
+    a = _on(block_inputs(C, N=2, H=19, W=37, seed=tap), cuda, torch.bfloat16)
+    only = torch.zeros(3, 3, 1, 1, device=cuda)
+    only[tap // 3, tap % 3] = 1
+    a[1] = (a[1].float() * only).to(torch.bfloat16)
+    eye = torch.zeros(3, 3, C, C, device=cuda)
+    eye[1, 1] = torch.eye(C, device=cuda)
+    a[4], a[5], a[6] = eye.to(torch.bfloat16), a[5] * 0 + 1, a[6] * 0
+    _check_bf16(a, dil)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("dil", [1, 2])
+def test_res_block_kernel_mid_is_zero_outside_the_image(cuda, C, dil):
+    """A positive BN1 shift: relu(bn1(conv1)) of the zero-padded x would be
+    relu(t1) > 0 outside the image, where conv2's padding needs zeros."""
+    a = _on(block_inputs(C, N=1, H=9, W=17, seed=C), cuda, torch.bfloat16)
+    a[3] = a[3].abs() + 1.0
+    _check_bf16(a, dil)
+
+
+@pytest.mark.cuda
+def test_res_block_kernel_on_kept_operands(cuda):
+    """Operands packed once, as PSMNet keeps them: one launch, the plain
+    result."""
+    a = _on(block_inputs(64, N=3, H=88, W=304), cuda, torch.bfloat16)
+    packed = pb.pack_chain((a[1], a[4]))
+    before = rb.res_block.launches
+    out = rb.res_block(*a, 1, packed)
+    assert rb.res_block.launches == before + 1
+    ref = rb.res_block_ref(*a, 1)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= _TOL[torch.bfloat16] * ref.float().abs().max().item(), err
+
+
 @pytest.mark.cuda
 def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
     def refuse(*a, **k):
@@ -213,3 +424,11 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         rb.res_block(*_on(block_inputs(C=136), cuda, bf), 1)
     with pytest.raises(ValueError):                  # C not 16 bytes wide
         rb.res_block(*_on(block_inputs(C=12), cuda, bf), 1)
+    with pytest.raises(ValueError):                  # bf16 at dilation 3
+        rb.res_block(*a, 3)
+    packed = pb.pack_chain((a[1], a[4]))
+    with pytest.raises(ValueError):                  # one conv packed
+        rb.res_block(*a, 1, packed[:1])
+    with pytest.raises(ValueError):                  # packed for C = 64
+        rb.res_block(*a, 1, pb.pack_chain([torch.zeros(
+            3, 3, 64, 64, device=cuda, dtype=bf)] * 2))
