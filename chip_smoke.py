@@ -435,54 +435,67 @@ def check_cost_volume_kernel(dev):
 
 
 def check_gnet_kernel(dev):
+    """Row 5 at the ScanNet and the KITTI cost-volume maps, on operands
+    packed once (as ``GNet`` keeps them). The library time is cuDNN's
+    layer-0 3x3 conv alone; ``chain_ms`` beside it is the whole update in
+    bf16 cuDNN convs and elementwise ops."""
     g = torch.Generator().manual_seed(3)
-    cv = _randn(g, 1, HC, WC, SAMPLES).to(dev)
-    feat = _randn(g, 1, HC, WC, 128, scale=0.5).to(dev)
-    prev = torch.stack([2.0 + 0.3 * _randn(g, 1, HC, WC),
-                        0.1 + 0.3 * torch.rand(1, HC, WC, generator=g)],
-                       -1).to(dev)
-    convs = [(_randn(g, 3, 3, SAMPLES, 128,
-                     scale=(9 * SAMPLES) ** -0.5).to(dev), None)]
-    for co in (128, 128, 2):
-        convs.append((_randn(g, 1, 1, 128, co, scale=128 ** -0.5).to(dev),
-                      _randn(g, co, scale=0.1).to(dev)))
-    err32 = check_close("gnet_update", gk.gnet_update(cv, feat, prev, convs),
-                        gk.gnet_update_ref(cv, feat, prev, convs),
-                        torch.float32)
-    bf = torch.bfloat16
-    a = (cv.to(bf), feat.to(bf), prev.to(bf),
-         [(k.to(bf), b) for k, b in convs])
-    out = gk.gnet_update(*a)
-    # mu passes through from prev and dominates max|out|, so in bf16 the
-    # update out - prev is what is held to the plain version's: to 2e-2 of
-    # the largest update, or to one bf16 ulp of the largest output where
-    # that is more (the output itself is rounded to bf16, and two correct
-    # programs may round a value on the boundary either way).
-    ref = gk.gnet_update_ref(*a)
-    torch.cuda.synchronize()
-    upd, upd_ref = out.float() - a[2].float(), ref.float() - a[2].float()
-    err16 = (upd - upd_ref).abs().max().item()
-    ulp = 2.0 ** (np.floor(np.log2(ref.float().abs().max().item())) - 7)
-    lim = max(KERNEL_TOL[bf] * upd_ref.abs().max().item(), ulp)
-    log(f"  gnet_update bfloat16, the update out - prev: max_abs_err "
-        f"{err16:.3e} (limit {lim:.3e}; largest update "
-        f"{upd_ref.abs().max().item():.3e}, output ulp {ulp:.3e})")
-    if not torch.isfinite(out).all() or not err16 <= lim:
-        raise RuntimeError("gnet_update: the bf16 update disagrees with its "
-                           "plain version")
-    m = HC * WC
-    flops = 2.0 * m * (9 * SAMPLES * 128 + 2 * 128 * 128 + 128 * 2)
-    bms, by = bound_ms(nbytes(*a[:3], out, *[k for k, _ in a[3]],
-                              *[b for _, b in a[3]]), flops)
-    xin = a[0].permute(0, 3, 1, 2).contiguous(
-        memory_format=torch.channels_last)
-    w0 = a[3][0][0].permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
-    return [dict(site="gnet_update", path="magnet", frame=True, err_f32=err32,
-                 err_bf16=err16, ms=graph_ms(lambda: gk.gnet_update(*a)),
-                 plain_ms=plain_time(lambda: gk.gnet_update_ref(*a)),
-                 library_ms=graph_ms(lambda: F.conv2d(xin, w0, padding=1)),
-                 bound_ms=bms, bound_by=by, gflop=flops / 1e9)]
+    rows = []
+    for site, path, (hc, wc) in (("gnet_update", "magnet", (HC, WC)),
+                                 ("gnet_update KITTI", "kitti",
+                                  (KITTI_HC, KITTI_WC))):
+        cv = _randn(g, 1, hc, wc, SAMPLES).to(dev)
+        feat = _randn(g, 1, hc, wc, 128, scale=0.5).to(dev)
+        prev = torch.stack([2.0 + 0.3 * _randn(g, 1, hc, wc),
+                            0.1 + 0.3 * torch.rand(1, hc, wc, generator=g)],
+                           -1).to(dev)
+        convs = [(_randn(g, 3, 3, SAMPLES, 128,
+                         scale=(9 * SAMPLES) ** -0.5).to(dev), None)]
+        for co in (128, 128, 2):
+            convs.append((_randn(g, 1, 1, 128, co,
+                                 scale=128 ** -0.5).to(dev),
+                          _randn(g, co, scale=0.1).to(dev)))
+        err32 = check_close(site, gk.gnet_update(cv, feat, prev, convs),
+                            gk.gnet_update_ref(cv, feat, prev, convs),
+                            torch.float32)
+        bf = torch.bfloat16
+        a = (cv.to(bf), feat.to(bf), prev.to(bf),
+             [(k.to(bf), b) for k, b in convs])
+        ops = gk.gnet_operands(a[3])
+        out = gk.gnet_update(*a, ops)
+        # mu passes through from prev and dominates max|out|, so in bf16 the
+        # update out - prev is what is held to the plain version's: to 2e-2
+        # of the largest update, or to one bf16 ulp of the largest output
+        # where that is more (the output itself is rounded to bf16, and two
+        # correct programs may round a value on the boundary either way).
+        ref = gk.gnet_update_ref(*a)
+        torch.cuda.synchronize()
+        upd, upd_ref = out.float() - a[2].float(), ref.float() - a[2].float()
+        err16 = (upd - upd_ref).abs().max().item()
+        ulp = 2.0 ** (np.floor(np.log2(ref.float().abs().max().item())) - 7)
+        lim = max(KERNEL_TOL[bf] * upd_ref.abs().max().item(), ulp)
+        log(f"  {site} bfloat16, the update out - prev: max_abs_err "
+            f"{err16:.3e} (limit {lim:.3e}; largest update "
+            f"{upd_ref.abs().max().item():.3e}, output ulp {ulp:.3e})")
+        if not torch.isfinite(out).all() or not err16 <= lim:
+            raise RuntimeError(f"{site}: the bf16 update disagrees with its "
+                               "plain version")
+        m = hc * wc
+        flops = 2.0 * m * (9 * SAMPLES * 128 + 2 * 128 * 128 + 128 * 2)
+        bms, by = bound_ms(nbytes(*a[:3], out, *[k for k, _ in a[3]],
+                                  *[b for _, b in a[3]]), flops)
+        xin = a[0].permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        w0 = a[3][0][0].permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        rows.append(dict(
+            site=site, path=path, frame=path == "magnet", err_f32=err32,
+            err_bf16=err16, ms=graph_ms(lambda: gk.gnet_update(*a, ops)),
+            plain_ms=plain_time(lambda: gk.gnet_update_ref(*a)),
+            library_ms=graph_ms(lambda: F.conv2d(xin, w0, padding=1)),
+            chain_ms=graph_ms(gk.cudnn_gnet(*a)),
+            bound_ms=bms, bound_by=by, gflop=flops / 1e9))
+    return rows
 
 
 def check_upsample_kernel(dev):
@@ -1722,6 +1735,9 @@ def main() -> int:
         log(f"  {r['site']}: f32 features {r['ms_f32']:.4f} ms; compulsory "
             f"{r['compulsory_mb']:.1f} MB, {r['corners']} in-image corners "
             f"({r['corners'] * FEAT / 1e9:.3f} G atomic adds)")
+    for r in gnet_rows:
+        log(f"  {r['site']}: the whole update in bf16 cuDNN convs and "
+            f"elementwise ops {r['chain_ms']:.4f} ms")
     for r in rb_rows:
         log(f"  {r['site']}: cuDNN's two convs alone "
             f"{r['cudnn_convs_ms']:.4f} ms; {r['count']} blocks: res_block "
@@ -1840,6 +1856,10 @@ def main() -> int:
               "magnet_tpu/kernels/sweepbwd_pallas.py:166", sweep_rows,
               "sweep_grad_src", path="fnet_train"),
     ]
+    # row 5's library call is cuDNN's layer-0 conv alone; the whole update
+    # in cuDNN beside it
+    kernels[4]["cudnn_chain_ms"] = ITERS * sum(
+        r["chain_ms"] for r in gnet_rows if r["frame"])
     # row 4 also runs on the training path, as the sweep forward: its
     # sites there, with the launches of phase 8
     kernels[3]["fnet_train"] = entry(

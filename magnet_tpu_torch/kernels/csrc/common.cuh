@@ -354,55 +354,15 @@ __device__ void run_mainloop(Core& core, Loader& ld, T* smem) {
 }
 
 // ---- chained 1x1 layers over a 64-pixel hidden tile in shared memory ------
-// (the head chain and the G-Net update share them)
+// (the f32 paths of the head chain, the SPP tail and the G-Net update)
 
 constexpr int HID = 128;    // hidden width of every chain
 constexpr int HBM = 64;     // output pixels per block
 
 template <typename T> struct HidCfg { static constexpr int LDH = HID + TileCfg<T>::PAD; };
 
-// One 1x1 layer on the tensor cores: in (64 x 128 bf16, shared) times
-// w (128 x cn_pad, global) + bias, into the next shared tile or the output.
-__device__ inline void chain_layer(const bf16* in, bf16* hid_out, bf16* gout,
-                            const bf16* w, const float* b, int cn, bool relu,
-                            float* scratch, int m0, int M, MmaCore<HBM, HID, 2, 4>*) {
-  constexpr int LDH = HidCfg<bf16>::LDH;
-  const int cn_pad = (cn + 15) / 16 * 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* s = scratch + warp * 256;
-  const int r = lane >> 1, c = (lane & 1) * 8;
-  const int nfrag = (HBM / 16) * (cn_pad / 16);
-  for (int f = warp; f < nfrag; f += THREADS / 32) {
-    const int fm = f % (HBM / 16), fn = f / (HBM / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int k = 0; k < HID; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, in + fm * 16 * LDH + k, LDH);
-      wmma::load_matrix_sync(fb, w + (size_t)k * cn_pad + fn * 16, cn_pad);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(s, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    const int row = fm * 16 + r;
-    for (int e = 0; e < 8; ++e) {
-      const int n = fn * 16 + c + e;
-      if (n >= cn) break;
-      float y = s[r * 16 + c + e] + b[n];
-      if (relu) y = fmaxf(y, 0.f);
-      if (gout) {
-        if (m0 + row < M) gout[(size_t)(m0 + row) * cn + n] = __float2bfloat16(y);
-      } else {
-        hid_out[row * LDH + n] = __float2bfloat16(y);
-      }
-    }
-    __syncwarp();
-  }
-}
-
-// The same layer as FMA in f32.
+// One 1x1 layer as FMA in f32: in (64 x 128, shared) times w (128 x
+// cn_pad, global) + bias, into the next shared tile or the output.
 __device__ inline void chain_layer(const float* in, float* hid_out, float* gout,
                             const float* w, const float* b, int cn, bool relu,
                             float*, int m0, int M, SimtCore<HBM, HID>*) {

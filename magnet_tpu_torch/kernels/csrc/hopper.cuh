@@ -9,6 +9,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -350,6 +351,22 @@ __device__ __forceinline__ void reg_claim() {
 template <int N>
 __device__ __forceinline__ void reg_release() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// ---- added for the depthwise conv ------------------------------------------------
+
+// The box of the 4-d tensor map `map` at coordinates (c0, c1, c2, c3),
+// innermost first, into shared memory at dst (128-byte aligned) on the
+// tensor memory accelerator; elements outside the tensor read as zero.
+// Completion is counted on `bar` as transaction bytes.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
 }
 
 }  // namespace hp

@@ -5,10 +5,13 @@ EfficientNet trunk's stride-1 ``conv_dw`` at eval: ``out[n, y, x, c] =
 sum_{dy, dx} x[n, y + dy - pt, x + dx - pl, c] * w[dy, dx, c]`` with
 ``pt = pl = (K - 1) // 2`` (TF-SAME at stride 1), zero outside the image,
 no bias, f32 accumulation, one rounding to x's dtype. The CUDA kernel
-(``csrc/dw_conv.cu``, K = 3 or 5) stages an output tile's input and halo in
-shared memory; bounded by bytes on an H100, see the source note. The TPU
-version's VMEM gates (``choose_tile_h``, ``supported``) have no counterpart:
-every map size runs.
+(``csrc/dw_conv.cu``, K = 3 or 5) loads each output tile's input and halo
+into shared memory: in bf16 through a tensor map into a ring that
+persistent blocks walk (the map's zero fill gives the padding), each thread
+sliding its taps down a column of outputs in registers. Bounded by bytes on
+an H100, see the source note. The TPU version's VMEM gates
+(``choose_tile_h``, ``supported``) have no counterpart: every map size
+runs.
 
 ``dw_conv_ref`` is the plain PyTorch version. ``dw_conv`` runs it for
 tensors on the CPU and launches the kernel for tensors on a CUDA device, or

@@ -13,7 +13,8 @@ it: the cost-volume part (first D channels, no bias) and the feature part
 (last 256, with the bias). The feature part does not change over the
 refinement iterations: ``precompute_feature`` runs it once per frame through
 ``kernels.head_chain``; each iteration then is one launch of
-``kernels.gnet_update``.
+``kernels.gnet_update``. Both keep their weights, and the kernels' operands,
+on the module (``cached_fold``), so an iteration prepares nothing.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from magnet_tpu_torch.kernels.gnet_update import gnet_update
+from magnet_tpu_torch.kernels.gnet_update import gnet_operands, gnet_update
 from magnet_tpu_torch.kernels.head_chain import head_chain, head_operands
 from magnet_tpu_torch.nn.layers import cached_fold, hwio
 
@@ -58,8 +59,16 @@ class GNet(nn.Module):
         Returns the updated (mu, sigma), (B, H, W, 2)."""
         dt = feat_contrib.dtype
         conv0, _, conv1, _, conv2, _, conv3 = self.gnet
-        w0 = hwio(conv0, dt)[:, :, :self.n_samples].contiguous()
-        convs = [(w0, None)] + [(hwio(c, dt), c.bias)
-                                for c in (conv1, conv2, conv3)]
+
+        def fold():
+            w0 = hwio(conv0, dt)[:, :, :self.n_samples].contiguous()
+            convs = [(w0, None)] + [(hwio(c, dt), c.bias)
+                                    for c in (conv1, conv2, conv3)]
+            return convs, (gnet_operands(convs) if feat_contrib.is_cuda
+                           else None)
+        convs, operands = cached_fold(
+            self, "update", dt,
+            [conv0.weight] + [t for c in (conv1, conv2, conv3)
+                              for t in c.parameters()], fold)
         return gnet_update(cost_volume.to(dt).contiguous(), feat_contrib,
-                           ref_gaussian.to(dt).contiguous(), convs)
+                           ref_gaussian.to(dt).contiguous(), convs, operands)

@@ -27,11 +27,11 @@ from magnet_tpu_torch.nn.densedepth import run_head
 from magnet_tpu_torch.nn.layers import conv2d, nchw, nhwc
 from magnet_tpu_torch.ops.upsample import upsample_via_mask
 
-OURS = ("conv3x3_bnact", "head_chain", "cost_volume_cw_kernel",
-        "gnet_update_kernel", "upsample_mask_kernel", "psm_conv",
-        "spp_tail_kernel", "sweep_grad_src_kernel", "dw_conv_kernel",
-        "mb_expand_dw_kernel", "mb_se_kernel", "mb_project_kernel",
-        "res_block_kernel")
+# the port's kernels, by a part of their names that each of a kernel's
+# versions (the f32 ``*_kernel`` and the bf16 ``*_hopper``) holds
+OURS = ("conv3x3_bnact", "head_chain", "cost_volume_cw", "gnet_update",
+        "upsample_mask", "psm_conv", "spp_tail", "sweep_grad_src", "dw_conv",
+        "mb_expand_dw", "mb_se", "mb_project", "res_block")
 SHAPE = (1, 480, 640, 3)
 FRAMES = 5
 

@@ -1,8 +1,10 @@
 """Where the F-Net conv kernel (``kernels/csrc/psm_conv.cu``, TPU kernel rows
 6-8), the head chain (``kernels/csrc/head_chain.cu``, row 3), the SPP tail
-(``kernels/csrc/spp_tail.cu``, row 9) and the one-launch BasicBlock
-(``kernels/csrc/res_block.cu``, row 14) spend their time on the GPU, bf16.
-All four run on ``kernels/csrc/hopper_conv.cuh``.
+(``kernels/csrc/spp_tail.cu``, row 9), the one-launch BasicBlock
+(``kernels/csrc/res_block.cu``, row 14), the G-Net update
+(``kernels/csrc/gnet_update.cu``, row 5) and the depthwise conv
+(``kernels/csrc/dw_conv.cu``, row 13) spend their time on the GPU, bf16.
+The first four run on ``kernels/csrc/hopper_conv.cuh``.
 
     python -m magnet_tpu_torch.profile_psm_conv [--ablate [NAME,...]]
         [--sites TEXT,...] [--out p.json]
@@ -15,8 +17,11 @@ conv of each kind the F-Net runs on the 5 frames of a MaGNet sample at
 the three heads (the depth head at N = 5, G-Net's feature term and MaGNet's
 mask head at N = 1), the SPP tail at N = 5, and the BasicBlock at the
 KITTI layer2, layer3 and layer4 sites (3 frames, 88x304; row 6's chain of
-the same block beside cuDNN); each output is held against the plain version
-(2e-2 * max|ref|). ``--sites`` keeps the sites whose name holds one of the
+the same block beside cuDNN), the G-Net update at the ScanNet and KITTI
+cost-volume maps (cuDNN's layer-0 3x3 conv alone, and the whole chain in
+bf16 cuDNN convs and elementwise ops beside it) and the depthwise conv at
+its four path-A sites on 5 frames (cuDNN's grouped conv); each output is
+held against the plain version (2e-2 * max|ref|). ``--sites`` keeps the sites whose name holds one of the
 comma-separated TEXT. With
 ``--ablate`` it also builds copies of the package under
 ``build/profile_psm_conv/`` with one part of the kernels switched off (all
@@ -37,8 +42,19 @@ process each:
     two rounds of 64 output channels in place of one of 128 (two m64n128
     tiles a warpgroup); ``d2_n128``: at dilation 2 in one round of 128
     (three tiles, 192 accumulators a thread) in place of two of 64.
-Their outputs are wrong by design (all but ``kb64``, ``c128_n64`` and
-``d2_n128``); the times split a
+  * ``gnet_no_feat``: the G-Net update's producer streams no feature term;
+    ``gnet_no_im2col``: its gather warps publish im2col tiles without
+    filling them;
+    ``gnet_layer0``: no wgmma in its 128 -> 128 layers (layer 0 and the
+    last layer only); ``gnet_no_mma``: no wgmma at all;
+    ``gnet_three_wg``: three consumer warpgroups a block in place of two,
+    with registers moved from the copy warpgroup (setmaxnreg): the
+    control for the update's serial cost a tile (PERF.md §7);
+  * ``dw_no_tma``: the depthwise conv's ring publishes its stages without
+    loading them; ``dw_no_window``: its threads skip the column walk
+    (shared-memory reads, FMAs, stores);
+Their outputs are wrong by design (all but ``kb64``, ``c128_n64``,
+``d2_n128`` and ``gnet_three_wg``); the times split a
 kernel's between its MMA, its halo staging and its weight stream. Needs a
 CUDA device.
 """
@@ -54,6 +70,8 @@ import sys
 import torch
 import torch.nn.functional as F
 
+from magnet_tpu_torch.kernels import dw_conv as dwk
+from magnet_tpu_torch.kernels import gnet_update as gk
 from magnet_tpu_torch.kernels import head_chain as hc
 from magnet_tpu_torch.kernels import psm_blocks as pb
 from magnet_tpu_torch.kernels import res_block as rbk
@@ -65,6 +83,8 @@ ABLATE_DIR = ROOT / "build" / "profile_psm_conv"
 CONV = "magnet_tpu_torch/kernels/csrc/hopper_conv.cuh"
 HEAD = "magnet_tpu_torch/kernels/csrc/head_chain.cu"
 BLOCK = "magnet_tpu_torch/kernels/csrc/res_block.cu"
+GNET = "magnet_tpu_torch/kernels/csrc/gnet_update.cu"
+DW = "magnet_tpu_torch/kernels/csrc/dw_conv.cu"
 _NO_HALO = ((CONV, "for (int r = r0; r < g.rows; r += rstep) {",
              "for (int r = r0; r < 0; r += rstep) {"),
             (CONV, "for (int row = r0; row < g.rows; row += rstep) {",
@@ -76,6 +96,7 @@ _NO_WEIGHTS = (
      "if (it < g.stages) hp::mbar_wait(&b.wfull[s], 0);"),
     (CONV, *_RING_WAIT), (BLOCK, *_RING_WAIT))
 _BOTH_MMA = "CONV1_MMA = true, CONV2_MMA = true"
+_GNET_NO_1X1 = (GNET, "hp::wgmma_rs<128>(acc, frag[kk]", "if (kk < 0) hp::wgmma_rs<128>(acc, frag[kk]")
 # variant -> (file, text in it, its replacement) edits
 ABLATIONS = {
     "no_halo": _NO_HALO,
@@ -93,6 +114,24 @@ ABLATIONS = {
                   "launch_block<RbShape<128, 64, 1, 2, 1>>"),),
     "d2_n128": ((BLOCK, "launch_block<RbShape<128, 64, 1, 2, 2>>",
                  "launch_block<RbShape<128, 64, 1, 1, 2>>"),),
+    "gnet_no_feat": ((GNET, "hp::mbar_arrive_expect_tx(&ffull[st], rows * 256);",
+                      "hp::mbar_arrive(&ffull[st]);"),
+                     (GNET, "for (int r = 0; r < rows; ++r)", "for (int r = 0; r < 0; ++r)")),
+    "gnet_no_im2col": ((GNET, "for (int i = bt; i < TM * 9; i += GATHERERS) {",
+                        "for (int i = bt; i < 0; i += GATHERERS) {"),),
+    "gnet_layer0": (_GNET_NO_1X1,),
+    "gnet_three_wg": ((GNET, "constexpr int CONSUMERS = 256;", "constexpr int CONSUMERS = 384;"),
+                      (GNET, "  if (tid >= CONSUMERS) {\n",
+                       "  if (tid >= CONSUMERS) {\n    hp::reg_release<56>();\n"),
+                      (GNET, "  const int wg = tid / 128, wt = tid % 128;",
+                       "  hp::reg_claim<152>();\n  const int wg = tid / 128, wt = tid % 128;")),
+    "gnet_no_mma": (_GNET_NO_1X1,
+                    (GNET, "hp::wgmma_ss<128>(acc, hp::desc_sw128(A +",
+                     "if (k < 0) hp::wgmma_ss<128>(acc, hp::desc_sw128(A +")),
+    "dw_no_tma": ((DW, "hp::mbar_arrive_expect_tx(full, S::BOX);", "hp::mbar_arrive(full);"),
+                  (DW, "hp::tma_load_4d(stage, map,", "if (t < 0) hp::tma_load_4d(stage, map,")),
+    "dw_no_window": ((DW, "for (int i = 0; i < R + K - 1; ++i) {",
+                      "for (int i = 0; i < 0; ++i) {"),),
 }
 
 
@@ -101,7 +140,8 @@ def sites(h: int = 480, w: int = 640, frames: int = 5) -> list:
     "conv" specs are (N, H, W, Ci, Co, k, stride, dilation, epilogue) of one
     F-Net conv, "head" specs (N, H, W, C0, widths after the 3x3), "tail"
     specs (N, H, W, map widths, Cout), "block" specs (N, H, W, C,
-    dilation)."""
+    dilation), "gnet" specs (B, H, W, D) of the cost volume, "dw" specs
+    (N, H, W, C, K)."""
     hh, wh, hc_, wc = h // 2, w // 2, h // 4, w // 4
     n = frames
     return [
@@ -124,6 +164,16 @@ def sites(h: int = 480, w: int = 640, frames: int = 5) -> list:
         ("res_block KITTI layer2 (64)", "block", (3, 88, 304, 64, 1)),
         ("res_block KITTI layer3 (128)", "block", (3, 88, 304, 128, 1)),
         ("res_block KITTI layer4 (128, dilation 2)", "block", (3, 88, 304, 128, 2)),
+        ("gnet_update 120x160 D=5", "gnet", (1, hc_, wc, 5)),
+        ("gnet_update KITTI 88x304 D=5", "gnet", (1, 88, 304, 5)),
+        # the update's time against its tile count (64 pixels a tile, 132
+        # blocks): one tile, one a block, then one more a block each
+        *[(f"gnet_update {t} tiles", "gnet", (1, 1, 64 * t, 5))
+          for t in (1, 132, 264, 396, 528)],
+        ("dw_conv 240x320 C=48 K=3 N=5", "dw", (n, hh, wh, 48, 3)),
+        ("dw_conv 240x320 C=24 K=3 N=5", "dw", (n, hh, wh, 24, 3)),
+        ("dw_conv 30x40 C=768 K=5 N=5", "dw", (n, h // 16, w // 16, 768, 5)),
+        ("dw_conv 15x20 C=1824 K=3 N=5", "dw", (n, h // 32, w // 32, 1824, 3)),
     ]
 
 
@@ -217,8 +267,48 @@ def block_case(spec, g):
             lambda: pb.fused_residual_stage(x, *chain, dil, packed=packed))
 
 
+def gnet_case(spec, g):
+    """(kernel call, plain call, cuDNN's layer-0 3x3 conv, flops) of one
+    G-Net update on operands packed once; the fifth item runs the whole
+    update in cuDNN (``gnet_update.cudnn_gnet``)."""
+    b, h, w, d = spec
+    bf = torch.bfloat16
+    cv = _r(g, b, h, w, d).to(bf)
+    feat = _r(g, b, h, w, 128, scale=0.5).to(bf)
+    prev = torch.stack([2.0 + 0.3 * _r(g, b, h, w),
+                        0.1 + 0.3 * _r(g, b, h, w).abs()], -1).to(bf)
+    convs = [(_r(g, 3, 3, d, 128, scale=(9 * d) ** -0.5).to(bf), None)]
+    for co in (128, 128, 2):
+        convs.append((_r(g, 1, 1, 128, co, scale=128 ** -0.5).to(bf),
+                      _r(g, co, scale=0.1)))
+    ops = gk.gnet_operands(convs)
+    w0 = convs[0][0].permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    xin = cv.permute(0, 3, 1, 2)
+    return (lambda: gk.gnet_update(cv, feat, prev, convs, ops),
+            lambda: gk.gnet_update_ref(cv, feat, prev, convs),
+            lambda: F.conv2d(xin, w0, None, 1, 1),
+            2.0 * b * h * w * 128 * (9 * d + 2 * 128 + 2),
+            gk.cudnn_gnet(cv, feat, prev, convs))
+
+
+def dw_case(spec, g):
+    """(kernel call, plain call, cuDNN's grouped conv, flops) of one
+    depthwise conv."""
+    n, h, w, c, k = spec
+    bf = torch.bfloat16
+    x = _r(g, n, h, w, c).to(bf)
+    taps = _r(g, k, k, c, scale=1.0 / k).to(bf)
+    xin = x.permute(0, 3, 1, 2)
+    wl = taps.permute(2, 0, 1)[:, None].contiguous()
+    return (lambda: dwk.dw_conv(x, taps),
+            lambda: dwk.dw_conv_ref(x, taps),
+            lambda: F.conv2d(xin, wl, None, 1, k // 2, 1, c),
+            2.0 * n * h * w * c * k * k)
+
+
 CASES = {"conv": conv_case, "head": head_case, "tail": tail_case,
-         "block": block_case}
+         "block": block_case, "gnet": gnet_case, "dw": dw_case}
 
 
 def time_sites(library: bool, tolerate: bool = False, only: str = "") -> list:
@@ -284,8 +374,9 @@ def main(argv=None) -> dict:
     for i, r in enumerate(res["kernel"]):
         ablated = "".join(f", {name} {rows[i]['ms'] or float('nan'):.4f}"
                           for name, rows in res["ablations"].items())
+        label = "cuDNN's chain" if r["kind"] == "gnet" else "row 6's chain"
         chain = ("" if r["chain_ms"] is None
-                 else f", row 6's chain {r['chain_ms']:.4f} ms")
+                 else f", {label} {r['chain_ms']:.4f} ms")
         print(f"{r['site']:38s} kernel {r['ms']:.4f} ms "
               f"({100 * r['peak_share']:.1f} % of bf16 peak), cuDNN "
               f"{r['library_ms']:.4f} ms{chain}, err {r['max_abs_err']:.3e} "

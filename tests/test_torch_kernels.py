@@ -17,6 +17,7 @@ also run where JAX is not installed:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from magnet_tpu_torch.compat.from_jax import dnet_state_dict
 from magnet_tpu_torch.kernels import conv3x3_bnact as cb
@@ -445,6 +446,111 @@ def test_head_operands_are_kept_until_a_weight_changes():
     assert not torch.equal(f1, f0)
 
 
+@pytest.mark.parametrize("D", [1, 5, 16])
+def test_gnet_operands_round_trip_to_hwio(D):
+    """The bf16 update's packed weights unpack to the HWIO layers (w0 as a
+    1x1 over the tap-major 9 D im2col columns); everything else is zero
+    padding."""
+    from magnet_tpu_torch.kernels import psm_blocks as pb
+    _, _, _, convs = _gnet_t("cpu", torch.bfloat16, H=2, W=3, D=D)
+    ws, bs = gk.gnet_operands(convs)
+    assert ([tuple(w.shape) for w in ws]
+            == [tuple(s) for s in gk.operand_shapes(D, torch.bfloat16)])
+    w0 = pb.unpack_weights(ws[0], 1, 9 * D, 128).reshape(3, 3, D, 128)
+    assert torch.equal(w0, convs[0][0])
+    for w, (k, _) in zip(ws[1:3], convs[1:3]):
+        assert torch.equal(pb.unpack_weights(w, 1, 128, 128), k)
+    assert torch.equal(ws[3], convs[3][0].reshape(128, 2).float())
+    assert int(torch.count_nonzero(ws[0])) == convs[0][0].numel()
+    assert all(torch.equal(b, k[1].float()) and b.dtype == torch.float32
+               for b, k in zip(bs, convs[1:]))
+
+
+def _gnet_tile_walk(cv, feat, prev, operands):
+    """The bf16 update as the kernel walks it, in plain PyTorch: tiles of 64
+    consecutive pixels of the flat map, the last one cut short; a tile's
+    im2col matrix (a pixel's 3x3 neighbourhood, tap-major, zero outside the
+    image and past 9 D up to the packed K, 64 columns a K block) times w0
+    unpacked from its slabs, + the feature term, ReLU, bf16; layers 1 and 2
+    on their unpacked slabs; layer 3 and the update in f32."""
+    from magnet_tpu_torch.kernels import psm_blocks as pb
+    f32, bf = torch.float32, torch.bfloat16
+    (w0p, w1p, w2p, w3), (b1, b2, b3) = operands
+    B, H, W, D = cv.shape
+    kp = w0p.shape[0] * 64
+    w0 = pb.unpack_weights(w0p, 1, kp, 128)[0, 0].float()
+    w1, w2 = (pb.unpack_weights(w, 1, 128, 128)[0, 0].float()
+              for w in (w1p, w2p))
+    cvp = F.pad(cv.float(), (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([cvp[:, ky:ky + H, kx:kx + W] for ky in range(3)
+                      for kx in range(3)], -1).reshape(B * H * W, 9 * D)
+    cols = F.pad(cols, (0, kp - 9 * D))
+    feat, prev = feat.reshape(-1, 128).float(), prev.reshape(-1, 2).float()
+    out = []
+    for m0 in range(0, B * H * W, 64):
+        rows = slice(m0, m0 + 64)
+        y = F.relu(cols[rows] @ w0 + feat[rows]).to(bf).float()
+        y = F.relu(y @ w1 + b1).to(bf).float()
+        y = F.relu(y @ w2 + b2).to(bf).float()
+        y = y @ w3 + b3
+        mu0, sigma0 = prev[rows, :1], prev[rows, 1:]
+        out.append(torch.cat([mu0 + y[:, :1] * sigma0,
+                              (F.elu(y[:, 1:]) + 1.0 + 1e-10) * sigma0], -1))
+    return torch.cat(out).reshape(B, H, W, 2).to(bf)
+
+
+def _update_err(out, ref, prev):
+    """max |(out - prev) - (ref - prev)| and its limit: 2e-2 of the largest
+    update, or one bf16 ulp of the largest output where that is more (mu
+    passes through from prev and dominates max|out|)."""
+    upd, upd_ref = out.float() - prev.float(), ref.float() - prev.float()
+    ulp = 2.0 ** (np.floor(np.log2(ref.float().abs().max().item())) - 7)
+    return ((upd - upd_ref).abs().max().item(),
+            max(2e-2 * upd_ref.abs().max().item(), ulp))
+
+
+@pytest.mark.parametrize("D", [5, 16])
+def test_gnet_tile_walk_matches_plain(D):
+    """The kernel's tiles over packed operands at a map whose last tile is
+    cut (182 pixels, two images) equal the plain version."""
+    cv, feat, prev, convs = _gnet_t("cpu", torch.bfloat16, B=2, H=7, W=13,
+                                    D=D)
+    out = _gnet_tile_walk(cv, feat, prev, gk.gnet_operands(convs))
+    err, lim = _update_err(out, gk.gnet_update_ref(cv, feat, prev, convs),
+                           prev)
+    assert err <= lim, (err, lim)
+
+
+def test_gnet_update_operands_refold_when_a_parameter_changes():
+    """GNet.forward keeps the update's layers (and on a card the kernel's
+    operands) on the module, and folds them anew after an in-place update
+    of a parameter or an optimizer step."""
+    from magnet_tpu_torch.nn.gnet import GNet
+    g = torch.Generator().manual_seed(6)
+    gnet = GNet(n_samples=5, feature_dim=16)
+    cv = torch.randn(1, 4, 6, 5, generator=g)
+    feat = torch.randn(1, 4, 6, 128, generator=g)
+    prev = torch.stack([torch.rand(1, 4, 6, generator=g) + 1.0,
+                        torch.rand(1, 4, 6, generator=g) + 0.1], -1)
+    with torch.no_grad():
+        y0 = gnet(cv, feat, prev)
+        kept = gnet._folded["update"][1]
+        assert torch.equal(gnet(cv, feat, prev), y0)
+        assert gnet._folded["update"][1] is kept
+        gnet.gnet[4].bias.add_(0.5)
+        y1 = gnet(cv, feat, prev)
+    assert gnet._folded["update"][1] is not kept
+    assert not torch.equal(y1, y0)
+    kept = gnet._folded["update"][1]
+    for p_ in gnet.gnet[0].parameters():
+        p_.grad = torch.ones_like(p_)
+    torch.optim.SGD(gnet.gnet[0].parameters(), lr=0.5).step()
+    with torch.no_grad():
+        y2 = gnet(cv, feat, prev)
+    assert gnet._folded["update"][1] is not kept
+    assert not torch.equal(y2, y1)
+
+
 def _upstage_plain(m, x, skip):
     """UpSampleBN's function in plain torch ops on NCHW, from its modules."""
     from magnet_tpu_torch.ops.resample import resize_bilinear_align_corners
@@ -678,6 +784,57 @@ def test_gnet_kernel_matches_plain(cuda, dtype, case):
     out = gk.gnet_update(*a)
     assert gk.gnet_update.launches == before + 1
     _close_cuda(out, gk.gnet_update_ref(*a), dtype)
+
+
+def _gnet_cuda_close(a, dtype):
+    before = gk.gnet_update.launches
+    out = gk.gnet_update(*a)
+    assert gk.gnet_update.launches == before + 1
+    ref = gk.gnet_update_ref(*a)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and out.shape == ref.shape
+    if dtype == torch.float32:
+        _close_cuda(out, ref, dtype)
+    else:
+        err, lim = _update_err(out, ref, a[2])
+        assert err <= lim, (err, lim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", range(1, 17))
+def test_gnet_kernel_every_d(cuda, D):
+    """Every D the kernel takes (1 to 3 K blocks of im2col columns), on a
+    map whose last tile is cut (135 pixels)."""
+    _gnet_cuda_close(_gnet_t(cuda, torch.bfloat16, H=9, W=15, D=D),
+                     torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tap", range(9))
+def test_gnet_kernel_one_hot_layer0(cuda, tap):
+    """Layer 0 with one nonzero tap: a wrong im2col column or w0 slab
+    offset shows at that tap, and the image border at its zero padding."""
+    cv, feat, prev, convs = _gnet_t(cuda, torch.bfloat16, H=7, W=11, D=5)
+    w0 = torch.zeros_like(convs[0][0])
+    w0[tap // 3, tap % 3, tap % 5] = 1.0
+    _gnet_cuda_close((cv, feat, prev, [(w0, None)] + convs[1:]),
+                     torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,W", [(1, 120, 160), (1, 88, 304), (2, 7, 11),
+                                   (3, 1, 1)],
+                         ids=["scannet", "kitti", "batch_ragged", "3_pixels"])
+def test_gnet_kernel_maps(cuda, dtype, B, H, W):
+    """The ScanNet and KITTI cost-volume maps, tiles across two images, and
+    fewer pixels than one tile."""
+    a = _gnet_t(cuda, dtype, B=B, H=H, W=W)
+    _gnet_cuda_close(a, dtype)
+    if dtype == torch.bfloat16:     # the operands made once by the caller
+        ops = gk.gnet_operands(a[3])
+        assert torch.equal(gk.gnet_update(*a, ops), gk.gnet_update(*a))
 
 
 @pytest.mark.cuda

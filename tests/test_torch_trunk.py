@@ -310,6 +310,48 @@ def test_dw_taps_refold_when_the_weight_changes():
                                atol=1e-5 * float(ref.abs().max()))
 
 
+def _dw_tile_walk(x, w, th=16, tw=16, cb=16, R=8):
+    """The bf16 kernel's walk in plain PyTorch, f32, on tiles of th x tw
+    pixels and cb channels: for each tile the box of its input with the
+    halo, from (y0 - pt, x0 - pl), zero outside the map and past C (the
+    tensor map's fill); each thread's column of R outputs adds input row
+    i's K vectors into output rows i - K + 1 .. i; outputs outside the map
+    are dropped. A depthwise conv gives the same result under any tiling,
+    so one tile shape stands for the kernel's."""
+    N, H, W, C = x.shape
+    K = w.shape[0]
+    pt = (K - 1) // 2
+    xp = torch.nn.functional.pad(x.float(), (0, cb, pt, tw + K, pt, th + K))
+    wp = torch.nn.functional.pad(w.float(), (0, cb))
+    out = torch.zeros(N, H + th, W + tw, C + cb)
+    for y0 in range(0, H, th):
+        for x0 in range(0, W, tw):
+            for c0 in range(0, C, cb):
+                box = xp[:, y0:y0 + th + K - 1, x0:x0 + tw + K - 1, c0:c0 + cb]
+                taps = wp[:, :, c0:c0 + cb]
+                for r0 in range(0, th, R):
+                    acc = torch.zeros(N, R, tw, cb)
+                    for i in range(R + K - 1):
+                        for j in range(max(0, i - K + 1), min(i + 1, R)):
+                            for d in range(K):
+                                acc[:, j] += (box[:, r0 + i, d:d + tw]
+                                              * taps[i - j, d])
+                    out[:, y0 + r0:y0 + r0 + R, x0:x0 + tw,
+                        c0:c0 + cb] = acc
+    return out[:, :H, :W, :C].to(x.dtype)
+
+
+@pytest.mark.parametrize("K,C", [(3, 24), (3, 48), (5, 24), (5, 48)])
+def test_dw_tile_walk_matches_plain(K, C):
+    """The kernel's tiles and sliding window at a map that is no tile
+    multiple (21 x 35, two images), with a last channel block that is part
+    empty, equal the plain version."""
+    x, w = (torch.from_numpy(a) for a in dw_inputs(N=2, H=21, W=35, C=C,
+                                                    K=K, seed=K + C))
+    _close(_dw_tile_walk(x, w).numpy(), dk.dw_conv_ref(x, w).numpy(),
+           tol=1e-5)
+
+
 def test_chain_stages_and_flag():
     from magnet_tpu_torch.core import config
     assert efficientnet.chain_stages("all") == frozenset(range(1, 7))
@@ -367,6 +409,64 @@ def test_dw_conv_kernel_matches_plain(cuda, dtype, case):
     out = dk.dw_conv(x, w)
     assert dk.dw_conv.launches == before + 1
     _close_cuda(out, dk.dw_conv_ref(x, w), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 5])
+@pytest.mark.parametrize("H,W,C,K", [(240, 320, 48, 3), (240, 320, 24, 3),
+                                     (30, 40, 768, 5), (15, 20, 1824, 3)],
+                         ids=["c48", "c24", "c768_k5", "c1824"])
+def test_dw_conv_kernel_path_a_sites(cuda, N, H, W, C, K):
+    """Every stride-1 depthwise site of path A at 480x640, one frame and
+    five, bf16."""
+    x, w = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+            for a in dw_inputs(N=N, H=H, W=W, C=C, K=K))
+    _close_cuda(dk.dw_conv(x, w), dk.dw_conv_ref(x, w), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [3, 5])
+@pytest.mark.parametrize("C", [8, 16, 24, 32, 40, 48, 56, 64])
+def test_dw_conv_kernel_every_narrow_width(cuda, K, C):
+    """Each tile shape below 64 channels (all of a pixel's channels in a
+    tile) and the first of 64, at a map that is no tile multiple, bf16."""
+    x, w = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+            for a in dw_inputs(N=2, H=37, W=101, C=C, K=K, seed=C + K))
+    _close_cuda(dk.dw_conv(x, w), dk.dw_conv_ref(x, w), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tap", ["first", "centre", "last"])
+@pytest.mark.parametrize("K,C", [(3, 24), (3, 48), (3, 64), (5, 24),
+                                 (5, 48)])
+def test_dw_conv_kernel_one_hot_taps(cuda, K, C, tap):
+    """One nonzero tap: the output is the input shifted, zero where the
+    shift leaves the map (the tensor map's fill), bit for bit."""
+    x, _ = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+            for a in dw_inputs(N=2, H=19, W=37, C=C, K=K))
+    w = torch.zeros(K, K, C, device=cuda, dtype=torch.bfloat16)
+    t = {"first": 0, "centre": K * K // 2, "last": K * K - 1}[tap]
+    w[t // K, t % K] = 1.0
+    out = dk.dw_conv(x, w)
+    assert torch.equal(out, dk.dw_conv_ref(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(N=2, H=17, W=33, C=24, K=3), dict(N=3, H=19, W=21, C=48, K=3),
+    dict(N=1, H=3, W=2, C=8, K=5), dict(N=2, H=31, W=9, C=136, K=3),
+    dict(N=1, H=41, W=17, C=72, K=5)],
+    ids=["c24", "c48", "smaller_than_the_window", "ragged_channels",
+         "ragged_k5"])
+def test_dw_conv_kernel_ragged_maps(cuda, case):
+    """Maps that are no tile multiple, a map smaller than the window, and
+    channel counts that leave a tile's channel block part empty, bf16."""
+    x, w = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+            for a in dw_inputs(**case))
+    before = dk.dw_conv.launches
+    out = dk.dw_conv(x, w)
+    assert dk.dw_conv.launches == before + 1
+    _close_cuda(out, dk.dw_conv_ref(x, w), torch.bfloat16)
 
 
 @pytest.mark.cuda
