@@ -62,7 +62,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      1e-3 * max|g| of its tensor, the BatchNorm running buffers to 1e-5;
  10. path A, the D-Net trunk's kernels (rows 12 and 13, --mbconv_chain all
      --dw_kernel): the D-Net and MaGNet paths of phases 4 and 6 with them
-     on, their launches as predicted (row 12 three per block of the 30
+     on, their launches as predicted (row 12 two per block of the 30
      stage-tail blocks, row 13 at the 5 stride-1 conv_dw outside the
      chains, per D-Net pass); f32 on the card with them on against off (the
      D-Net's trunk taps and output to 1e-5 * max|ref|, MaGNet at phase 7's
@@ -111,9 +111,7 @@ from magnet_tpu_torch import profile_conv, test_dnet, test_magnet, train_fnet
 from magnet_tpu_torch.core import config
 from magnet_tpu_torch.data import base
 from magnet_tpu_torch.data.synthetic import (SyntheticMultiView,
-                                             SyntheticSingleView, _small_pose)
-from magnet_tpu_torch.geometry import poses as poses_lib
-from magnet_tpu_torch.geometry import rays as rays_lib
+                                             SyntheticSingleView)
 from magnet_tpu_torch.kernels import build
 from magnet_tpu_torch.kernels import conv3x3_bnact as cb
 from magnet_tpu_torch.kernels import cost_volume_cw as cvk
@@ -128,18 +126,20 @@ from magnet_tpu_torch.kernels import sweep_grad_src as sgk
 from magnet_tpu_torch.kernels import upsample_mask as uk
 from magnet_tpu_torch.models.build import (build_dnet, build_fnet,
                                            build_magnet, build_magnet_f,
-                                           cast_for_inference, init_weights_,
+                                           cast_for_inference,
                                            realistic_depth_init_)
 from magnet_tpu_torch.models.magnet import sid_depth_centers
 from magnet_tpu_torch.nn import psmnet
 from magnet_tpu_torch.nn.efficientnet import (CHAIN_OPERANDS,
-                                              InvertedResidual,
                                               b5_stage_config, chain_stages,
                                               fold_mbconv_chain)
 from magnet_tpu_torch.nn.layers import BN_MOMENTUM, nchw
 from magnet_tpu_torch.ops.costvolume import sweep_forward_args
-from magnet_tpu_torch.profile_dnet import cuda_ms, graph_ms, kernel_profile
-from magnet_tpu_torch.profile_fnet_train import protocol_args, step_account
+from magnet_tpu_torch.profile_dnet import (cuda_ms, graph_ms, kernel_profile,
+                                           random_chain, trunk_tail_sites)
+from magnet_tpu_torch.profile_fnet_train import (protocol_args, step_account,
+                                                 sweep_case, sweep_grids,
+                                                 sweep_samples)
 from magnet_tpu_torch.profile_magnet import eval_args, stage_times
 from magnet_tpu_torch.train import checkpoint, optim, steps
 
@@ -185,7 +185,7 @@ WRAPPERS = {"conv3x3_bnact": cb.conv3x3_bnact, "head_chain": hc.head_chain,
 FNET_LAUNCHES = dict(fused_residual_stage=2 + 6 + 30 + 4 + 6,
                      downsample_block=3, expand_block=3, spp_tail=1)
 # path A, the D-Net trunk with both switches of its kernels on: per D-Net
-# pass three launches for each of the 30 blocks of the six stage tails, one
+# pass two launches for each of the 30 blocks of the six stage tails, one
 # depthwise kernel at each of the 5 stride-1 conv_dw outside the chains
 TRUNK_FLAGS = ["--mbconv_chain", "all", "--dw_kernel"]
 TRUNK_LAUNCHES = dict(mbconv_chain=mbk.LAUNCHES_PER_BLOCK * 30, dw_conv=5)
@@ -632,78 +632,17 @@ def check_psm_kernels(dev):
     return rows
 
 
-def sweep_case(roll: float = 0.0, invalid: bool = False,
-               seed: int = 8) -> list:
-    """Row-10 inputs at the F-Net training shape, on the CPU in f32: the
-    protocol's SID sweep planes, the intrinsics and rays of a 480x640 frame
-    at the cost volume's resolution, source poses as the synthetic dataset
-    makes them (small random motion), each turned by ``roll`` radians about
-    its optical axis, random features and cotangent. Returns the arguments
-    of ``sweep_grad_src``: (d_center, ref_feat, gbar, R, t, is_valid, intM,
-    rays2d)."""
-    rng = np.random.RandomState(seed)
-    fx = 0.9 * W
-    K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1.0]])
-    intM, rays2d = rays_lib.intrinsics_for_dpv(K, W, H, WC, HC)
-    c, s = np.cos(roll), np.sin(roll)
-    turn = np.array([[c, -s, 0, 0], [s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
-    ext = np.stack([[turn @ _small_pose(rng) for _ in range(VIEWS)]
-                    for _ in range(TRAIN_B)])
-    rel, valid = poses_lib.relative_poses(
-        np.tile(np.eye(4), (TRAIN_B, 1, 1)), ext)
-    R, t = poses_lib.split_rt(rel)
-    if invalid:
-        valid[0, 1] = 0.0
-    arrays = [sid_depth_centers(1e-3, 10.0, TRAIN_D),
-              rng.randn(TRAIN_B, HC, WC, FEAT),
-              rng.randn(TRAIN_B, HC, WC, TRAIN_D), R, t, valid,
-              np.tile(intM, (TRAIN_B, 1, 1)),
-              np.tile(rays2d, (TRAIN_B, 1, 1))]
-    return [torch.from_numpy(np.ascontiguousarray(x, np.float32))
-            for x in arrays]
-
-
-def sweep_grids(a: list) -> torch.Tensor:
-    """The normalized sample positions (B*V, H*W, D, 2) of every (pixel,
-    plane) in every view, as ``grid_sample`` takes them."""
-    d, _, _, R, t, _, K, rays = a
-    grids = []
-    for b in range(R.shape[0]):
-        for v in range(R.shape[1]):
-            x, y, _ = cvk.project(K[b], R[b, v], t[b, v], rays[b],
-                                  d.expand(HC * WC, -1), HC, WC)
-            grids.append(torch.stack([(2 * x + 1) / WC - 1,
-                                      (2 * y + 1) / HC - 1], -1))
-    return torch.stack(grids)
-
-
-def sweep_samples(a: list) -> tuple:
-    """(in-image corners, samples) of the sweep for these inputs: the
-    bilinear corners inside the map of every (pixel, plane) sample of every
-    valid view, and the number of those samples."""
-    grids = sweep_grids(a)
-    valid = a[5].reshape(-1)
-    corners = 0
-    for i in range(grids.shape[0]):
-        if valid[i] == 0:
-            continue
-        x = ((grids[i, ..., 0] + 1) * WC - 1) / 2
-        y = ((grids[i, ..., 1] + 1) * HC - 1) / 2
-        x0, y0 = torch.floor(x), torch.floor(y)
-        for cy in (0, 1):
-            for cx in (0, 1):
-                corners += int((((x0 + cx) >= 0) & ((x0 + cx) < WC)
-                                & ((y0 + cy) >= 0) & ((y0 + cy) < HC)).sum())
-    return corners, HC * WC * TRAIN_D * int(valid.sum())
-
-
 def sweep_work(a: list, out: torch.Tensor) -> tuple:
     """Bytes and f32 operations the gradient needs for these inputs: each
     input read once and the output written once; per in-image corner of a
     valid view's sample a multiply-add per channel, per sample the
-    projection (about 30 operations)."""
+    projection (about 30 operations); and the count of in-image corners
+    and of the C-wide reductions the kernel's merged walk emits
+    (``sweep_grad_src_walk``, run on the same device)."""
     corners, samples = sweep_samples(a)
-    return nbytes(*a, out), 2.0 * FEAT * corners + 30.0 * samples, corners
+    merged = sgk.sweep_grad_src_walk(*a)[1]
+    return (nbytes(*a, out), 2.0 * FEAT * corners + 30.0 * samples, corners,
+            merged)
 
 
 def check_sweep_forward(dev):
@@ -780,7 +719,7 @@ def check_sweep_kernel(dev):
             if int(a[5].sum()) < a[5].numel() and out[0, 1].any():
                 raise RuntimeError("sweep_grad_src: an invalid view got a "
                                    "gradient")
-        n_bytes, flops, corners = sweep_work(a, out)
+        n_bytes, flops, corners, merged = sweep_work(a, out)
         bms, by = bound_ms(n_bytes, flops, PEAK_F32_FLOPS)
         library = None
         if site == "main path":
@@ -804,22 +743,8 @@ def check_sweep_kernel(dev):
             plain_ms=plain_time(lambda: sgk.sweep_grad_src_ref(*a)),
             library_ms=library, bound_ms=bms, bound_by=by,
             gflop=flops / 1e9, compulsory_mb=n_bytes / 1e6,
-            corners=corners))
+            corners=corners, merged_reductions=merged))
     return rows
-
-
-def trunk_tail_sites() -> list:
-    """(stage, blocks, map, C, M, K) of the six stage tails that run as MBConv
-    chains at 480x640 (blocks 1..n-1 of stages 1-6)."""
-    sites, hw = [], (H // 2, W // 2)            # after the stride-2 stem
-    for si, stage in enumerate(b5_stage_config()):
-        s = stage[0]["stride"]
-        hw = (-(-hw[0] // s), -(-hw[1] // s))
-        if si in chain_stages("all"):
-            c = stage[1]
-            sites.append((si, len(stage) - 1, hw, c["in_ch"],
-                          c["in_ch"] * c["expand"], c["kernel"]))
-    return sites
 
 
 def dw_sites() -> dict:
@@ -870,15 +795,6 @@ def check_dw_kernel(dev):
     return rows
 
 
-def random_chain(nb: int, C: int, M: int, K: int, seed: int) -> list:
-    """nb stride-1 InvertedResidual blocks with seeded random weights and
-    BatchNorm statistics (``init_weights_``)."""
-    cfg = dict(btype="ir", kernel=K, stride=1, expand=M // C, in_ch=C,
-               out_ch=C)
-    return [init_weights_(InvertedResidual(cfg), seed + i).eval()
-            for i in range(nb)]
-
-
 def check_mbchain_kernel(dev):
     """Row 12 at the six stage tails of a 480x640 trunk pass, one frame
     (D-Net) and 5 (MaGNet). Bound, per site: the two 1x1 GEMMs at the bf16
@@ -916,7 +832,8 @@ def check_mbchain_kernel(dev):
                 plain_ms=plain_time(
                     lambda: mbk.mbconv_chain_ref(x16, *ops16, k)),
                 library_ms=None, bound_ms=bms, bound_by=by,
-                gflop=(gemm + other) / 1e9, launches=nb * 3))
+                gflop=(gemm + other) / 1e9,
+                launches=nb * mbk.LAUNCHES_PER_BLOCK))
     return rows
 
 
@@ -1733,8 +1650,9 @@ def main() -> int:
             f"{r['corners']} in-image corners")
     for r in sweep_rows:
         log(f"  {r['site']}: f32 features {r['ms_f32']:.4f} ms; compulsory "
-            f"{r['compulsory_mb']:.1f} MB, {r['corners']} in-image corners "
-            f"({r['corners'] * FEAT / 1e9:.3f} G atomic adds)")
+            f"{r['compulsory_mb']:.1f} MB, {r['corners']} in-image corners, "
+            f"{r['merged_reductions']} merged reductions "
+            f"({r['corners'] / r['merged_reductions']:.2f}x fewer)")
     for r in gnet_rows:
         log(f"  {r['site']}: the whole update in bf16 cuDNN convs and "
             f"elementwise ops {r['chain_ms']:.4f} ms")

@@ -1,12 +1,9 @@
-// Tile loaders of the EfficientNet and streamed-BasicBlock kernels: the
-// implicit GEMM of common.cuh over A rows that are not the output pixels of
-// one map in order.
+// Tile loaders of the streamed-BasicBlock kernel: the implicit GEMM of
+// common.cuh over A rows that are not the output pixels of one map in order.
 //
 // GatherLoader: row r of the A tile is a pixel (n, y, x) of an NHWC map in
-// device memory, given by a map function at construction (a halo tile, a
-// BasicBlock's mid tile); taps = 9 (3x3, dilation dil, padding dil) or 1.
-// With a gate (N, Cin) f32, A is x * gate rounded to the compute type as it
-// is staged (the squeeze-excitation gate of an MBConv projection).
+// device memory, given by a map function at construction (a BasicBlock's
+// mid tile); 3x3 taps, dilation dil, padding dil.
 // SmemLoader: the A rows come from a map already in shared memory (a
 // BasicBlock's mid tile), 3x3 taps with dilation dil.
 //
@@ -20,14 +17,12 @@
 
 namespace mt {
 
-// x: (N, H, W, Cin); w: (taps, Cin, ldb), columns [n0, n0 + BN) of which
-// those below ncols are read (ncols a multiple of 16 bytes); gate: null or
-// (N, Cin) f32.
+// x: (N, H, W, Cin); w: (9, Cin, ldb), columns [n0, n0 + BN) of which
+// those below ncols are read (ncols a multiple of 16 bytes).
 struct GatherArgs {
   const void* x;
   const void* w;
-  const float* gate;
-  int H, W, Cin, ldb, ncols, taps, dil;
+  int H, W, Cin, ldb, ncols, dil;
 };
 
 template <typename T, int BM, int BN>
@@ -55,13 +50,12 @@ struct GatherLoader : TileStage<T, BM, BN> {
     }
   }
 
-  __device__ int iters() const { return a.taps * nb; }
+  __device__ int iters() const { return 9 * nb; }
 
   __device__ void load(int it) {
     const int tap = it / nb;
     const int c0 = (it - tap * nb) * BK;
-    const int dy = a.taps == 9 ? (tap / 3 - 1) * a.dil : 0;
-    const int dx = a.taps == 9 ? (tap % 3 - 1) * a.dil : 0;
+    const int dy = (tap / 3 - 1) * a.dil, dx = (tap % 3 - 1) * a.dil;
     const T* src = static_cast<const T*>(a.x);
 
     const int c = c0 + ((int)threadIdx.x % KCH) * VEC;
@@ -69,17 +63,8 @@ struct GatherLoader : TileStage<T, BM, BN> {
     for (int r = 0; r < A_CH; ++r) {
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       const int iy = py[r] + dy, ix = px[r] + dx;
-      if (pv[r] && c < a.Cin && iy >= 0 && iy < a.H && ix >= 0 && ix < a.W) {
+      if (pv[r] && c < a.Cin && iy >= 0 && iy < a.H && ix >= 0 && ix < a.W)
         v = ldg16(src + (((size_t)pn[r] * a.H + iy) * a.W + ix) * a.Cin + c);
-        if (a.gate) {
-          float f[VEC];
-          unpack(v, f, T());
-          const float* g = a.gate + (size_t)pn[r] * a.Cin + c;
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) f[e] *= g[e];
-          v = pack(f, T());
-        }
-      }
       ra[r] = v;
     }
 
@@ -146,7 +131,5 @@ struct SmemLoader : TileStage<T, BM, BN> {
     }
   }
 };
-
-__device__ __forceinline__ float swish(float y) { return y / (1.f + expf(-y)); }
 
 }  // namespace mt

@@ -12,255 +12,680 @@
 // the chain, one grid step per block. An H100 SM holds no expanded map (120 x
 // 160 x 240 bf16 is 9.2 MB at stage 1), and the squeeze-excitation mean is a
 // reduction over the whole map that the projection has to wait for, so a
-// block is three launches here:
-//   (a) expand + depthwise: a block owns a 10x12-pixel halo tile (8x10
-//       outputs at K = 3, 6x8 at K = 5) and 64 of the M expanded channels;
-//       it runs the expand GEMM over the halo tile (common.cuh's tile product
-//       and K loop, rows gathered by gather.cuh), writes swish(+ s1) into
-//       shared memory (zero outside the image: the depthwise conv pads e, not
-//       x), applies the taps, shift and swish, writes d and adds its channel
-//       sums of d into an f32 (N, M) pool with atomics;
-//   (b) the SE MLP, M -> R -> M, one 1024-thread block per frame;
-//   (c) the projection GEMM over d, the gate applied to A as it is staged,
-//       shift and residual in the epilogue.
-// The halo costs (10*12)/(8*10) = 1.5x the expand GEMM at K = 3 and 2.5x at
-// K = 5. Bound on an H100: tensor-core operations at the wide stages, bytes
-// (d written and read back) at stage 1.
-// bf16 runs the GEMMs on the tensor cores (WMMA, f32 accumulate), f32 as FMA.
+// block is two launches here.
+//
+// Bound on an H100: the maps are small (300 to 19200 pixels a frame) and the
+// GEMMs thin, so at N = 1 no launch comes near the tensor cores' or the
+// memory's rate; what costs is latency and the SMs left idle. The first
+// version (three launches: WMMA halo tiles of 8x10 outputs, the SE MLP in one
+// block per frame, a projection of 128x64 tiles walking K = M serially)
+// spent 1.7 ms of its 3.4 ms per D-Net frame in the projection on 15-30
+// blocks and 0.7 ms in the one-block SE. This version:
+//
+// (1) mb_expand: a block owns (frame, 64 expanded channels, a tile of th x
+//     tw output pixels). It runs the expand GEMM over the tile and its
+//     (K - 1)-pixel halo, m64 runs of pixels on wgmma (m64n64k16: two
+//     warpgroups on alternate runs, each with its own EX_STAGES-deep
+//     cp.async ring of x; the 64 columns of wpw staged once, transposed into the
+//     128-byte swizzle), writes swish(+ s1) as e into shared memory (zero
+//     outside the image: the depthwise conv pads e, not x), applies the
+//     taps, shift and swish from shared memory (a thread on 2 channels of 4
+//     pixels at once), writes d, and sums its channels. The host's plan
+//     (kernels/mbconv_chain.py::expand_tile) weighs waves of blocks against
+//     the halo: the whole map where it fits and fills the card (15x20 at 5
+//     frames), else tiles small enough for two blocks an SM. A first
+//     version of this kernel took bands of full rows at one block an SM
+//     (150-230 KB of shared memory): 8 warps an SM left every phase
+//     latency-bound, and it ran 1.5-2x slower than the three-launch one.
+//     The block that completes a (frame, slice)'s sums (the only one, or
+//     the last tile to arrive on a counter) computes the SE's first layer
+//     over its 64 channels: an R-vector of partials, summed over the slices
+//     by the projection in a fixed order. No pool atomics, no SE launch.
+// (2) mb_project: a block owns (frame, 64-pixel tile, 128 output channels,
+//     a K range of kc expanded channels). It copies its rows of d with
+//     cp.async while it computes the SE's second layer and the sigmoid for
+//     its K range, scales them by the gate in place (rounded), stages wpwl
+//     transposed as B, and multiplies on wgmma (m64n64k16, a warpgroup on
+//     each half of the 128 channels). Where tiles x channel tiles leave SMs
+//     idle the plan splits K: each block writes its f32 partial tile, and
+//     the last to arrive on the tile's counter sums the partials in split
+//     order (the result does not depend on the arrival order) before the
+//     shift, the rounding and the residual. Counters return to zero for
+//     the next launch.
+// Epilogues go through shared memory; every wgmma wait is unconditional.
+// f32 runs the same two launches with FMA on the same staged tiles (K
+// blocks of 32 floats in place of 64 bf16), so that it equals a
+// full-precision reference.
 
-#include "gather.cuh"
+#include <type_traits>
+
+#include "common.cuh"
+#include "hopper.cuh"
 
 namespace mt {
+namespace mb {
 
-constexpr int MB_HH = 10, MB_HW = 12;     // expand tile with its halo: 120 of 128 rows
-constexpr int MB_BM = 128, MB_BN = 64;
+constexpr int SLICE = 64;        // expanded channels a mb_expand block
+constexpr int TM = 64;           // pixels an m-tile
+constexpr int PN = 128;          // output channels a mb_project block
+constexpr int EX_THREADS = 256;  // two warpgroups
+constexpr int EX_STAGES = 2;     // depth of each warpgroup's ring of x
+constexpr int PR_THREADS = 256;  // two warpgroups, 64 output channels each
+constexpr int KROW = 128;        // bytes of a tile row in a K block
+constexpr int SMEM_MAX = 232448;
+constexpr int CS = PN + 4;       // row stride (floats) of the staged product
+constexpr int RED_FLOATS = 8 * SLICE + 3 * SLICE + 4;  // sums, mean, s1, s2, a flag
 
-template <typename T, class Core, int K>
-__global__ void __launch_bounds__(THREADS)
-mb_expand_dw_kernel(GatherArgs ga, const float* __restrict__ s1, const T* __restrict__ wdw,
-                    const float* __restrict__ s2, T* __restrict__ d_out,
-                    float* __restrict__ pool, int H, int W, int M) {
-  using L = GatherLoader<T, MB_BM, MB_BN>;
-  constexpr int OH = MB_HH - K + 1, OW = MB_HW - K + 1, R = K / 2;
-  constexpr int LDE = MB_BN + TileCfg<T>::PAD;
-  // bf16: the expanded tile starts past the MMA epilogue's scratch
-  constexpr int EOFF = sizeof(T) == 2 ? THREADS / 32 * 256 * (int)sizeof(float) : 0;
-  constexpr int ESZ = EOFF + MB_BM * LDE * (int)sizeof(T);
-  constexpr int SMEM = L::SMEM > ESZ ? L::SMEM : ESZ;
-  static_assert(L::SMEM >= EOFF, "scratch");
-  __shared__ __align__(128) unsigned char smem_raw[SMEM];
+// swish in f32; where the result rounds to bf16, on the fast exponential
+// and division
+__device__ __forceinline__ float swish(float v) { return v / (1.f + expf(-v)); }
+template <typename T> __device__ __forceinline__ float swish_t(float v) { return swish(v); }
+template <> __device__ __forceinline__ float swish_t<bf16>(float v) {
+  return __fdividef(v, 1.f + __expf(-v));
+}
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ float round_t(float v) {
+  return to_f(from_f<T>(v));
+}
+// two consecutive values (p 4-byte aligned for bf16, 8 for f32)
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
 
-  const int tiles_w = (W + OW - 1) / OW, tiles_h = (H + OH - 1) / OH;
-  const int n = blockIdx.x / (tiles_h * tiles_w);
-  const int t = blockIdx.x - n * tiles_h * tiles_w;
-  const int oy0 = (t / tiles_w) * OH, ox0 = (t % tiles_w) * OW;
-  const int m0 = blockIdx.y * MB_BN;
+template <typename T> struct Elem {
+  static constexpr int V = 16 / sizeof(T);      // elements in 16 bytes
+  static constexpr int EPB = KROW / sizeof(T);  // elements in a K block row
+  using S = typename std::conditional<sizeof(T) == 2, uint16_t, uint32_t>::type;
+};
 
-  L ld(ga, m0, [&](int row, int& pn, int& py, int& px) {
-    pn = n;
-    py = oy0 - R + row / MB_HW;
-    px = ox0 - R + row % MB_HW;
-    return row < MB_HH * MB_HW;
-  });
-  Core core;
-  run_mainloop(core, ld, reinterpret_cast<T*>(smem_raw));
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (hp::smem_addr(p) & 1023)) & 1023);
+}
 
-  T* et = reinterpret_cast<T*>(smem_raw + EOFF);
-  core.epilogue(reinterpret_cast<float*>(smem_raw),
-                [&](int row, int col, const float* v, int cnt) {
-                  const int hy = oy0 - R + row / MB_HW, hx = ox0 - R + row % MB_HW;
-                  const bool in = row < MB_HH * MB_HW && hy >= 0 && hy < H && hx >= 0 &&
-                                  hx < W;
-                  for (int e = 0; e < cnt; ++e) {
-                    const int m = m0 + col + e;
-                    float y = 0.f;
-                    if (in && m < M) y = swish(v[e] + s1[m]);
-                    et[row * LDE + col + e] = from_f<T>(y);
-                  }
-                });
+// Host and device: the shared-memory layouts. mb_expand: the weight slice
+// (kblk K blocks of 64 rows), the x rings (2 warpgroups x EX_STAGES of 64
+// rows), e (th + K - 1 rows of tw + K - 1 pixels of 64 channels, and one
+// pixel that takes the stores of GEMM rows past the tile), then RED_FLOATS
+// (no static shared memory: the whole budget is dynamic).
+__host__ __device__ inline int kblocks(int k, int elem) { return (k * elem + KROW - 1) / KROW; }
+__host__ __device__ inline int ex_off_a(int C, int elem) { return kblocks(C, elem) * TM * KROW; }
+__host__ __device__ inline int ex_off_e(int C, int elem) {
+  return ex_off_a(C, elem) + 2 * EX_STAGES * TM * KROW;
+}
+__host__ __device__ inline int ex_off_red(int th, int tw, int C, int K, int elem) {
+  return ex_off_e(C, elem) + ((th + K - 1) * (tw + K - 1) + 1) * SLICE * elem;
+}
+__host__ __device__ inline int ex_smem(int th, int tw, int C, int K, int elem) {
+  return ex_off_red(th, tw, C, K, elem) + RED_FLOATS * 4 + 1024;
+}
+// mb_project: B (kc / EPB K blocks of 128 rows), A (kc / EPB K blocks of 64
+// rows, or the staged f32 product where that is larger), the gate (kc
+// floats, or the 4 x PR_THREADS partial sums of its second layer where that
+// is more), r (R), a flag.
+__host__ __device__ inline int pr_off_gate(int kc, int elem) {
+  const int a = kblocks(kc, elem) * TM * KROW, ct = TM * CS * 4;
+  return kblocks(kc, elem) * PN * KROW + (a > ct ? a : ct);
+}
+__host__ __device__ inline int pr_smem(int kc, int R, int elem) {
+  return pr_off_gate(kc, elem) + ((kc > 4 * PR_THREADS ? kc : 4 * PR_THREADS) + R + 4) * 4 +
+         1024;
+}
+
+// B operand: element (k, n) of a row-major src (ld elements a row, valid
+// for k < kend and n < nend, zero elsewhere) to row n, column k of a K-major
+// tile of ROWS rows in the 128-byte swizzle (K block b at b * ROWS * 128
+// bytes), kblk K blocks. A thread takes V x V elements: V 16-byte loads
+// along n, transposed in registers, V 16-byte stores along k. Neighbouring
+// threads take neighbouring 16-byte chunks of a tile row, so a warp's
+// stores fall in distinct banks.
+template <typename T, int ROWS>
+__device__ __forceinline__ void stage_bt(unsigned char* dst, const T* src, int ld, int kend,
+                                         int nend, int kblk, int tid, int nthreads) {
+  using E = Elem<T>;
+  constexpr int V = E::V, ng = ROWS / V;
+  using S = typename E::S;
+  static_assert(E::EPB / V == 8, "eight chunks a tile row");
+  for (int it = tid; it < 8 * ng * kblk; it += nthreads) {
+    const int n = (it / 8 % ng) * V, k = it / (8 * ng) * E::EPB + it % 8 * V;
+    union { uint4 u; S e[V]; } in[V], out[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      in[i].u = (k + i < kend && n < nend) ? ldg16(src + (size_t)(k + i) * ld + n)
+                                           : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+#pragma unroll
+      for (int i = 0; i < V; ++i) out[j].e[i] = in[i].e[j];
+    unsigned char* blk = dst + (k / E::EPB) * ROWS * KROW;
+    const int chunk = (k % E::EPB) / V;
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      *reinterpret_cast<uint4*>(blk + hp::swizzled(n + j, chunk, KROW)) = out[j].u;
+  }
+}
+
+// One K block of the m64nN product of a warpgroup: acc (the m64nN f32
+// fragment) += A (64 rows) * B (N rows)^T, both K-major tiles in the
+// 128-byte swizzle; first: acc = A * B^T.
+template <int N>
+__device__ __forceinline__ void mma_kblock(float (&acc)[N / 2], const unsigned char* A,
+                                           const unsigned char* B, bool first, bf16, int) {
+  hp::wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    hp::wgmma_ss<N>(acc, hp::desc_sw128(A + 32 * k, 1024), hp::desc_sw128(B + 32 * k, 1024),
+                    (first && k == 0) ? 0 : 1);
+  hp::wgmma_commit();
+  hp::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) hp::fence_operand(acc[i]);
+}
+// f32: the same fragment by FMA; thread t of the warpgroup owns rows r0 and
+// r0 + 8 and columns 8 j + 2 (t % 4) + {0, 1}.
+template <int N>
+__device__ __forceinline__ void mma_kblock(float (&acc)[N / 2], const unsigned char* A,
+                                           const unsigned char* B, bool first, float, int wt) {
+  if (first) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  }
+  const int r0 = hp::frag_row(wt, 0);
+  auto at = [](const unsigned char* tile, int r, int k) {
+    return *reinterpret_cast<const float*>(tile + hp::swizzled(r, k / 4, KROW) + 4 * (k % 4));
+  };
+#pragma unroll 4
+  for (int k = 0; k < 32; ++k) {
+    const float a0 = at(A, r0, k), a1 = at(A, r0 + 8, k);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float b = at(B, 8 * j + 2 * (wt % 4) + e, k);
+        acc[4 * j + e] = fmaf(a0, b, acc[4 * j + e]);
+        acc[4 * j + 2 + e] = fmaf(a1, b, acc[4 * j + 2 + e]);
+      }
+  }
+}
+
+struct ExArgs {
+  const void* x;      // (N, H, W, C)
+  const void* wpw;    // (C, M)
+  const float* s1;    // (M,)
+  const void* wdw;    // (K*K, M)
+  const float* s2;    // (M,)
+  const float* wse1;  // (M, R)
+  void* d;            // (N, H, W, M)
+  float* pool;        // (N, tiles, M) the tiles' channel sums
+  float* separt;      // (N, slices, R) the SE's first layer, a partial a slice
+  int* count;         // (N, slices) arrival counters, zero between launches
+  int N, H, W, C, M, R, th, tw, tiles_x, tiles, slices;
+};
+
+template <typename T, int K>
+__global__ void __launch_bounds__(EX_THREADS, 2) mb_expand(const ExArgs a) {
+  using E = Elem<T>;
+  constexpr int V = E::V, PT = (K - 1) / 2;
+  constexpr int elem = sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_dyn[];
+  unsigned char* smem = align1024(smem_dyn);
+  const int tid = threadIdx.x;
+  const int n = blockIdx.x / a.tiles, tile = blockIdx.x % a.tiles, slice = blockIdx.y;
+  const int m0 = slice * SLICE;
+  // the output tile, its halo (e), and the part of the halo inside the image
+  const int oy0 = tile / a.tiles_x * a.th, ox0 = tile % a.tiles_x * a.tw;
+  const int oh = min(a.th, a.H - oy0), ow = min(a.tw, a.W - ox0);
+  const int ey0 = oy0 - PT, ex0 = ox0 - PT, EH = oh + K - 1, EW = ow + K - 1;
+  const int iy0 = max(ey0, 0), ix0 = max(ex0, 0);
+  const int cw = min(ex0 + EW, a.W) - ix0;
+  const int P = (min(ey0 + EH, a.H) - iy0) * cw;  // pixels of the expand GEMM
+  const int kblk = kblocks(a.C, elem);
+  unsigned char* Bw = smem;
+  unsigned char* ring = smem + ex_off_a(a.C, elem);
+  T* e = reinterpret_cast<T*>(smem + ex_off_e(a.C, elem));
+  float* red = reinterpret_cast<float*>(smem + ex_off_red(a.th, a.tw, a.C, K, elem));
+  float* mean = red + 8 * SLICE;
+  float* s1 = mean + SLICE;
+  float* s2 = s1 + SLICE;
+  int& last = *reinterpret_cast<int*>(s2 + SLICE);
+  const T* x = static_cast<const T*>(a.x);
+
+  // e outside the image is zero (the depthwise conv pads e, not x): thread
+  // t clears 16 bytes t % (SLICE / V) of every (EX_THREADS / (SLICE / V))-th
+  // pixel of each row
+  {
+    constexpr int Q = SLICE / V, PX = EX_THREADS / Q;
+    for (int row = 0; row < EH; ++row) {
+      const bool out_row = ey0 + row < 0 || ey0 + row >= a.H;
+      for (int col = tid / Q; col < EW; col += PX)
+        if (out_row || ex0 + col < 0 || ex0 + col >= a.W)
+          reinterpret_cast<uint4*>(e)[(row * EW + col) * Q + tid % Q] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  for (int i = tid; i < SLICE; i += EX_THREADS) {
+    const int m = m0 + i;
+    s1[i] = m < a.M ? a.s1[m] : 0.f;
+    s2[i] = m < a.M ? a.s2[m] : 0.f;
+  }
+  stage_bt<T, TM>(Bw, static_cast<const T*>(a.wpw) + m0, a.M, a.C, a.M - m0, kblk, tid,
+                  EX_THREADS);
+  hp::fence_proxy_async();
   __syncthreads();
 
-  // depthwise over the expanded tile: thread (pg, c) takes channel c of
-  // every (THREADS / MB_BN)-th output pixel
-  const int c = threadIdx.x % MB_BN, pg = threadIdx.x / MB_BN;
-  const int m = m0 + c;
-  if (m >= M) return;
-  float taps[K * K];
+  // the expand GEMM: warpgroup wg takes m-tiles wg, wg + 2, ...
+  {
+    const int wg = tid / 128, wt = tid % 128;
+    const int nt = (P + TM - 1) / TM;
+    const int my_tiles = nt > wg ? (nt - wg + 1) / 2 : 0;
+    const int steps = my_tiles * kblk;
+    unsigned char* st0 = ring + wg * EX_STAGES * TM * KROW;
+    // a thread copies 16-byte chunk wt % 8 of rows wt / 8 + 16 i of each
+    // K block; the rows' pixel offsets are worked out once an m-tile
+    static_assert(TM * 8 == 4 * 128, "four chunks a thread");
+    const int ch = wt % 8;
+    size_t src[4];
+    bool rok[4];
+    int cached = -1;
+    auto issue = [&](int step) {
+      if (step < steps) {
+        const int mt = wg + 2 * (step / kblk), kb = step % kblk;
+        if (mt != cached) {
+          cached = mt;
 #pragma unroll
-  for (int i = 0; i < K * K; ++i) taps[i] = to_f(wdw[(size_t)i * M + m]);
-  const float sh = s2[m];
-  float part = 0.f;
-  for (int p = pg; p < OH * OW; p += THREADS / MB_BN) {
-    const int oy = p / OW, ox = p % OW;
-    const int gy = oy0 + oy, gx = ox0 + ox;
-    if (gy >= H || gx >= W) continue;
-    float acc = 0.f;
+          for (int i = 0; i < 4; ++i) {
+            const int pi = mt * TM + wt / 8 + 16 * i;
+            rok[i] = pi < P;
+            const int q = rok[i] ? pi : 0;
+            src[i] = ((size_t)(n * a.H + iy0 + q / cw) * a.W + ix0 + q % cw) * a.C;
+          }
+        }
+        unsigned char* st = st0 + (step % EX_STAGES) * TM * KROW;
+        const int k = kb * E::EPB + ch * V;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool ok = rok[i] && k < a.C;
+          hp::cp_async16(st + hp::swizzled(wt / 8 + 16 * i, ch, KROW), x + (ok ? src[i] + k : 0),
+                         ok);
+        }
+      }
+      hp::cp_async_commit();
+    };
+#pragma unroll
+    for (int i = 0; i < EX_STAGES; ++i) issue(i);
+    float acc[SLICE / 2];
+    int step = 0;
+#pragma unroll 1
+    for (int t = 0; t < my_tiles; ++t) {
+#pragma unroll 1
+      for (int kb = 0; kb < kblk; ++kb, ++step) {
+        hp::cp_async_wait<EX_STAGES - 1>();
+        hp::fence_proxy_async();
+        hp::bar_sync(1 + wg, 128);
+        mma_kblock<SLICE>(acc, st0 + (step % EX_STAGES) * TM * KROW, Bw + kb * TM * KROW,
+                          kb == 0, T(), wt);
+        hp::bar_sync(1 + wg, 128);
+        issue(step + EX_STAGES);
+      }
+      // swish(+ s1), rounded, into e: the thread's two rows r0 and r0 + 8;
+      // tile rows past the GEMM's pixels go to the spare pixel after e
+      int slot[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pi = (wg + 2 * t) * TM + hp::frag_row(wt, 2 * h);
+        slot[h] = pi < P ? (iy0 - ey0 + pi / cw) * EW + ix0 - ex0 + pi % cw : EH * EW;
+      }
+#pragma unroll
+      for (int i = 0; i < SLICE / 2; i += 2) {
+        const int col = 8 * (i / 4) + 2 * (wt % 4);
+        store2(e + (size_t)slot[(i / 2) % 2] * SLICE + col, swish_t<T>(acc[i] + s1[col]),
+               swish_t<T>(acc[i + 1] + s1[col + 1]));
+      }
+    }
+    hp::cp_async_wait_all();
+  }
+  __syncthreads();
+
+  // depthwise: thread (pg, cp) takes channels 2 cp, 2 cp + 1 of output
+  // pixels pg, pg + 8, ...; DWP of them at once
+  constexpr int DWP = 4;
+  const int cp = tid % 32, pg = tid / 32;
+  const int c0 = 2 * cp, m = m0 + c0;
+  const bool live = m < a.M;
+  float taps[K * K][2];
+  const T* wdw = static_cast<const T*>(a.wdw);
+#pragma unroll
+  for (int i = 0; i < K * K; ++i) {
+    taps[i][0] = live ? to_f(wdw[(size_t)i * a.M + m]) : 0.f;
+    taps[i][1] = live ? to_f(wdw[(size_t)i * a.M + m + 1]) : 0.f;
+  }
+  float ps0 = 0.f, ps1 = 0.f;
+  T* d = static_cast<T*>(a.d);
+  const int npix = oh * ow;
+  int oy = pg / ow, ox = pg % ow;  // output pixel `base`, stepped without divisions
+  for (int base = pg; base < npix; base += 8 * DWP) {
+    float acc[DWP][2];
+    int at[DWP], py[DWP], px[DWP];
+#pragma unroll
+    for (int j = 0; j < DWP; ++j) {
+      py[j] = oy, px[j] = ox;
+      at[j] = base + 8 * j < npix ? oy * EW + ox : 0;
+      acc[j][0] = acc[j][1] = 0.f;
+      for (ox += 8; ox >= ow; ox -= ow) ++oy;
+    }
 #pragma unroll
     for (int dy = 0; dy < K; ++dy)
 #pragma unroll
       for (int dx = 0; dx < K; ++dx)
-        acc = fmaf(to_f(et[((oy + dy) * MB_HW + ox + dx) * LDE + c]), taps[dy * K + dx], acc);
-    const T dv = from_f<T>(swish(acc + sh));
-    d_out[(((size_t)n * H + gy) * W + gx) * M + m] = dv;
-    part += to_f(dv);
-  }
-  atomicAdd(pool + (size_t)n * M + m, part);
-}
-
-// The SE MLP of one frame: mean = pool / (H*W); r = swish(mean @ w1 + b1)
-// (R); gate = sigmoid(r @ w2 + b2) (M). One 1024-thread block per frame:
-// the first layer's M sum is split S = 1024 / R ways, and every loop keeps
-// four independent sums so that four weight loads are in flight per
-// thread (the loads, not the 2*M*R operations, set its time). Shared:
-// M + S*R + R floats.
-constexpr int SE_THREADS = 1024;
-
-__global__ void __launch_bounds__(SE_THREADS)
-mb_se_kernel(const float* __restrict__ pool, const float* __restrict__ w1,
-             const float* __restrict__ b1, const float* __restrict__ w2,
-             const float* __restrict__ b2, float* __restrict__ gate, int M, int R,
-             float inv_hw) {
-  extern __shared__ float se_smem[];
-  const int S = max(1, SE_THREADS / R);     // splits of the M sum
-  float* mean = se_smem;
-  float* part = mean + M;
-  float* red = part + S * R;
-  const int n = blockIdx.x;
-  for (int i = threadIdx.x; i < M; i += SE_THREADS) mean[i] = pool[(size_t)n * M + i] * inv_hw;
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < R * S; idx += SE_THREADS) {
-    const int j = idx % R, s = idx / R;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    int i = s;
-    for (; i + 3 * S < M; i += 4 * S) {
-      a0 = fmaf(mean[i], w1[(size_t)i * R + j], a0);
-      a1 = fmaf(mean[i + S], w1[(size_t)(i + S) * R + j], a1);
-      a2 = fmaf(mean[i + 2 * S], w1[(size_t)(i + 2 * S) * R + j], a2);
-      a3 = fmaf(mean[i + 3 * S], w1[(size_t)(i + 3 * S) * R + j], a3);
+#pragma unroll
+        for (int j = 0; j < DWP; ++j) {
+          const float2 ev = load2(e + (size_t)(at[j] + dy * EW + dx) * SLICE + c0);
+          acc[j][0] = fmaf(ev.x, taps[dy * K + dx][0], acc[j][0]);
+          acc[j][1] = fmaf(ev.y, taps[dy * K + dx][1], acc[j][1]);
+        }
+#pragma unroll
+    for (int j = 0; j < DWP; ++j) {
+      const int p = base + 8 * j;
+      const float v0 = round_t<T>(swish_t<T>(acc[j][0] + s2[c0]));
+      const float v1 = round_t<T>(swish_t<T>(acc[j][1] + s2[c0 + 1]));
+      if (p < npix) {
+        if (live)
+          store2(d + ((size_t)(n * a.H + oy0 + py[j]) * a.W + ox0 + px[j]) * a.M + m, v0, v1);
+        ps0 += v0;
+        ps1 += v1;
+      }
     }
-    for (; i < M; i += S) a0 = fmaf(mean[i], w1[(size_t)i * R + j], a0);
-    part[s * R + j] = (a0 + a1) + (a2 + a3);
   }
+  red[pg * SLICE + c0] = ps0;
+  red[pg * SLICE + c0 + 1] = ps1;
   __syncthreads();
-  for (int j = threadIdx.x; j < R; j += SE_THREADS) {
-    float acc = b1[j];
-    for (int s = 0; s < S; ++s) acc += part[s * R + j];
-    red[j] = swish(acc);
+
+  // the slice's channel sums: the tile's, then all tiles' in tile order
+  float sum = 0.f;
+  if (tid < SLICE) {
+#pragma unroll
+    for (int g = 0; g < 8; ++g) sum += red[g * SLICE + tid];
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < M; i += SE_THREADS) {
-    float a0 = b2[i], a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    int j = 0;
-    for (; j + 3 < R; j += 4) {
-      a0 = fmaf(red[j], w2[(size_t)j * M + i], a0);
-      a1 = fmaf(red[j + 1], w2[(size_t)(j + 1) * M + i], a1);
-      a2 = fmaf(red[j + 2], w2[(size_t)(j + 2) * M + i], a2);
-      a3 = fmaf(red[j + 3], w2[(size_t)(j + 3) * M + i], a3);
+  if (a.tiles > 1) {
+    float* pool = a.pool + (size_t)n * a.tiles * a.M;
+    if (tid < SLICE && m0 + tid < a.M) __stcg(pool + (size_t)tile * a.M + m0 + tid, sum);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+      last = atomicAdd(a.count + n * a.slices + slice, 1) == a.tiles - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (tid < SLICE && m0 + tid < a.M) {
+      sum = 0.f;
+#pragma unroll 8
+      for (int b = 0; b < a.tiles; ++b) sum += __ldcg(pool + (size_t)b * a.M + m0 + tid);
     }
-    for (; j < R; ++j) a0 = fmaf(red[j], w2[(size_t)j * M + i], a0);
-    gate[(size_t)n * M + i] = 1.f / (1.f + expf(-((a0 + a1) + (a2 + a3))));
+    if (tid == 0) a.count[n * a.slices + slice] = 0;
+  }
+  if (tid < SLICE) mean[tid] = m0 + tid < a.M ? sum / (float)(a.H * a.W) : 0.f;
+  __syncthreads();
+
+  // the SE's first layer over this slice: R partial sums, each over the
+  // slice's channels split `parts` ways (R * parts <= 8 * SLICE), summed in
+  // part order
+  const int mc = min(SLICE, a.M - m0), parts = max(1, EX_THREADS / a.R);
+  for (int it = tid; it < a.R * parts; it += EX_THREADS) {
+    const int j = it % a.R, part = it / a.R;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int c = part; c < mc; c += parts)
+      acc = fmaf(mean[c], a.wse1[(size_t)(m0 + c) * a.R + j], acc);
+    red[part * a.R + j] = acc;
+  }
+  __syncthreads();
+  for (int j = tid; j < a.R; j += EX_THREADS) {
+    float acc = 0.f;
+    for (int part = 0; part < parts; ++part) acc += red[part * a.R + j];
+    a.separt[((size_t)n * a.slices + slice) * a.R + j] = acc;
   }
 }
 
-// The projection: ga.x = d (N, H, W, M), ga.gate = the SE gate, ga.w = wpwl
-// (M, C); out = round(acc + s3) + res.
-template <typename T, class Core>
-__global__ void __launch_bounds__(THREADS)
-mb_project_kernel(GatherArgs ga, const float* __restrict__ s3, const T* __restrict__ res,
-                  T* __restrict__ out, int N, int C) {
-  using L = GatherLoader<T, MB_BM, MB_BN>;
-  static_assert(L::SMEM >= THREADS / 32 * 256 * (int)sizeof(float), "scratch");
-  __shared__ __align__(128) unsigned char smem_raw[L::SMEM];
-  const int hw = ga.H * ga.W, Mtot = N * hw;
-  const int m0 = blockIdx.x * MB_BM, n0 = blockIdx.y * MB_BN;
-  L ld(ga, n0, [&](int row, int& pn, int& py, int& px) {
-    const int m = m0 + row;
-    const int mm = m < Mtot ? m : 0;
-    pn = mm / hw;
-    const int rem = mm - pn * hw;
-    py = rem / ga.W;
-    px = rem - py * ga.W;
-    return m < Mtot;
-  });
-  Core core;
-  run_mainloop(core, ld, reinterpret_cast<T*>(smem_raw));
-  core.epilogue(reinterpret_cast<float*>(smem_raw),
-                [&](int row, int col, const float* v, int cnt) {
-                  const int m = m0 + row, nn = n0 + col;
-                  if (m >= Mtot || nn >= C) return;
-                  const size_t at = (size_t)m * C + nn;
-                  for (int e = 0; e < cnt; ++e) {
-                    const float y = to_f(from_f<T>(v[e] + s3[nn + e]));
-                    out[at + e] = from_f<T>(y + to_f(res[at + e]));
-                  }
-                });
-}
-
-struct MbArgs {
-  const void *x, *wpw, *wdw, *wpwl;
-  const float *s1, *s2, *wse1, *bse1, *wse2, *bse2, *s3;
-  void* d;
-  float* pool;
-  float* gate;
-  void* out;
-  int N, H, W, C, M, R, K;
+struct PrArgs {
+  const void* d;       // (N, H, W, M)
+  const void* x;       // (N, H, W, C), the residual
+  const void* wpwl;    // (M, C)
+  const float* s3;     // (C,)
+  const float* bse1;   // (R,)
+  const float* wse2;   // (R, M)
+  const float* bse2;   // (M,)
+  const float* separt; // (N, slices, R)
+  float* ws;           // split-K partials: (tiles, splits, 64 x 128)
+  int* count;          // (tiles) arrival counters, zero between launches
+  void* out;           // (N, H, W, C)
+  int N, H, W, C, M, R, slices, kc, splits, tpf;
 };
 
-template <typename T, class Core>
-int launch_mb_block(const MbArgs& a, cudaStream_t s) {
-  int err;
-  const int oh = MB_HH - a.K + 1, ow = MB_HW - a.K + 1;
-  dim3 ga_grid((unsigned)(a.N * ((a.H + oh - 1) / oh) * ((a.W + ow - 1) / ow)),
-               (unsigned)((a.M + MB_BN - 1) / MB_BN));
-  GatherArgs ex{a.x, a.wpw, nullptr, a.H, a.W, a.C, a.M, a.M, 1, 1};
-  if (a.K == 3)
-    mb_expand_dw_kernel<T, Core, 3><<<ga_grid, THREADS, 0, s>>>(
-        ex, a.s1, static_cast<const T*>(a.wdw), a.s2, static_cast<T*>(a.d), a.pool, a.H,
-        a.W, a.M);
-  else if (a.K == 5)
-    mb_expand_dw_kernel<T, Core, 5><<<ga_grid, THREADS, 0, s>>>(
-        ex, a.s1, static_cast<const T*>(a.wdw), a.s2, static_cast<T*>(a.d), a.pool, a.H,
-        a.W, a.M);
-  else
-    return (int)cudaErrorInvalidValue;
-  if ((err = (int)cudaGetLastError())) return err;
+template <typename T>
+__global__ void __launch_bounds__(PR_THREADS) mb_project(const PrArgs a) {
+  using E = Elem<T>;
+  constexpr int V = E::V, elem = sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_dyn[];
+  unsigned char* smem = align1024(smem_dyn);
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int n = blockIdx.x / a.tpf, tile = blockIdx.x % a.tpf;
+  const int n0 = blockIdx.y * PN, split = blockIdx.z;
+  const int k0 = split * a.kc, kn = min(a.kc, a.M - k0);
+  const int kblk = kblocks(kn, elem), kmax = kblocks(a.kc, elem);
+  const int hw = a.H * a.W;
+  unsigned char* B = smem;
+  unsigned char* A = smem + kmax * PN * KROW;
+  float* gate = reinterpret_cast<float*>(smem + pr_off_gate(a.kc, elem));
+  float* r = gate + max(a.kc, 4 * PR_THREADS);
+  int& last = *reinterpret_cast<int*>(r + a.R);
 
-  const int S = SE_THREADS / a.R > 1 ? SE_THREADS / a.R : 1;
-  const size_t se_smem = (size_t)(a.M + S * a.R + a.R) * sizeof(float);
-  mb_se_kernel<<<a.N, SE_THREADS, se_smem, s>>>(a.pool, a.wse1, a.bse1, a.wse2, a.bse2,
-                                             a.gate, a.M, a.R,
-                                             1.f / (float)(a.H * a.W));
-  if ((err = (int)cudaGetLastError())) return err;
+  // A: the tile's rows of d, copied as they are (the gate is applied below)
+  // thread tid takes chunks tid, tid + PR_THREADS, ... of the tile's rows
+  // of kc8 16-byte chunks, stepped without divisions
+  const T* dsrc = static_cast<const T*>(a.d) + (size_t)n * hw * a.M + k0;
+  const int kc8 = kblk * 8, drow = PR_THREADS / kc8, dch = PR_THREADS % kc8;
+  for (int it = tid, row = tid / kc8, ch = tid % kc8; it < TM * kc8; it += PR_THREADS) {
+    const int k = (ch / 8) * E::EPB + (ch % 8) * V, p = tile * TM + row;
+    const bool ok = p < hw && k < kn;
+    hp::cp_async16(A + (ch / 8) * TM * KROW + hp::swizzled(row, ch % 8, KROW),
+                   dsrc + (ok ? (size_t)p * a.M + k : 0), ok);
+    row += drow, ch += dch;
+    if (ch >= kc8) ch -= kc8, ++row;
+  }
+  hp::cp_async_commit();
+  stage_bt<T, PN>(B, static_cast<const T*>(a.wpwl) + (size_t)k0 * a.C + n0, a.C, kn,
+                  a.C - n0, kblk, tid, PR_THREADS);
+  // the SE's first layer completed (its slices' partials summed `sp` ways,
+  // meeting in the gate's buffer), then its second layer and the sigmoid
+  // over this block's K range
+  const int sp = max(1, PR_THREADS / a.R);
+  for (int it = tid; it < a.R * sp; it += PR_THREADS) {
+    const int j = it % a.R, part = it / a.R;
+    float z = 0.f;
+#pragma unroll 4
+    for (int s = part; s < a.slices; s += sp) z += a.separt[((size_t)n * a.slices + s) * a.R + j];
+    gate[part * a.R + j] = z;
+  }
+  __syncthreads();
+  for (int j = tid; j < a.R; j += PR_THREADS) {
+    float z = a.bse1[j];
+    for (int part = 0; part < sp; ++part) z += gate[part * a.R + j];
+    r[j] = swish(z);
+  }
+  __syncthreads();
+  // thread t sums the float4 of channels 4 q .. 4 q + 3 over every
+  // parts-th row of wse2, partial sums meeting in the gate's buffer
+  const int quads = kn / 4, parts = max(1, PR_THREADS / quads);
+  for (int it = tid; it < quads * parts; it += PR_THREADS) {
+    const int q = it % quads, part = it / quads;
+    float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4* w = reinterpret_cast<const float4*>(a.wse2 + k0) + q;
+#pragma unroll 4
+    for (int j = part; j < a.R; j += parts) {
+      const float4 v = __ldg(w + (size_t)j * (a.M / 4));
+      const float rj = r[j];
+      z.x = fmaf(rj, v.x, z.x), z.y = fmaf(rj, v.y, z.y);
+      z.z = fmaf(rj, v.z, z.z), z.w = fmaf(rj, v.w, z.w);
+    }
+    reinterpret_cast<float4*>(gate + part * kn)[q] = z;
+  }
+  __syncthreads();
+  for (int k = tid; k < kn; k += PR_THREADS) {
+    float z = a.bse2[k0 + k];
+    for (int part = 0; part < parts; ++part) z += gate[part * kn + k];
+    gate[k] = 1.f / (1.f + expf(-z));
+  }
 
-  GatherArgs pr{a.d, a.wpwl, a.gate, a.H, a.W, a.M, a.C, a.C, 1, 1};
-  const long long rows = (long long)a.N * a.H * a.W;
-  dim3 pr_grid((unsigned)((rows + MB_BM - 1) / MB_BM), (unsigned)((a.C + MB_BN - 1) / MB_BN));
-  mb_project_kernel<T, Core><<<pr_grid, THREADS, 0, s>>>(
-      pr, a.s3, static_cast<const T*>(a.x), static_cast<T*>(a.out), a.N, a.C);
+  hp::cp_async_wait_all();
+  __syncthreads();
+  // d * g, rounded, in place (each thread on the chunks it copied)
+  for (int it = tid, row = tid / kc8, ch = tid % kc8; it < TM * kc8; it += PR_THREADS) {
+    const int k = (ch / 8) * E::EPB + (ch % 8) * V;
+    uint4* at =
+        reinterpret_cast<uint4*>(A + (ch / 8) * TM * KROW + hp::swizzled(row, ch % 8, KROW));
+    if (k < kn) {
+      float f[V];
+      unpack(*at, f, T());
+#pragma unroll
+      for (int e = 0; e < V; e += 4) {
+        const float4 g = *reinterpret_cast<const float4*>(gate + k + e);
+        f[e] *= g.x, f[e + 1] *= g.y, f[e + 2] *= g.z, f[e + 3] *= g.w;
+      }
+      *at = pack(f, T());
+    }
+    row += drow, ch += dch;
+    if (ch >= kc8) ch -= kc8, ++row;
+  }
+  hp::fence_proxy_async();
+  __syncthreads();
+
+  // warpgroup wg: output channels n0 + 64 wg .. + 63
+  float acc[PN / 4];
+#pragma unroll 1
+  for (int kb = 0; kb < kblk; ++kb)
+    mma_kblock<PN / 2>(acc, A + kb * TM * KROW, B + kb * PN * KROW + wg * (PN / 2) * KROW,
+                       kb == 0, T(), wt);
+  __syncthreads();
+  float* ct = reinterpret_cast<float*>(A);
+#pragma unroll
+  for (int e = 0; e < PN / 4; e += 2) {
+    const int row = hp::frag_row(wt, e), col = wg * (PN / 2) + 8 * (e / 4) + 2 * (wt % 4);
+    *reinterpret_cast<float2*>(ct + row * CS + col) = make_float2(acc[e], acc[e + 1]);
+  }
+  __syncthreads();
+
+  if (a.splits > 1) {
+    // split K: publish the partial; the last block of the tile sums all in
+    // split order
+    const size_t tid_tile = (size_t)blockIdx.x * gridDim.y + blockIdx.y;
+    float4* part = reinterpret_cast<float4*>(a.ws + tid_tile * a.splits * TM * PN);
+    for (int e = tid; e < TM * PN / 4; e += PR_THREADS)
+      __stcg(part + (size_t)split * TM * PN / 4 + e,
+             *reinterpret_cast<const float4*>(ct + (e / (PN / 4)) * CS + 4 * (e % (PN / 4))));
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(a.count + tid_tile, 1) == a.splits - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    for (int e = tid; e < TM * PN / 4; e += PR_THREADS) {
+      float4* own = reinterpret_cast<float4*>(ct + (e / (PN / 4)) * CS + 4 * (e % (PN / 4)));
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int s = 0; s < a.splits; ++s) {
+        const float4 p = s == split ? *own : __ldcg(part + (size_t)s * TM * PN / 4 + e);
+        v.x += p.x, v.y += p.y, v.z += p.z, v.w += p.w;
+      }
+      *own = v;
+    }
+    if (tid == 0) a.count[tid_tile] = 0;
+    __syncthreads();
+  }
+
+  // out = round(round(y + s3) + x)
+  const T* xres = static_cast<const T*>(a.x);
+  T* out = static_cast<T*>(a.out);
+#pragma unroll 4
+  for (int it = tid; it < TM * PN / V; it += PR_THREADS) {
+    const int row = it / (PN / V), cv = it % (PN / V);
+    const int p = tile * TM + row, c = n0 + cv * V;
+    if (p < hw && c < a.C) {
+      const size_t g = ((size_t)n * hw + p) * a.C + c;
+      float xr[V], o[V];
+      unpack(ldg16(xres + g), xr, T());
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        o[e] = round_t<T>(ct[row * CS + cv * V + e] + a.s3[c + e]) + xr[e];
+      *reinterpret_cast<uint4*>(out + g) = pack(o, T());
+    }
+  }
+}
+
+template <typename T>
+int launch_block(const ExArgs& ex, const PrArgs& pr, int K, cudaStream_t s) {
+  const int elem = sizeof(T);
+  const int ex_bytes = ex_smem(ex.th, ex.tw, ex.C, K, elem);
+  const int pr_bytes = pr_smem(pr.kc, pr.R, elem);
+  if (ex_bytes > SMEM_MAX || pr_bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto k1 = K == 3 ? mb_expand<T, 3> : mb_expand<T, 5>;
+  cudaError_t err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, ex_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mb_project<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               pr_bytes);
+  if (err != cudaSuccess) return (int)err;
+  k1<<<dim3((unsigned)(ex.N * ex.tiles), (unsigned)ex.slices), EX_THREADS, ex_bytes, s>>>(ex);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(pr.N * pr.tpf), (unsigned)((pr.C + PN - 1) / PN),
+                  (unsigned)pr.splits);
+  mb_project<T><<<grid, PR_THREADS, pr_bytes, s>>>(pr);
   return (int)cudaGetLastError();
 }
 
+}  // namespace mb
 }  // namespace mt
 
-// One block of the chain, three launches. dtype: 0 f32, 1 bf16. x: (N, H, W,
+// One block of the chain, two launches. dtype: 0 f32, 1 bf16. x: (N, H, W,
 // C); wpw: (C, M); wdw: (K*K, M); wpwl: (M, C), all of x's type; s1, s2,
-// bse2: (M,); wse1: (M, R); bse1: (R,); wse2: (R, M); s3: (C,), f32. d: (N,
-// H, W, M) scratch of x's type; pool: (N, M) f32 zeros; gate: (N, M) f32
-// scratch; out: (N, H, W, C). C and M multiples of 16 bytes; K 3 or 5.
-// Returns the first cudaGetLastError() that is not 0.
+// bse2: (M,); wse1: (M, R); bse1: (R,); wse2: (R, M); s3: (C,), f32. d:
+// (N, H, W, M) scratch of x's type; pool: (N, tiles, M) f32 scratch;
+// separt: (N, slices, R) f32 scratch; ws: the split-K partials, (N * tpf *
+// ctiles * splits, 64 * 128) f32 scratch (unused with one split); counters:
+// N * slices + N * tpf * ctiles int32 zeros (zeros again when the launch
+// ends); out: (N, H, W, C). The plan: th x tw output pixels a tile of
+// mb_expand, kc expanded channels a K range of mb_project (a multiple of
+// 64); tiles = ceil(H / th) ceil(W / tw), slices = ceil(M / 64), tpf =
+// ceil(H * W / 64), ctiles = ceil(C / 128), splits = ceil(M / kc). C and M
+// multiples of 16 bytes; K 3 or 5. Returns the first cudaGetLastError() that is not 0, or
+// cudaErrorInvalidValue for a plan whose shared memory does not fit.
 extern "C" int mt_mbconv_block(int dtype, const void* x, const void* wpw, const void* s1,
                                const void* wdw, const void* s2, const void* wse1,
                                const void* bse1, const void* wse2, const void* bse2,
                                const void* wpwl, const void* s3, void* d, void* pool,
-                               void* gate, void* out, int N, int H, int W, int C, int M,
-                               int R, int K, void* stream) {
-  using namespace mt;
+                               void* separt, void* ws, void* counters, void* out, int N,
+                               int H, int W, int C, int M, int R, int K, int th, int tw,
+                               int kc, void* stream) {
+  using namespace mt::mb;
+  if ((K != 3 && K != 5) || th < 1 || tw < 1 || kc < 64 || kc % 64)
+    return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  MbArgs a{x,       wpw,      wdw,      wpwl,     f(s1),    f(s2),
-           f(wse1), f(bse1),  f(wse2),  f(bse2),  f(s3),    d,
-           static_cast<float*>(pool), static_cast<float*>(gate), out,
-           N,       H,        W,        C,        M,        R,        K};
+  const int slices = (M + SLICE - 1) / SLICE, tiles_x = (W + tw - 1) / tw;
+  const int tiles = (H + th - 1) / th * tiles_x;
+  int* count = static_cast<int*>(counters);
+  ExArgs ex{x, wpw, f(s1), wdw, f(s2), f(wse1), d, static_cast<float*>(pool),
+            static_cast<float*>(separt), count, N, H, W, C, M, R, th, tw, tiles_x, tiles,
+            slices};
+  PrArgs pr{d, x, wpwl, f(s3), f(bse1), f(wse2), f(bse2), static_cast<const float*>(separt),
+            static_cast<float*>(ws), count + N * slices, out, N, H, W, C, M, R, slices, kc,
+            (M + kc - 1) / kc, (H * W + TM - 1) / TM};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_mb_block<bf16, MmaCore<128, 64, 4, 2>>(a, s);
-  return launch_mb_block<float, SimtCore<128, 64>>(a, s);
+  if (dtype == 1) return launch_block<mt::bf16>(ex, pr, K, s);
+  return launch_block<float>(ex, pr, K, s);
 }

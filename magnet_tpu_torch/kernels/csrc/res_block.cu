@@ -86,7 +86,7 @@ res_block_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float*
   const int y0 = (t / tiles_w) * RB_TH, x0 = (t % tiles_w) * RB_TW;
 
   // mid = relu(bn1(conv1(x))) on the mid tile, zero outside the image
-  const GatherArgs ga{x, w1, nullptr, H, W, C, C, C, 9, dil};
+  const GatherArgs ga{x, w1, H, W, C, C, C, dil};
   for (int r0 = 0; r0 < nmid; r0 += 128) {
     for (int n0 = 0; n0 < C; n0 += BN) {
       L1 ld(ga, n0, [&](int row, int& pn, int& py, int& px) {

@@ -18,28 +18,42 @@
 //
 // Bound on an H100: at the training shape (B = 2, V = 4, D = 80, 120x160,
 // C = 64) the compulsory bytes are about 56 MB (0.017 ms) and the additions
-// about 6.3 GFLOP of f32 (0.094 ms at 67 TFLOP/s), so the f32 rate bounds it.
-// What the kernel really does is 3.1 G f32 atomic adds into a 39 MB output
-// that the L2 cache holds; their throughput sets its time.
+// about 5.6 GFLOP of f32 (0.088 ms at 67 TFLOP/s), so the f32 rate bounds
+// it. The first version (one warp a reference pixel, every lane repeating
+// the pixel's projection, one scalar f32 atomic per in-image corner and
+// channel) ran at 3.85 ms, and 3.44 ms with its atomics taken out: the
+// warp's 32-fold repeated walk set its pace, not the 2.8 G atomics.
 //
-// Design: one warp owns one (b, v, reference pixel). The reference feature
-// stays in registers, lane l holding channels l, l + 32, ...; the warp walks
-// the D planes, 32 at a time: lane l loads plane d0 + l's cotangent and depth
-// (one coalesced load each) and the warp broadcasts them with shuffles. Per
-// plane the warp projects the pixel (every lane the same arithmetic, so the
-// branches stay uniform) and, for each in-image corner, adds
-// w * gbar * valid * ref[c] to the corner's C channels with f32 atomics:
-// 32 lanes on 32 consecutive channels, one coalesced run of reductions. An
-// invalid view's warps leave at once; the output is zeroed first. The order
-// of the sums is not fixed, so two runs may differ in the last bits.
+// Design: the merged walk. Each lane owns one (b, v, reference pixel q) and
+// walks the D planes in order on its own: the cotangent and depth loads of
+// consecutive planes hit the same cache sectors, the projection runs once
+// per sample. The projection u(d) = (a0 + b0 d) / (a2 + b2 d) is a Moebius
+// map of d, so while its denominator keeps its sign the 2x2 footprint moves
+// monotonically along the epipolar line and consecutive planes mostly land
+// on the same pixels. The lane keeps the scalar weight sum
+// sum(w * gbar * valid) of each pixel of the current footprint in registers;
+// a pixel's C-wide reduction of weight_sum * ref[q] is emitted only when the
+// footprint leaves it: a one-pixel step carries two corners to the new
+// footprint and flushes the other two. A sample outside the map, or one
+// whose denominator has the other sign, flushes all four. The flushes only
+// decide when partial sums are added, never what is added, so the result
+// does not depend on monotonicity: it is the same sum in another order.
+// The warp emits its lanes' flushes together: a ballot finds them, and a
+// group of G lanes (16 at C = 64, so two flushes a round) takes each, lane
+// l adding channels 4 l .. 4 l + 3 with one float4 atomicAdd
+// (red.global.add.v4.f32 on sm_90) and reading ref[q] from the cache.
+// Channels that are no multiple of 4 take scalar atomics, 32 lanes each
+// adding 4 channels 32 apart. An invalid view's lanes add nothing; the
+// output is zeroed first. The order of the sums is not fixed, so two runs
+// may differ in the last bits.
 
 #include "common.cuh"
 
 namespace mt {
 
 constexpr int SG_MAX_C = 128;           // most channels the kernel takes
-constexpr int SG_K = SG_MAX_C / 32;     // channels per lane
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int SG_NONE = -2;  // no pending footprint (none starts left of -1)
 
 struct SgArgs {
   const float* depth;  // (D,) sweep depths
@@ -54,30 +68,63 @@ struct SgArgs {
   int B, V, H, W, C, D;
 };
 
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const bf16* p) { return __bfloat162float(*p); }
+// VEC consecutive channels of a reference feature as floats.
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void load_vec(const bf16* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
 
-template <typename T>
+// One lane's share of a pixel's reduction: o[c] += w * q[c] for its
+// channels, chunk j of lane l of the group starting at channel (l + G j) VEC.
+template <typename T, int G, int VEC, int NCH>
+__device__ __forceinline__ void reduce_pixel(float* o, float w, const T* q, int gl, int C) {
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+    const int c = (gl + G * j) * VEC;
+    if (c >= C) continue;
+    float v[VEC];
+    load_vec<VEC>(q + c, v);
+    if constexpr (VEC == 4)
+      atomicAdd(reinterpret_cast<float4*>(o + c),
+                make_float4(w * v[0], w * v[1], w * v[2], w * v[3]));
+    else
+      atomicAdd(o + c, w * v[0]);
+  }
+}
+
+// G lanes a reduction (8, 16 or 32), 32 / G reductions a round; each lane
+// adds NCH chunks of VEC channels.
+template <typename T, int G, int VEC, int NCH>
 __global__ void __launch_bounds__(THREADS) sweep_grad_src_kernel(SgArgs a) {
-  const long long warp = ((long long)blockIdx.x * THREADS + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
+  constexpr int E = 32 / G;
+  const int lane = threadIdx.x & 31, gl = lane % G, ev = lane / G;
+  const long long item = (long long)blockIdx.x * THREADS + threadIdx.x;
   const int hw = a.H * a.W;
-  // The warp index is the same on all 32 lanes, so a warp leaves whole and
-  // the shuffles below always see a full warp.
-  if (warp >= (long long)a.B * a.V * hw) return;
-  const int bv = (int)(warp / hw);
-  const int p = (int)(warp - (long long)bv * hw);
+  const bool inside = item < (long long)a.B * a.V * hw;
+  const int bv = inside ? (int)(item / hw) : 0;
+  const int p = inside ? (int)(item - (long long)bv * hw) : 0;
   const int b = bv / a.V;
   const float valid = a.valid[bv];
-  if (valid == 0.f) return;
-
-  const T* ref = static_cast<const T*>(a.ref) + ((size_t)b * hw + p) * a.C;
-  float q[SG_K];
-#pragma unroll
-  for (int k = 0; k < SG_K; ++k) {
-    const int c = lane + 32 * k;
-    q[k] = c < a.C ? load_f(ref + c) : 0.f;
-  }
+  const bool active = inside && valid != 0.f;
+  // A warp with nothing to add leaves whole, so the shuffles below always
+  // see a full warp; within it an idle lane walks with a zero cotangent.
+  if (!__any_sync(FULL_MASK, active)) return;
 
   // K t + K (R ray) d, as the forward projects it
   const float* rays = a.rays + (size_t)b * 3 * hw;
@@ -96,58 +143,127 @@ __global__ void __launch_bounds__(THREADS) sweep_grad_src_kernel(SgArgs a) {
   const float b2 = K[6] * rr0 + K[7] * rr1 + K[8] * rr2;
   const float fW = (float)a.W, fH = (float)a.H;
 
-  float* out = a.out + (size_t)bv * hw * a.C;
+  const T* ref = static_cast<const T*>(a.ref);
+  const long long qrow = ((long long)b * hw + p) * a.C;  // this lane's ref[q]
+  const long long vrow = (long long)bv * hw;             // its view's first output pixel
   const float* gbar = a.gbar + ((size_t)b * hw + p) * a.D;
-  for (int d0 = 0; d0 < a.D; d0 += 32) {
-    const int dl = d0 + lane;
-    const float g_l = dl < a.D ? gbar[dl] * valid : 0.f;
-    const float z_l = dl < a.D ? a.depth[dl] : 0.f;
-    const int n = min(32, a.D - d0);
-    for (int j = 0; j < n; ++j) {
-      const float g = __shfl_sync(FULL_MASK, g_l, j);
-      const float depth = __shfl_sync(FULL_MASK, z_l, j);
-      if (g == 0.f) continue;
-      const float denom = (a2 + b2 * depth) + 1e-10f;
-      const float u = (a0 + b0 * depth) / denom;
-      const float w = (a1 + b1 * depth) / denom;
-      const float gx = fminf(fmaxf((u - fW * 0.5f) / (fW * 0.5f), -10.f), 10.f);
-      const float gy = fminf(fmaxf((w - fH * 0.5f) / (fH * 0.5f), -10.f), 10.f);
-      const float x = ((gx + 1.f) * fW - 1.f) * 0.5f;
-      const float y = ((gy + 1.f) * fH - 1.f) * 0.5f;
-      const float xf = floorf(x), yf = floorf(y);
-      // A NaN coordinate fails every test below and scatters nothing.
-      if (!(xf >= -1.f && xf <= fW - 1.f && yf >= -1.f && yf <= fH - 1.f)) continue;
-      const int x0 = (int)xf, y0 = (int)yf;
+  // the pending footprint: pixels (fx + cx, fy + cy) with weight sums
+  // w[2 cy + cx]; fpos the sign of its samples' denominator
+  int fx = SG_NONE, fy = SG_NONE;
+  bool fpos = true;
+  float w[4] = {0.f, 0.f, 0.f, 0.f};
+
+  // Every lane with `want` set adds wsum * ref[q] to pixel `pix` of its
+  // view: a round takes the warp's next E such lanes, one a group.
+  auto emit = [&](bool want, int pix, float wsum) {
+    unsigned m = __ballot_sync(FULL_MASK, want);
+    while (m) {
+      unsigned mine = m;
+      for (int i = 0; i < ev; ++i) mine &= mine - 1;
+      const int src = mine ? __ffs(mine) - 1 : 0;
+      const long long o = __shfl_sync(FULL_MASK, vrow + pix, src);
+      const long long q = __shfl_sync(FULL_MASK, qrow, src);
+      const float wv = __shfl_sync(FULL_MASK, wsum, src);
+      if (mine) reduce_pixel<T, G, VEC, NCH>(a.out + o * a.C, wv, ref + q, gl, a.C);
+#pragma unroll
+      for (int i = 0; i < E; ++i) m &= m - 1;
+    }
+  };
+
+  for (int d = 0; d < a.D; ++d) {
+    const float g = active ? __ldg(gbar + d) * valid : 0.f;
+    const float depth = __ldg(a.depth + d);
+    const float denom = (a2 + b2 * depth) + 1e-10f;
+    const float u = (a0 + b0 * depth) / denom;
+    const float v = (a1 + b1 * depth) / denom;
+    const float gx = fminf(fmaxf((u - fW * 0.5f) / (fW * 0.5f), -10.f), 10.f);
+    const float gy = fminf(fmaxf((v - fH * 0.5f) / (fH * 0.5f), -10.f), 10.f);
+    const float x = ((gx + 1.f) * fW - 1.f) * 0.5f;
+    const float y = ((gy + 1.f) * fH - 1.f) * 0.5f;
+    const float xf = floorf(x), yf = floorf(y);
+    // A NaN coordinate fails this test too.
+    const bool in_map = xf >= -1.f && xf <= fW - 1.f && yf >= -1.f && yf <= fH - 1.f;
+    const bool live = g != 0.f, pos = denom > 0.f;
+    const bool reset = live && (!in_map || pos != fpos);
+    const int x0 = in_map ? (int)xf : 0, y0 = in_map ? (int)yf : 0;
+    const bool move = live && in_map && (x0 != fx || y0 != fy);
+    // old slot (cx, cy) stays as new slot (cx - dx, cy - dy) where that is
+    // a slot of the new footprint; the others are flushed
+    const int dx = x0 - fx, dy = y0 - fy;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int nx = s % 2 - dx, ny = s / 2 - dy;
+      const bool kept = !reset && nx >= 0 && nx <= 1 && ny >= 0 && ny <= 1;
+      emit((reset || (move && !kept)) && w[s] != 0.f, (fy + s / 2) * a.W + fx + s % 2, w[s]);
+    }
+    if (reset) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) w[s] = 0.f;
+      fx = fy = SG_NONE;
+      fpos = pos;
+    }
+    if (live && in_map && (x0 != fx || y0 != fy)) {
+      const int ex = x0 - fx, ey = y0 - fy;
+      float nw[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int sx = s % 2 + ex, sy = s / 2 + ey;
+        nw[s] = sy == 0 ? (sx == 0 ? w[0] : sx == 1 ? w[1] : 0.f)
+                        : sy == 1 ? (sx == 0 ? w[2] : sx == 1 ? w[3] : 0.f) : 0.f;
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) w[s] = nw[s];
+      fx = x0;
+      fy = y0;
+    }
+    if (live && in_map) {
       const float wx1 = x - xf, wy1 = y - yf;
 #pragma unroll
-      for (int cy = 0; cy < 2; ++cy) {
-#pragma unroll
-        for (int cx = 0; cx < 2; ++cx) {
-          const int yi = y0 + cy, xi = x0 + cx;
-          if (yi < 0 || yi >= a.H || xi < 0 || xi >= a.W) continue;
-          const float wg = (cy ? wy1 : 1.f - wy1) * (cx ? wx1 : 1.f - wx1) * g;
-          float* o = out + ((size_t)yi * a.W + xi) * a.C;
-#pragma unroll
-          for (int k = 0; k < SG_K; ++k) {
-            const int c = lane + 32 * k;
-            if (c < a.C) atomicAdd(o + c, wg * q[k]);
-          }
-        }
+      for (int s = 0; s < 4; ++s) {
+        const int cx = s % 2, cy = s / 2;
+        const int yi = y0 + cy, xi = x0 + cx;
+        if (yi >= 0 && yi < a.H && xi >= 0 && xi < a.W)
+          w[s] += (cy ? wy1 : 1.f - wy1) * (cx ? wx1 : 1.f - wx1) * g;
       }
     }
   }
+#pragma unroll
+  for (int s = 0; s < 4; ++s) emit(w[s] != 0.f, (fy + s / 2) * a.W + fx + s % 2, w[s]);
+}
+
+template <typename T, int G, int VEC, int NCH>
+void launch_sweep(const SgArgs& a, cudaStream_t s) {
+  const long long items = (long long)a.B * a.V * a.H * a.W;
+  dim3 grid((unsigned)((items + THREADS - 1) / THREADS));
+  sweep_grad_src_kernel<T, G, VEC, NCH><<<grid, THREADS, 0, s>>>(a);
+}
+
+// Lanes a reduction: as few as cover C in float4 chunks (at least 8), or
+// 32 lanes of scalar channels where C is no multiple of 4.
+template <typename T>
+void launch_sweep(const SgArgs& a, cudaStream_t s) {
+  if (a.C % 4)
+    launch_sweep<T, 32, 1, SG_MAX_C / 32>(a, s);
+  else if (a.C <= 32)
+    launch_sweep<T, 8, 4, 1>(a, s);
+  else if (a.C <= 64)
+    launch_sweep<T, 16, 4, 1>(a, s);
+  else
+    launch_sweep<T, 32, 4, 1>(a, s);
 }
 
 }  // namespace mt
 
 // dtype: 0 f32, 1 bf16 (of ref). Zeroes out, then launches; returns the
-// first CUDA error (cudaGetLastError() after the launch).
+// first CUDA error (cudaGetLastError() after the launch), or
+// cudaErrorInvalidValue for C over 128.
 extern "C" int mt_sweep_grad_src(int dtype, const void* depth, const void* ref,
                                  const void* gbar, const void* R, const void* t,
                                  const void* valid, const void* K, const void* rays,
                                  void* out, int B, int V, int H, int W, int C, int D,
                                  void* stream) {
   using namespace mt;
+  if (C < 1 || C > SG_MAX_C) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t out_bytes = (size_t)B * V * H * W * C * sizeof(float);
   cudaError_t err = cudaMemsetAsync(out, 0, out_bytes, s);
@@ -157,9 +273,7 @@ extern "C" int mt_sweep_grad_src(int dtype, const void* depth, const void* ref,
            static_cast<const float*>(valid), static_cast<const float*>(K),
            static_cast<const float*>(rays), static_cast<float*>(out),
            B, V, H, W, C, D};
-  const long long threads = (long long)B * V * H * W * 32;
-  dim3 grid((unsigned)((threads + THREADS - 1) / THREADS));
-  if (dtype == 1) sweep_grad_src_kernel<bf16><<<grid, THREADS, 0, s>>>(a);
-  else sweep_grad_src_kernel<float><<<grid, THREADS, 0, s>>>(a);
+  if (dtype == 1) launch_sweep<bf16>(a, s);
+  else launch_sweep<float>(a, s);
   return (int)cudaGetLastError();
 }

@@ -10,16 +10,19 @@ depthwise taps ``wdw``, bn3's into ``wpwl``):
     y = (d * g) @ wpwl + s3                        d * g rounded
     x = round(y) + x                               in x's dtype
 
-On a CUDA device each block is three kernel launches (``csrc/mbconv_chain.
-cu``): expand + depthwise with the channel sums of d, the SE MLP, the
-projection with the gate and the residual; see the source note for why the
-TPU's one resident map per chain does not carry over. The TPU version's
-VMEM gate (``supported``) has no counterpart: every stage runs.
+On a CUDA device each block is two kernel launches (``csrc/mbconv_chain.
+cu``): expand + depthwise over tiles of the map, with the channel sums of d and
+the squeeze-excitation's first layer; then the SE's second layer, the gate
+and the projection with the residual, K split across blocks where the tiles
+leave SMs idle. ``plan`` chooses the tiles and the K split from the shapes;
+see the source note for why the TPU's one resident map per chain does not
+carry over. The TPU version's VMEM gate (``supported``) has no counterpart:
+every stage runs.
 
 ``mbconv_chain_ref`` is the plain PyTorch version, computed in f32 with the
 roundings above. ``mbconv_chain`` runs it for tensors on the CPU and the
-kernels for tensors on a CUDA device, or raises; it adds 3 to its
-``launches`` per block.
+kernels for tensors on a CUDA device, or raises; it adds
+``LAUNCHES_PER_BLOCK`` to its ``launches`` per block.
 """
 
 from __future__ import annotations
@@ -30,7 +33,89 @@ import torch.nn.functional as F
 from magnet_tpu_torch.kernels import build
 from magnet_tpu_torch.kernels.psm_blocks import _DTYPES, _check
 
-LAUNCHES_PER_BLOCK = 3
+LAUNCHES_PER_BLOCK = 2
+# H100 SXM: streaming multiprocessors, shared memory a block may use and an
+# SM holds (each block also reserves 1 KB)
+SMS = 132
+SMEM_MAX, SMEM_SM = 232448, 233472
+# the kernels' tiles (csrc/mbconv_chain.cu): expanded channels a slice,
+# pixels an m-tile, output channels a projection block, bytes a tile row of
+# a K block, floats of mb_expand's reduction scratch; threads of a
+# projection block and the largest K range it takes (two blocks an SM)
+SLICE, TM, PN, KROW, RED_FLOATS = 64, 64, 128, 128, 11 * 64 + 4
+PR_THREADS, KC_MAX = 256, 256
+# stages of each of an expand block's two rings of x, expand blocks an SM
+# runs at once at most (registers: 256 threads of up to 128), and the fixed
+# cost of an expand block in halo pixels
+EX_STAGES, EX_PER_SM, EX_OVERHEAD = 2, 2, 256
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def expand_smem(th: int, tw: int, C: int, K: int, elem: int) -> int:
+    """Bytes of shared memory of an expand block over th x tw output pixels
+    (``ex_smem`` in the source): the weight slice, the x rings, e with its
+    halo and one spare pixel, the reduction scratch and a flag."""
+    return ((_cdiv(C * elem, KROW) + 2 * EX_STAGES) * TM * KROW
+            + ((th + K - 1) * (tw + K - 1) + 1) * SLICE * elem
+            + RED_FLOATS * 4 + 1024)
+
+
+def project_smem(kc: int, R: int, elem: int) -> int:
+    """Bytes of shared memory of a projection block over ``kc`` expanded
+    channels (``pr_smem`` in the source)."""
+    kb = _cdiv(kc * elem, KROW)
+    return (kb * PN * KROW + max(kb * TM * KROW, TM * (PN + 4) * 4)
+            + (max(kc, 4 * PR_THREADS) + R + 4) * 4 + 1024)
+
+
+def expand_tile(N: int, H: int, W: int, C: int, M: int, K: int, elem: int,
+                sms: int = SMS) -> tuple:
+    """The expand kernel's output tile (th, tw): of the tiles whose shared
+    memory fits and whose halo is at most the tile in each direction (or
+    that span the map), the one with the least estimated time, waves of
+    blocks times each block's halo pixels plus a fixed cost. The whole map
+    wins where it fits and its blocks fill the card."""
+    best = None
+    for th in sorted({_cdiv(H, k) for k in range(1, H + 1)}, reverse=True):
+        for tw in sorted({_cdiv(W, k) for k in range(1, W + 1)},
+                         reverse=True):
+            if min(th, tw) < K - 1 and (th, tw) != (H, W):
+                continue
+            smem = expand_smem(th, tw, C, K, elem)
+            if smem > SMEM_MAX:
+                continue
+            per_sm = min(EX_PER_SM, SMEM_SM // (smem + 1024))
+            blocks = N * _cdiv(H, th) * _cdiv(W, tw) * _cdiv(M, SLICE)
+            cost = (_cdiv(blocks, sms * per_sm)
+                    * ((th + K - 1) * (tw + K - 1) + EX_OVERHEAD))
+            if best is None or cost < best[0]:
+                best = (cost, th, tw)
+    if best is None:
+        raise ValueError(f"mbconv_chain: no tile of a {H}x{W} map fits")
+    return best[1:]
+
+
+def plan(N: int, H: int, W: int, C: int, M: int, R: int, K: int, elem: int,
+         sms: int = SMS) -> dict:
+    """The launch geometry of one block. Expand: output tiles of ``th`` x
+    ``tw`` pixels (``expand_tile``), ``tiles`` a frame, ``slices`` of 64
+    expanded channels. Projection: ``tpf`` 64-pixel tiles a frame,
+    ``ctiles`` of 128 output channels, ``splits`` K ranges of ``kc``
+    channels (a multiple of 64; more splits where the tiles leave SMs idle,
+    at most ``KC_MAX`` channels a range)."""
+    th, tw = expand_tile(N, H, W, C, M, K, elem, sms)
+    tpf, ctiles = _cdiv(H * W, TM), _cdiv(C, PN)
+    splits = max(_cdiv(M, KC_MAX),
+                 min(_cdiv(sms, N * tpf * ctiles), _cdiv(M, 64)))
+    kc = 64 * _cdiv(_cdiv(M, splits), 64)
+    if R > 8 * SLICE or project_smem(kc, R, elem) > SMEM_MAX:
+        raise ValueError(f"mbconv_chain: SE width {R} is too large")
+    return dict(th=th, tw=tw, tiles=_cdiv(H, th) * _cdiv(W, tw),
+                slices=_cdiv(M, SLICE), tpf=tpf, ctiles=ctiles, kc=kc,
+                splits=_cdiv(M, kc))
 
 
 def mbconv_chain_ref(x: torch.Tensor, wpw, s1, wdw, s2, wse1, bse1, wse2,
@@ -60,7 +145,7 @@ def mbconv_chain_ref(x: torch.Tensor, wpw, s1, wdw, s2, wse1, bse1, wse2,
 def mbconv_chain(x: torch.Tensor, wpw, s1, wdw, s2, wse1, bse1, wse2, bse2,
                  wpwl, s3, kernel_size: int) -> torch.Tensor:
     """The chain with the arguments of ``mbconv_chain_ref``. CUDA tensors
-    (f32 or bf16, C and M multiples of 16 bytes, K 3 or 5) launch three
+    (f32 or bf16, C and M multiples of 16 bytes, K 3 or 5) launch two
     kernels per block on the current stream."""
     if x.device.type == "cpu":
         return mbconv_chain_ref(x, wpw, s1, wdw, s2, wse1, bse1, wse2, bse2,
@@ -87,9 +172,16 @@ def mbconv_chain(x: torch.Tensor, wpw, s1, wdw, s2, wse1, bse1, wse2, bse2,
             (bse2, "bse2", (nb, M), f32), (wpwl, "wpwl", (nb, M, C), dt),
             (s3, "s3", (nb, C), f32)):
         _check(t, name, shape, tdt, dev)
+    p = plan(N, H, W, C, M, R, K, x.element_size(),
+             torch.cuda.get_device_properties(dev).multi_processor_count)
+    tiles = N * p["tpf"] * p["ctiles"]
     d = torch.empty((N, H, W, M), dtype=dt, device=dev)
-    pool = torch.zeros((nb, N, M), dtype=f32, device=dev)
-    gate = torch.empty((N, M), dtype=f32, device=dev)
+    pool = torch.empty((N, p["tiles"], M), dtype=f32, device=dev)
+    separt = torch.empty((N, p["slices"], R), dtype=f32, device=dev)
+    ws = torch.empty((tiles * p["splits"] if p["splits"] > 1 else 1, TM * PN),
+                     dtype=f32, device=dev)
+    counters = torch.zeros(N * p["slices"] + tiles, dtype=torch.int32,
+                           device=dev)
     bufs = [torch.empty_like(x), torch.empty_like(x)]
     lib = build.library()
     with torch.cuda.device(dev):
@@ -101,8 +193,9 @@ def mbconv_chain(x: torch.Tensor, wpw, s1, wdw, s2, wse1, bse1, wse2, bse2,
                 s1[b].data_ptr(), wdw[b].data_ptr(), s2[b].data_ptr(),
                 wse1[b].data_ptr(), bse1[b].data_ptr(), wse2[b].data_ptr(),
                 bse2[b].data_ptr(), wpwl[b].data_ptr(), s3[b].data_ptr(),
-                d.data_ptr(), pool[b].data_ptr(), gate.data_ptr(),
-                out.data_ptr(), N, H, W, C, M, R, K, stream)
+                d.data_ptr(), pool.data_ptr(), separt.data_ptr(),
+                ws.data_ptr(), counters.data_ptr(), out.data_ptr(), N, H, W,
+                C, M, R, K, p["th"], p["tw"], p["kc"], stream)
             build.check(err, "mbconv_chain")
             mbconv_chain.launches += LAUNCHES_PER_BLOCK
             x = out

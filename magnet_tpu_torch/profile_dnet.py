@@ -9,7 +9,10 @@ Two readings of one model at 480x640 (seeded random weights, batch 1):
   * per kernel, with ``torch.profiler`` over five forwards: device
     time by kernel name, kernel launches per frame, and the device's idle
     share of the profiled wall time.
-Needs a CUDA device.
+``trunk_tail_sites`` and ``random_chain`` give the trunk's six MBConv stage
+tails and seeded chains of their blocks, where row 12 (``mbconv_chain``) is
+measured (``chip_smoke.py`` phase 3, ``profile_psm_conv``). Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import torch
 from magnet_tpu_torch.models.build import cast_for_inference, init_weights_
 from magnet_tpu_torch.models.dnet import DNet, activation_gaussian
 from magnet_tpu_torch.nn.densedepth import run_head
+from magnet_tpu_torch.nn.efficientnet import (InvertedResidual, b5_stage_config,
+                                              chain_stages)
 from magnet_tpu_torch.nn.layers import conv2d, nchw, nhwc
 from magnet_tpu_torch.ops.upsample import upsample_via_mask
 
@@ -31,9 +36,32 @@ from magnet_tpu_torch.ops.upsample import upsample_via_mask
 # versions (the f32 ``*_kernel`` and the bf16 ``*_hopper``) holds
 OURS = ("conv3x3_bnact", "head_chain", "cost_volume_cw", "gnet_update",
         "upsample_mask", "psm_conv", "spp_tail", "sweep_grad_src", "dw_conv",
-        "mb_expand_dw", "mb_se", "mb_project", "res_block")
+        "mb_expand", "mb_project", "res_block")
 SHAPE = (1, 480, 640, 3)
 FRAMES = 5
+
+
+def trunk_tail_sites(h: int = 480, w: int = 640) -> list:
+    """(stage, blocks, map, C, M, K) of the six stage tails that run as MBConv
+    chains at h x w (blocks 1..n-1 of stages 1-6)."""
+    sites, hw = [], (h // 2, w // 2)            # after the stride-2 stem
+    for si, stage in enumerate(b5_stage_config()):
+        s = stage[0]["stride"]
+        hw = (-(-hw[0] // s), -(-hw[1] // s))
+        if si in chain_stages("all"):
+            c = stage[1]
+            sites.append((si, len(stage) - 1, hw, c["in_ch"],
+                          c["in_ch"] * c["expand"], c["kernel"]))
+    return sites
+
+
+def random_chain(nb: int, C: int, M: int, K: int, seed: int) -> list:
+    """nb stride-1 InvertedResidual blocks with seeded random weights and
+    BatchNorm statistics (``init_weights_``)."""
+    cfg = dict(btype="ir", kernel=K, stride=1, expand=M // C, in_ch=C,
+               out_ch=C)
+    return [init_weights_(InvertedResidual(cfg), seed + i).eval()
+            for i in range(nb)]
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:

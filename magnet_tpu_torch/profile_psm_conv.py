@@ -2,9 +2,11 @@
 6-8), the head chain (``kernels/csrc/head_chain.cu``, row 3), the SPP tail
 (``kernels/csrc/spp_tail.cu``, row 9), the one-launch BasicBlock
 (``kernels/csrc/res_block.cu``, row 14), the G-Net update
-(``kernels/csrc/gnet_update.cu``, row 5) and the depthwise conv
-(``kernels/csrc/dw_conv.cu``, row 13) spend their time on the GPU, bf16.
-The first four run on ``kernels/csrc/hopper_conv.cuh``.
+(``kernels/csrc/gnet_update.cu``, row 5), the depthwise conv
+(``kernels/csrc/dw_conv.cu``, row 13), the MBConv chain
+(``kernels/csrc/mbconv_chain.cu``, row 12) and the sweep backward
+(``kernels/csrc/sweep_grad_src.cu``, row 10) spend their time on the GPU,
+bf16. The first four run on ``kernels/csrc/hopper_conv.cuh``.
 
     python -m magnet_tpu_torch.profile_psm_conv [--ablate [NAME,...]]
         [--sites TEXT,...] [--out p.json]
@@ -19,9 +21,12 @@ mask head at N = 1), the SPP tail at N = 5, and the BasicBlock at the
 KITTI layer2, layer3 and layer4 sites (3 frames, 88x304; row 6's chain of
 the same block beside cuDNN), the G-Net update at the ScanNet and KITTI
 cost-volume maps (cuDNN's layer-0 3x3 conv alone, and the whole chain in
-bf16 cuDNN convs and elementwise ops beside it) and the depthwise conv at
-its four path-A sites on 5 frames (cuDNN's grouped conv); each output is
-held against the plain version (2e-2 * max|ref|). ``--sites`` keeps the sites whose name holds one of the
+bf16 cuDNN convs and elementwise ops beside it), the depthwise conv at
+its four path-A sites on 5 frames (cuDNN's grouped conv), the MBConv chain
+at the six path-A stage tails (1 and 5 frames; no library call) and the
+sweep backward at the F-Net training shape (small motion, a 0.9 rad roll,
+one view invalid; bf16 features); each output is held against the plain
+version (2e-2 * max|ref|). ``--sites`` keeps the sites whose name holds one of the
 comma-separated TEXT. With
 ``--ablate`` it also builds copies of the package under
 ``build/profile_psm_conv/`` with one part of the kernels switched off (all
@@ -53,10 +58,20 @@ process each:
   * ``dw_no_tma``: the depthwise conv's ring publishes its stages without
     loading them; ``dw_no_window``: its threads skip the column walk
     (shared-memory reads, FMAs, stores);
+  * ``mb_no_expand``, ``mb_no_project``: the MBConv block skips its expand
+    + depthwise launch or its projection launch; ``mb_no_se``: both skip
+    the squeeze-excitation's products (the gate is left unset);
+  * ``mb_kc512``: the MBConv projection takes K ranges of up to 512
+    channels (one block an SM in bf16) in place of 256 (two); ``mb_ring4``:
+    the expand kernel's rings of x hold four stages in place of two (the
+    plan then picks tiles for the larger shared memory);
+  * ``sg_no_red``: the sweep backward emits no reductions (the walk, the
+    ballots and shuffles stay); ``sg_scalar_red``: it emits them as four
+    scalar atomics a lane in place of one float4;
 Their outputs are wrong by design (all but ``kb64``, ``c128_n64``,
-``d2_n128`` and ``gnet_three_wg``); the times split a
-kernel's between its MMA, its halo staging and its weight stream. Needs a
-CUDA device.
+``d2_n128``, ``gnet_three_wg``, ``mb_kc512``, ``mb_ring4`` and
+``sg_scalar_red``); the times split a kernel's between its parts (MMA, halo
+staging, weight stream, the SE, the reductions). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -73,11 +88,15 @@ import torch.nn.functional as F
 from magnet_tpu_torch.kernels import dw_conv as dwk
 from magnet_tpu_torch.kernels import gnet_update as gk
 from magnet_tpu_torch.kernels import head_chain as hc
+from magnet_tpu_torch.kernels import mbconv_chain as mbk
 from magnet_tpu_torch.kernels import psm_blocks as pb
 from magnet_tpu_torch.kernels import res_block as rbk
 from magnet_tpu_torch.kernels import spp_tail as st
+from magnet_tpu_torch.kernels import sweep_grad_src as sgk
+from magnet_tpu_torch.nn.efficientnet import CHAIN_OPERANDS, fold_mbconv_chain
 from magnet_tpu_torch.profile_conv import PEAK_BF16_FLOPS, ROOT, edited_copy
-from magnet_tpu_torch.profile_dnet import graph_ms
+from magnet_tpu_torch.profile_dnet import graph_ms, random_chain, trunk_tail_sites
+from magnet_tpu_torch.profile_fnet_train import sweep_case
 
 ABLATE_DIR = ROOT / "build" / "profile_psm_conv"
 CONV = "magnet_tpu_torch/kernels/csrc/hopper_conv.cuh"
@@ -85,6 +104,8 @@ HEAD = "magnet_tpu_torch/kernels/csrc/head_chain.cu"
 BLOCK = "magnet_tpu_torch/kernels/csrc/res_block.cu"
 GNET = "magnet_tpu_torch/kernels/csrc/gnet_update.cu"
 DW = "magnet_tpu_torch/kernels/csrc/dw_conv.cu"
+MB = "magnet_tpu_torch/kernels/csrc/mbconv_chain.cu"
+SG = "magnet_tpu_torch/kernels/csrc/sweep_grad_src.cu"
 _NO_HALO = ((CONV, "for (int r = r0; r < g.rows; r += rstep) {",
              "for (int r = r0; r < 0; r += rstep) {"),
             (CONV, "for (int row = r0; row < g.rows; row += rstep) {",
@@ -132,6 +153,25 @@ ABLATIONS = {
                   (DW, "hp::tma_load_4d(stage, map,", "if (t < 0) hp::tma_load_4d(stage, map,")),
     "dw_no_window": ((DW, "for (int i = 0; i < R + K - 1; ++i) {",
                       "for (int i = 0; i < 0; ++i) {"),),
+    "mb_no_expand": ((MB, "  k1<<<dim3(", "  if (ex.N < 0) k1<<<dim3("),),
+    "mb_no_se": ((MB, "for (int it = tid; it < a.R * parts; it += EX_THREADS) {",
+                  "for (int it = tid; it < 0; it += EX_THREADS) {"),
+                 (MB, "for (int it = tid; it < a.R * sp; it += PR_THREADS) {",
+                  "for (int it = tid; it < 0; it += PR_THREADS) {"),
+                 (MB, "for (int j = part; j < a.R; j += parts) {",
+                  "for (int j = part; j < 0; j += parts) {")),
+    "mb_no_project": ((MB, "  mb_project<T><<<grid,", "  if (pr.N < 0) mb_project<T><<<grid,"),),
+    "mb_kc512": (("magnet_tpu_torch/kernels/mbconv_chain.py", "PR_THREADS, KC_MAX = 256, 256",
+                  "PR_THREADS, KC_MAX = 256, 512"),),
+    "mb_ring4": ((MB, "constexpr int EX_STAGES = 2;", "constexpr int EX_STAGES = 4;"),
+                 ("magnet_tpu_torch/kernels/mbconv_chain.py",
+                  "EX_STAGES, EX_PER_SM, EX_OVERHEAD = 2, 2, 256",
+                  "EX_STAGES, EX_PER_SM, EX_OVERHEAD = 4, 2, 256")),
+    "sg_no_red": ((SG, "    if (c >= C) continue;\n    float v[VEC];",
+                   "    if (c >= 0) continue;\n    float v[VEC];"),),
+    "sg_scalar_red": ((SG, """      atomicAdd(reinterpret_cast<float4*>(o + c),
+                make_float4(w * v[0], w * v[1], w * v[2], w * v[3]));""",
+                       """      for (int e = 0; e < 4; ++e) atomicAdd(o + c + e, w * v[e]);"""),),
 }
 
 
@@ -174,6 +214,12 @@ def sites(h: int = 480, w: int = 640, frames: int = 5) -> list:
         ("dw_conv 240x320 C=24 K=3 N=5", "dw", (n, hh, wh, 24, 3)),
         ("dw_conv 30x40 C=768 K=5 N=5", "dw", (n, h // 16, w // 16, 768, 5)),
         ("dw_conv 15x20 C=1824 K=3 N=5", "dw", (n, h // 32, w // 32, 1824, 3)),
+        *[(f"mbconv_chain stage {si} ({nb} blocks, {hw[0]}x{hw[1]}, C={c}, "
+           f"M={m}, K={k}) N={f}", "mbchain", (f, *hw, c, m, k, nb, si))
+          for si, nb, hw, c, m, k in trunk_tail_sites(h, w) for f in (1, n)],
+        ("sweep_grad_src main path", "sweep", (0.0, False)),
+        ("sweep_grad_src roll 0.9 rad", "sweep", (0.9, False)),
+        ("sweep_grad_src one view invalid", "sweep", (0.0, True)),
     ]
 
 
@@ -307,8 +353,36 @@ def dw_case(spec, g):
             2.0 * n * h * w * c * k * k)
 
 
+def mbchain_case(spec, g):
+    """(kernel call, plain call, None, flops) of one stage tail's chain of
+    MBConv blocks (seeded random blocks, ``random_chain``), bf16; flops
+    count the two 1x1 GEMMs."""
+    n, h, w, c, m, k, nb, si = spec
+    bf = torch.bfloat16
+    blocks = random_chain(nb, c, m, k, 100 * si)
+    ops = [t.to(bf) if name in ("wpw", "wdw", "wpwl") else t
+           for name, t in zip(CHAIN_OPERANDS,
+                              fold_mbconv_chain(blocks, torch.float32))]
+    ops = [t.cuda() for t in ops]
+    x = _r(g, n, h, w, c, scale=0.5).to(bf)
+    return (lambda: mbk.mbconv_chain(x, *ops, k),
+            lambda: mbk.mbconv_chain_ref(x, *ops, k), None,
+            2.0 * nb * n * h * w * c * m * 2)
+
+
+def sweep_grad_case(spec, g):
+    """(kernel call, plain call, None, 0) of row 10 at the F-Net training
+    shape (``profile_fnet_train.sweep_case``), bf16 features."""
+    roll, invalid = spec
+    a = [t.cuda() for t in sweep_case(roll=roll, invalid=invalid)]
+    a[1] = a[1].to(torch.bfloat16)
+    return (lambda: sgk.sweep_grad_src(*a),
+            lambda: sgk.sweep_grad_src_ref(*a), None, 0.0)
+
+
 CASES = {"conv": conv_case, "head": head_case, "tail": tail_case,
-         "block": block_case, "gnet": gnet_case, "dw": dw_case}
+         "block": block_case, "gnet": gnet_case, "dw": dw_case,
+         "mbchain": mbchain_case, "sweep": sweep_grad_case}
 
 
 def time_sites(library: bool, tolerate: bool = False, only: str = "") -> list:
@@ -336,7 +410,7 @@ def time_sites(library: bool, tolerate: bool = False, only: str = "") -> list:
             max_abs_err=(out - ref).abs().max().item(),
             limit=2e-2 * ref.abs().max().item(),
             peak_share=flops / PEAK_BF16_FLOPS / (ms * 1e-3),
-            library_ms=graph_ms(lib) if library else None,
+            library_ms=graph_ms(lib) if library and lib else None,
             chain_ms=graph_ms(chain[0]) if library and chain else None))
     return rows
 
@@ -377,10 +451,12 @@ def main(argv=None) -> dict:
         label = "cuDNN's chain" if r["kind"] == "gnet" else "row 6's chain"
         chain = ("" if r["chain_ms"] is None
                  else f", {label} {r['chain_ms']:.4f} ms")
-        print(f"{r['site']:38s} kernel {r['ms']:.4f} ms "
-              f"({100 * r['peak_share']:.1f} % of bf16 peak), cuDNN "
-              f"{r['library_ms']:.4f} ms{chain}, err {r['max_abs_err']:.3e} "
-              f"(limit {r['limit']:.3e}){ablated}")
+        share = (f" ({100 * r['peak_share']:.1f} % of bf16 peak)"
+                 if r["gflop"] else "")
+        lib = ("" if r["library_ms"] is None
+               else f", cuDNN {r['library_ms']:.4f} ms")
+        print(f"{r['site']:38s} kernel {r['ms']:.4f} ms{share}{lib}{chain}, "
+              f"err {r['max_abs_err']:.3e} (limit {r['limit']:.3e}){ablated}")
     bad = [r["site"] for r in res["kernel"]
            if not r["max_abs_err"] <= r["limit"]]
     if bad:

@@ -10,6 +10,13 @@ exact f32 products in another order. At a large roll JAX's default
 windowed backward loses the footprints taller than its window, and the port,
 which has no window, must still equal autodiff.
 
+The kernel's merged walk (``sweep_grad_src_walk``: flush a pixel when the
+footprint leaves it, all pixels when a sample leaves the map or the
+projection's denominator changes sign) equals the plain version at 1e-5 *
+max|ref| (sums of the same f32 products in another order), at small
+motion, a large roll, a large baseline and planes that cross behind the
+source camera.
+
 CUDA (marker ``cuda``, skipped without a card): the kernel against its plain
 version, f32 to 1e-4 * max|ref| of the output (atomic adds in any order) and
 bf16 features to 2e-2 * max|ref| (the features rounded once), and the rule
@@ -164,6 +171,93 @@ def test_cpu_tensors_take_the_plain_version():
     assert sgk.sweep_grad_src.launches == 0
 
 
+# The walks the merge must survive: small motion, a 0.9 rad roll, a large
+# baseline on few planes (footprints jump pixels a plane), translations
+# that put the near planes behind the source camera (the denominator
+# changes sign).
+WALKS = {"small_motion": {}, "roll": dict(roll=0.9),
+         "large_baseline": dict(t_shift=(0.6, 0.0, 0.0), D=6),
+         "behind_camera": dict(t_shift=(0.0, 0.0, -2.5))}
+
+
+def _walk_case(seed, walk, **shape):
+    kw = dict(shape, **WALKS[walk])
+    t_shift = kw.pop("t_shift", (0.0, 0.0, 0.0))
+    case = _setup(seed, **kw)
+    case[4] = case[4] + np.asarray(t_shift, np.float32)
+    return case
+
+
+def _walk_stats(case):
+    """(samples whose denominator has another sign than the previous
+    plane's, in-map samples, samples outside the map, largest footprint step
+    in pixels) over the valid views."""
+    d, ref, _, R, t, valid, K, rays, _ = [_t(a) for a in case]
+    flips = inside = outside = 0
+    step = 0.0
+    for b in range(R.shape[0]):
+        for v in range(R.shape[1]):
+            if valid[b, v] == 0:
+                continue
+            x, y, _ = cvk.project(K[b], R[b, v], t[b, v], rays[b],
+                                  d.expand(rays.shape[-1], -1),
+                                  ref.shape[1], ref.shape[2])
+            denom = (K[b] @ t[b, v])[2] + (K[b] @ (R[b, v] @ rays[b]))[2][
+                :, None] * d + cvk.EPS_DIV
+            flips += int(((denom[:, 1:] > 0) != (denom[:, :-1] > 0)).sum())
+            xf, yf = torch.floor(x), torch.floor(y)
+            ok = ((xf >= -1) & (xf <= ref.shape[2] - 1) & (yf >= -1)
+                  & (yf <= ref.shape[1] - 1))
+            inside += int(ok.sum())
+            outside += int((~ok).sum())
+            both = ok[:, 1:] & ok[:, :-1]
+            jump = torch.maximum((xf[:, 1:] - xf[:, :-1]).abs(),
+                                 (yf[:, 1:] - yf[:, :-1]).abs())
+            if both.any():
+                step = max(step, float(jump[both].max()))
+    return flips, inside, outside, step
+
+
+@pytest.mark.parametrize("walk", list(WALKS))
+def test_merged_walk_equals_plain(walk):
+    """The kernel's order of summation, emulated, on 2 x 3 views of 12x20
+    reference pixels at 24 planes, equals the plain version; each case
+    exercises what it names, and the merge emits fewer reductions than
+    there are in-image corners."""
+    case = _walk_case(11, walk, B=2, V=3, D=24, H=12, W=20, C=8)
+    d, ref, _, *geo, up = [_t(a) for a in case]
+    out, reductions = sgk.sweep_grad_src_walk(d, ref, up, *geo)
+    want = sgk.sweep_grad_src_ref(d, ref, up, *geo)
+    assert float(want.abs().max()) > 0.1
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    assert not out[-1, -1].any()                  # the invalid view
+    flips, inside, outside, step = _walk_stats(case)
+    assert 0 < reductions < 4 * inside
+    if walk == "small_motion":
+        assert flips == 0 and reductions < inside
+    if walk == "large_baseline":
+        assert step >= 3 and outside > 0
+    if walk == "behind_camera":
+        assert flips > 0 and outside > 0
+
+
+def test_merged_walk_counts_what_a_static_footprint_merges():
+    """No motion at all: every plane of a pixel samples its own 2x2
+    footprint (the identity pose, rays through pixel centres), so each
+    reference pixel emits exactly its in-image footprint pixels once."""
+    case = _setup(12, B=1, V=1, D=6, H=5, W=7, C=4)
+    case[3] = np.eye(3, dtype=np.float32)[None, None]
+    case[4] = np.zeros((1, 1, 3), np.float32)
+    case[5] = np.ones((1, 1), np.float32)
+    d, ref, _, *geo, up = [_t(a) for a in case]
+    out, reductions = sgk.sweep_grad_src_walk(d, ref, up, *geo)
+    want = sgk.sweep_grad_src_ref(d, ref, up, *geo)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    assert reductions <= 4 * 5 * 7
+
+
 # ---- on the card -------------------------------------------------------
 
 @pytest.fixture
@@ -177,9 +271,12 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("roll", [0.0, 0.9], ids=["small_motion", "roll"])
-def test_kernel_matches_plain(cuda, dtype, roll):
-    case = _setup(6, B=2, V=3, D=40, H=24, W=40, C=64, roll=roll)
+@pytest.mark.parametrize("walk", list(WALKS))
+@pytest.mark.parametrize("C", [16, 64, 128, 10])
+def test_kernel_matches_plain(cuda, dtype, walk, C):
+    """Every walk of ``WALKS`` at C = 16, 64 and 128 (float4 reductions by
+    8, 16 and 32 lanes) and 10 (scalar ones), one view invalid."""
+    case = _walk_case(6, walk, B=2, V=3, D=40, H=24, W=40, C=C)
     d, ref, _, *geo, up = [_t(a, cuda) for a in case]
     ref = ref.to(dtype)
     before = sgk.sweep_grad_src.launches

@@ -364,6 +364,54 @@ def test_chain_stages_and_flag():
         config.parse_mbconv_chain("x")
 
 
+# the six path-A stage tails at 480x640: (N, H, W, C, M, K)
+PATH_A = [(1, 120, 160, 40, 240, 3), (1, 60, 80, 64, 384, 5),
+          (1, 30, 40, 128, 768, 3), (1, 30, 40, 176, 1056, 5),
+          (1, 15, 20, 304, 1824, 5), (1, 15, 20, 512, 3072, 3)]
+
+
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("N", [1, 5])
+@pytest.mark.parametrize("site", range(6))
+def test_mbconv_plan_fits_and_covers(site, N, elem):
+    """Every path-A stage tail, one frame and five, both types: the expand
+    tiles cover the map with a halo at most the tile (or are the map), the
+    K ranges cover M in multiples of 64, both kernels' shared memory fits,
+    and in bf16 at one frame each kernel puts a block on most SMs."""
+    _, H, W, C, M, K = PATH_A[site]
+    R = C // 4
+    p = mk.plan(N, H, W, C, M, R, K, elem)
+    th, tw = p["th"], p["tw"]
+    assert p["tiles"] == -(-H // th) * -(-W // tw) and th <= H and tw <= W
+    assert min(th, tw) >= K - 1 or (th, tw) == (H, W)
+    assert mk.expand_smem(th, tw, C, K, elem) <= mk.SMEM_MAX
+    assert p["kc"] % 64 == 0 and p["kc"] <= mk.KC_MAX
+    assert p["splits"] * p["kc"] >= M > (p["splits"] - 1) * p["kc"]
+    assert mk.project_smem(p["kc"], R, elem) <= mk.SMEM_MAX
+    assert p["slices"] == -(-M // 64) and p["tpf"] == -(-H * W // 64)
+    if N == 1 and elem == 2:
+        assert N * p["tiles"] * p["slices"] >= 0.85 * mk.SMS
+        assert N * p["tpf"] * p["ctiles"] * p["splits"] >= 0.85 * mk.SMS
+
+
+def test_mbconv_plan_whole_map_and_split_k():
+    """The choice the plan makes: the 15x20 map at five frames is one tile
+    (no halo recomputed) and fills the card; at one frame it is cut into
+    tiles to fill the SMs; stage 1's 120x160 map never runs whole; the
+    late stages split K at one frame (at least 3 partials to sum), stage 1
+    at five frames does not; the block is two launches."""
+    big = mk.plan(5, 15, 20, 512, 3072, 128, 3, 2)
+    assert (big["th"], big["tw"], big["tiles"]) == (15, 20, 1)
+    small = mk.plan(1, 15, 20, 512, 3072, 128, 3, 2)
+    assert small["tiles"] > 1 and small["splits"] >= 3
+    assert mk.plan(1, 15, 20, 304, 1824, 76, 5, 2)["splits"] >= 3
+    wide = mk.plan(5, 120, 160, 40, 240, 10, 3, 2)
+    assert wide["tiles"] > 1 and wide["splits"] == 1
+    assert mk.LAUNCHES_PER_BLOCK == 2
+    with pytest.raises(ValueError):           # no tile fits beside the weights
+        mk.plan(1, 8, 8, 4096, 512, 16, 3, 4)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     before = (dk.dw_conv.launches, mk.mbconv_chain.launches)
     x, w = (torch.from_numpy(a) for a in dw_inputs(H=5, W=7))
@@ -489,6 +537,55 @@ def test_mbconv_chain_kernel_matches_plain(cuda, dtype, case):
     out = mk.mbconv_chain(x, *ops, case["K"])
     assert mk.mbconv_chain.launches == before + mk.LAUNCHES_PER_BLOCK * nb
     _close_cuda(out, mk.mbconv_chain_ref(x, *ops, case["K"]), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [1, 5])
+@pytest.mark.parametrize("site", range(6))
+def test_mbconv_chain_kernel_path_a_sites(cuda, site, N, dtype):
+    """Each path-A stage tail at its 480x640 map and widths (two blocks),
+    one frame and five: the plans of both types, banded or whole-map, split
+    K or not."""
+    _, H, W, C, M, K = PATH_A[site]
+    blocks = chain_blocks(C=C, M=M, K=K, nb=2, seed=site)
+    x = torch.from_numpy(chain_x(N, H, W, C, seed=site)).to(cuda, dtype)
+    ops = [t.to(cuda) for t in fold_mbconv_chain(blocks, dtype)]
+    _close_cuda(mk.mbconv_chain(x, *ops, K),
+                mk.mbconv_chain_ref(x, *ops, K), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [
+    dict(C=24, M=144, K=3, nb=1, N=1, H=17, W=23),
+    dict(C=24, M=144, K=5, nb=2, N=3, H=7, W=9),
+    dict(C=40, M=240, K=5, nb=2, N=2, H=17, W=23),
+    dict(C=512, M=3072, K=3, nb=1, N=1, H=7, W=9),
+    dict(C=304, M=1824, K=5, nb=2, N=1, H=15, W=20)],
+    ids=["one_block_r6", "ragged_7x9_r6", "ragged_17x23_r10",
+         "r128_ragged", "split_k"])
+def test_mbconv_chain_kernel_edge_cases(cuda, dtype, case):
+    """A one-block chain, ragged maps (17x23, 7x9), SE widths 6, 10 and
+    128, and a projection whose fix-up sums at least 3 partials."""
+    case = dict(case)
+    nb, N, H, W = case.pop("nb"), case.pop("N"), case.pop("H"), case.pop("W")
+    if case["C"] == 304:
+        assert mk.plan(N, H, W, 304, 1824, 76, 5,
+                       torch.tensor([], dtype=dtype).element_size()
+                       )["splits"] >= 3
+    blocks = chain_blocks(nb=nb, seed=nb + H, **case)
+    x = torch.from_numpy(chain_x(N, H, W, case["C"])).to(cuda, dtype)
+    ops = [t.to(cuda) for t in fold_mbconv_chain(blocks, dtype)]
+    before = mk.mbconv_chain.launches
+    out = mk.mbconv_chain(x, *ops, case["K"])
+    assert mk.mbconv_chain.launches == before + mk.LAUNCHES_PER_BLOCK * nb
+    _close_cuda(out, mk.mbconv_chain_ref(x, *ops, case["K"]), dtype)
+    again = mk.mbconv_chain(x, *ops, case["K"])        # counters back at 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda
