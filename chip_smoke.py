@@ -637,12 +637,13 @@ def sweep_work(a: list, out: torch.Tensor) -> tuple:
     input read once and the output written once; per in-image corner of a
     valid view's sample a multiply-add per channel, per sample the
     projection (about 30 operations); and the count of in-image corners
-    and of the C-wide reductions the kernel's merged walk emits
-    (``sweep_grad_src_walk``, run on the same device)."""
+    and of the C-wide reductions of the merged walk as its plain PyTorch
+    emulation ``sweep_grad_src_walk`` emits them (run on the same device;
+    the kernel does not count its own)."""
     corners, samples = sweep_samples(a)
-    merged = sgk.sweep_grad_src_walk(*a)[1]
+    walk = sgk.sweep_grad_src_walk(*a)[1]
     return (nbytes(*a, out), 2.0 * FEAT * corners + 30.0 * samples, corners,
-            merged)
+            walk)
 
 
 def check_sweep_forward(dev):
@@ -719,7 +720,7 @@ def check_sweep_kernel(dev):
             if int(a[5].sum()) < a[5].numel() and out[0, 1].any():
                 raise RuntimeError("sweep_grad_src: an invalid view got a "
                                    "gradient")
-        n_bytes, flops, corners, merged = sweep_work(a, out)
+        n_bytes, flops, corners, walk = sweep_work(a, out)
         bms, by = bound_ms(n_bytes, flops, PEAK_F32_FLOPS)
         library = None
         if site == "main path":
@@ -743,7 +744,7 @@ def check_sweep_kernel(dev):
             plain_ms=plain_time(lambda: sgk.sweep_grad_src_ref(*a)),
             library_ms=library, bound_ms=bms, bound_by=by,
             gflop=flops / 1e9, compulsory_mb=n_bytes / 1e6,
-            corners=corners, merged_reductions=merged))
+            corners=corners, walk_reductions=walk))
     return rows
 
 
@@ -1651,8 +1652,8 @@ def main() -> int:
     for r in sweep_rows:
         log(f"  {r['site']}: f32 features {r['ms_f32']:.4f} ms; compulsory "
             f"{r['compulsory_mb']:.1f} MB, {r['corners']} in-image corners, "
-            f"{r['merged_reductions']} merged reductions "
-            f"({r['corners'] / r['merged_reductions']:.2f}x fewer)")
+            f"{r['walk_reductions']} reductions in the emulated walk "
+            f"({r['corners'] / r['walk_reductions']:.2f}x fewer)")
     for r in gnet_rows:
         log(f"  {r['site']}: the whole update in bf16 cuDNN convs and "
             f"elementwise ops {r['chain_ms']:.4f} ms")

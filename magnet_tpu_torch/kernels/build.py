@@ -54,7 +54,7 @@ _SIGNATURES = {
     "mt_dw_conv": [_I] + [_P] * 3 + [_I] * 7 + [_P],
     # dtype, x, wpw, s1, wdw, s2, wse1, bse1, wse2, bse2, wpwl, s3, d, pool,
     # separt, ws, counters, out, N, H, W, C, M, R, K, th, tw, kc, stream
-    "mt_mbconv_block": [_I] + [_P] * 17 + [_I] * 10 + [_P],
+    "mt_mbconv_block": [_I] + [_P] * 17 + [_I] * 18 + [_P],
     # dtype, x, w1, s1, t1, w2, s2, t2, out, N, H, W, C, dil, stream
     "mt_res_block": [_I] + [_P] * 8 + [_I] * 5 + [_P],
 }

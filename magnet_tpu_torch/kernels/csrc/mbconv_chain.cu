@@ -74,7 +74,6 @@ constexpr int PR_THREADS = 256;  // two warpgroups, 64 output channels each
 constexpr int KROW = 128;        // bytes of a tile row in a K block
 constexpr int SMEM_MAX = 232448;
 constexpr int CS = PN + 4;       // row stride (floats) of the staged product
-constexpr int RED_FLOATS = 8 * SLICE + 3 * SLICE + 4;  // sums, mean, s1, s2, a flag
 
 // swish in f32; where the result rounds to bf16, on the fast exponential
 // and division
@@ -112,34 +111,16 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (hp::smem_addr(p) & 1023)) & 1023);
 }
 
-// Host and device: the shared-memory layouts. mb_expand: the weight slice
-// (kblk K blocks of 64 rows), the x rings (2 warpgroups x EX_STAGES of 64
-// rows), e (th + K - 1 rows of tw + K - 1 pixels of 64 channels, and one
-// pixel that takes the stores of GEMM rows past the tile), then RED_FLOATS
-// (no static shared memory: the whole budget is dynamic).
+// A kernel argument held in a register. The compiler otherwise re-reads a
+// shared-memory offset from the parameter bank wherever an address is
+// formed, which cost both kernels 2 %.
+__device__ __forceinline__ int in_register(int v) { return __shfl_sync(~0u, v, 0); }
+
+// The shared-memory layouts come from the host's plan
+// (kernels/mbconv_chain.py::expand_layout, project_layout) as byte offsets
+// from the 1024-aligned base; the kernels place their regions there, and
+// mt_mbconv_block checks the offsets' order and alignment and the total.
 __host__ __device__ inline int kblocks(int k, int elem) { return (k * elem + KROW - 1) / KROW; }
-__host__ __device__ inline int ex_off_a(int C, int elem) { return kblocks(C, elem) * TM * KROW; }
-__host__ __device__ inline int ex_off_e(int C, int elem) {
-  return ex_off_a(C, elem) + 2 * EX_STAGES * TM * KROW;
-}
-__host__ __device__ inline int ex_off_red(int th, int tw, int C, int K, int elem) {
-  return ex_off_e(C, elem) + ((th + K - 1) * (tw + K - 1) + 1) * SLICE * elem;
-}
-__host__ __device__ inline int ex_smem(int th, int tw, int C, int K, int elem) {
-  return ex_off_red(th, tw, C, K, elem) + RED_FLOATS * 4 + 1024;
-}
-// mb_project: B (kc / EPB K blocks of 128 rows), A (kc / EPB K blocks of 64
-// rows, or the staged f32 product where that is larger), the gate (kc
-// floats, or the 4 x PR_THREADS partial sums of its second layer where that
-// is more), r (R), a flag.
-__host__ __device__ inline int pr_off_gate(int kc, int elem) {
-  const int a = kblocks(kc, elem) * TM * KROW, ct = TM * CS * 4;
-  return kblocks(kc, elem) * PN * KROW + (a > ct ? a : ct);
-}
-__host__ __device__ inline int pr_smem(int kc, int R, int elem) {
-  return pr_off_gate(kc, elem) + ((kc > 4 * PR_THREADS ? kc : 4 * PR_THREADS) + R + 4) * 4 +
-         1024;
-}
 
 // B operand: element (k, n) of a row-major src (ld elements a row, valid
 // for k < kend and n < nend, zero elsewhere) to row n, column k of a K-major
@@ -229,6 +210,7 @@ struct ExArgs {
   float* separt;      // (N, slices, R) the SE's first layer, a partial a slice
   int* count;         // (N, slices) arrival counters, zero between launches
   int N, H, W, C, M, R, th, tw, tiles_x, tiles, slices;
+  int off_ring, off_e, off_red;  // shared memory: the x rings, e, the scratch
 };
 
 template <typename T, int K>
@@ -250,9 +232,9 @@ __global__ void __launch_bounds__(EX_THREADS, 2) mb_expand(const ExArgs a) {
   const int P = (min(ey0 + EH, a.H) - iy0) * cw;  // pixels of the expand GEMM
   const int kblk = kblocks(a.C, elem);
   unsigned char* Bw = smem;
-  unsigned char* ring = smem + ex_off_a(a.C, elem);
-  T* e = reinterpret_cast<T*>(smem + ex_off_e(a.C, elem));
-  float* red = reinterpret_cast<float*>(smem + ex_off_red(a.th, a.tw, a.C, K, elem));
+  unsigned char* ring = smem + in_register(a.off_ring);
+  T* e = reinterpret_cast<T*>(smem + in_register(a.off_e));
+  float* red = reinterpret_cast<float*>(smem + in_register(a.off_red));  // 8 x 64 sums, then:
   float* mean = red + 8 * SLICE;
   float* s1 = mean + SLICE;
   float* s2 = s1 + SLICE;
@@ -467,6 +449,7 @@ struct PrArgs {
   int* count;          // (tiles) arrival counters, zero between launches
   void* out;           // (N, H, W, C)
   int N, H, W, C, M, R, slices, kc, splits, tpf;
+  int off_a, off_gate, off_r;  // shared memory: A, the gate, r
 };
 
 template <typename T>
@@ -479,12 +462,12 @@ __global__ void __launch_bounds__(PR_THREADS) mb_project(const PrArgs a) {
   const int n = blockIdx.x / a.tpf, tile = blockIdx.x % a.tpf;
   const int n0 = blockIdx.y * PN, split = blockIdx.z;
   const int k0 = split * a.kc, kn = min(a.kc, a.M - k0);
-  const int kblk = kblocks(kn, elem), kmax = kblocks(a.kc, elem);
+  const int kblk = kblocks(kn, elem);
   const int hw = a.H * a.W;
   unsigned char* B = smem;
-  unsigned char* A = smem + kmax * PN * KROW;
-  float* gate = reinterpret_cast<float*>(smem + pr_off_gate(a.kc, elem));
-  float* r = gate + max(a.kc, 4 * PR_THREADS);
+  unsigned char* A = smem + in_register(a.off_a);
+  float* gate = reinterpret_cast<float*>(smem + in_register(a.off_gate));
+  float* r = reinterpret_cast<float*>(smem + in_register(a.off_r));
   int& last = *reinterpret_cast<int*>(r + a.R);
 
   // A: the tile's rows of d, copied as they are (the gate is applied below)
@@ -630,11 +613,8 @@ __global__ void __launch_bounds__(PR_THREADS) mb_project(const PrArgs a) {
 }
 
 template <typename T>
-int launch_block(const ExArgs& ex, const PrArgs& pr, int K, cudaStream_t s) {
-  const int elem = sizeof(T);
-  const int ex_bytes = ex_smem(ex.th, ex.tw, ex.C, K, elem);
-  const int pr_bytes = pr_smem(pr.kc, pr.R, elem);
-  if (ex_bytes > SMEM_MAX || pr_bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+int launch_block(const ExArgs& ex, const PrArgs& pr, int K, int ex_bytes, int pr_bytes,
+                 cudaStream_t s) {
   auto k1 = K == 3 ? mb_expand<T, 3> : mb_expand<T, 5>;
   cudaError_t err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, ex_bytes);
   if (err == cudaSuccess)
@@ -662,18 +642,27 @@ int launch_block(const ExArgs& ex, const PrArgs& pr, int K, cudaStream_t s) {
 // ends); out: (N, H, W, C). The plan: th x tw output pixels a tile of
 // mb_expand, kc expanded channels a K range of mb_project (a multiple of
 // 64); tiles = ceil(H / th) ceil(W / tw), slices = ceil(M / 64), tpf =
-// ceil(H * W / 64), ctiles = ceil(C / 128), splits = ceil(M / kc). C and M
-// multiples of 16 bytes; K 3 or 5. Returns the first cudaGetLastError() that is not 0, or
-// cudaErrorInvalidValue for a plan whose shared memory does not fit.
+// ceil(H * W / 64), ctiles = ceil(C / 128), splits = ceil(M / kc); ex: the
+// byte offsets of mb_expand's x rings, e and scratch and its shared memory
+// in all, pr: those of mb_project's A, gate and r and its total. C and M
+// multiples of 16 bytes; K 3 or 5. Returns the first cudaGetLastError()
+// that is not 0, or cudaErrorInvalidValue for a plan whose offsets are out
+// of order or alignment or whose shared memory does not fit.
 extern "C" int mt_mbconv_block(int dtype, const void* x, const void* wpw, const void* s1,
                                const void* wdw, const void* s2, const void* wse1,
                                const void* bse1, const void* wse2, const void* bse2,
                                const void* wpwl, const void* s3, void* d, void* pool,
                                void* separt, void* ws, void* counters, void* out, int N,
                                int H, int W, int C, int M, int R, int K, int th, int tw,
-                               int kc, void* stream) {
+                               int kc, int ex_ring, int ex_e, int ex_red, int ex_bytes,
+                               int pr_a, int pr_gate, int pr_r, int pr_bytes, void* stream) {
   using namespace mt::mb;
   if ((K != 3 && K != 5) || th < 1 || tw < 1 || kc < 64 || kc % 64)
+    return (int)cudaErrorInvalidValue;
+  if (!(0 < ex_ring && ex_ring < ex_e && ex_e < ex_red && ex_red < ex_bytes &&
+        ex_bytes <= SMEM_MAX && ex_ring % 1024 == 0 && ex_e % 16 == 0 && ex_red % 16 == 0) ||
+      !(0 < pr_a && pr_a < pr_gate && pr_gate < pr_r && pr_r < pr_bytes &&
+        pr_bytes <= SMEM_MAX && pr_a % 1024 == 0 && pr_gate % 16 == 0 && pr_r % 4 == 0))
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   const int slices = (M + SLICE - 1) / SLICE, tiles_x = (W + tw - 1) / tw;
@@ -681,11 +670,11 @@ extern "C" int mt_mbconv_block(int dtype, const void* x, const void* wpw, const 
   int* count = static_cast<int*>(counters);
   ExArgs ex{x, wpw, f(s1), wdw, f(s2), f(wse1), d, static_cast<float*>(pool),
             static_cast<float*>(separt), count, N, H, W, C, M, R, th, tw, tiles_x, tiles,
-            slices};
+            slices, ex_ring, ex_e, ex_red};
   PrArgs pr{d, x, wpwl, f(s3), f(bse1), f(wse2), f(bse2), static_cast<const float*>(separt),
             static_cast<float*>(ws), count + N * slices, out, N, H, W, C, M, R, slices, kc,
-            (M + kc - 1) / kc, (H * W + TM - 1) / TM};
+            (M + kc - 1) / kc, (H * W + TM - 1) / TM, pr_a, pr_gate, pr_r};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_block<mt::bf16>(ex, pr, K, s);
-  return launch_block<float>(ex, pr, K, s);
+  if (dtype == 1) return launch_block<mt::bf16>(ex, pr, K, ex_bytes, pr_bytes, s);
+  return launch_block<float>(ex, pr, K, ex_bytes, pr_bytes, s);
 }

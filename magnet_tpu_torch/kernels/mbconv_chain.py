@@ -40,35 +40,44 @@ SMS = 132
 SMEM_MAX, SMEM_SM = 232448, 233472
 # the kernels' tiles (csrc/mbconv_chain.cu): expanded channels a slice,
 # pixels an m-tile, output channels a projection block, bytes a tile row of
-# a K block, floats of mb_expand's reduction scratch; threads of a
-# projection block and the largest K range it takes (two blocks an SM)
-SLICE, TM, PN, KROW, RED_FLOATS = 64, 64, 128, 128, 11 * 64 + 4
-PR_THREADS, KC_MAX = 256, 256
-# stages of each of an expand block's two rings of x, expand blocks an SM
-# runs at once at most (registers: 256 threads of up to 128), and the fixed
-# cost of an expand block in halo pixels
-EX_STAGES, EX_PER_SM, EX_OVERHEAD = 2, 2, 256
+# a K block, stages of each of an expand block's two rings of x, threads of
+# a projection block; floats of mb_expand's scratch (8 x 64 sums, the mean,
+# s1, s2, a flag) and the largest K range a projection block takes (two
+# blocks an SM)
+SLICE, TM, PN, KROW, EX_STAGES, PR_THREADS = 64, 64, 128, 128, 2, 256
+RED_FLOATS, KC_MAX = 11 * 64 + 4, 256
+# expand blocks an SM runs at once at most (registers: 256 threads of up to
+# 128), and the fixed cost of an expand block in halo pixels
+EX_PER_SM, EX_OVERHEAD = 2, 256
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def expand_smem(th: int, tw: int, C: int, K: int, elem: int) -> int:
-    """Bytes of shared memory of an expand block over th x tw output pixels
-    (``ex_smem`` in the source): the weight slice, the x rings, e with its
-    halo and one spare pixel, the reduction scratch and a flag."""
-    return ((_cdiv(C * elem, KROW) + 2 * EX_STAGES) * TM * KROW
-            + ((th + K - 1) * (tw + K - 1) + 1) * SLICE * elem
-            + RED_FLOATS * 4 + 1024)
+def expand_layout(th: int, tw: int, C: int, K: int, elem: int) -> tuple:
+    """Shared memory of an expand block over th x tw output pixels, as the
+    kernel takes it: the byte offsets of the x rings (after the weight
+    slice's K blocks of 64 rows), of e (the tile with its halo and one spare
+    pixel) and of the scratch, then the bytes in all (1024 of them to align
+    the base)."""
+    ring = _cdiv(C * elem, KROW) * TM * KROW
+    e = ring + 2 * EX_STAGES * TM * KROW
+    red = e + ((th + K - 1) * (tw + K - 1) + 1) * SLICE * elem
+    return ring, e, red, red + RED_FLOATS * 4 + 1024
 
 
-def project_smem(kc: int, R: int, elem: int) -> int:
-    """Bytes of shared memory of a projection block over ``kc`` expanded
-    channels (``pr_smem`` in the source)."""
+def project_layout(kc: int, R: int, elem: int) -> tuple:
+    """Shared memory of a projection block over ``kc`` expanded channels:
+    the byte offsets of A (after B's K blocks of 128 rows), of the gate
+    (after A's K blocks of 64 rows or the staged f32 product, whichever is
+    larger) and of r (after the gate's kc floats or the 4 x PR_THREADS
+    partial sums of the SE's second layer), then the bytes in all."""
     kb = _cdiv(kc * elem, KROW)
-    return (kb * PN * KROW + max(kb * TM * KROW, TM * (PN + 4) * 4)
-            + (max(kc, 4 * PR_THREADS) + R + 4) * 4 + 1024)
+    a = kb * PN * KROW
+    gate = a + max(kb * TM * KROW, TM * (PN + 4) * 4)
+    r = gate + max(kc, 4 * PR_THREADS) * 4
+    return a, gate, r, r + (R + 4) * 4 + 1024
 
 
 def expand_tile(N: int, H: int, W: int, C: int, M: int, K: int, elem: int,
@@ -84,7 +93,7 @@ def expand_tile(N: int, H: int, W: int, C: int, M: int, K: int, elem: int,
                          reverse=True):
             if min(th, tw) < K - 1 and (th, tw) != (H, W):
                 continue
-            smem = expand_smem(th, tw, C, K, elem)
+            smem = expand_layout(th, tw, C, K, elem)[-1]
             if smem > SMEM_MAX:
                 continue
             per_sm = min(EX_PER_SM, SMEM_SM // (smem + 1024))
@@ -102,20 +111,24 @@ def plan(N: int, H: int, W: int, C: int, M: int, R: int, K: int, elem: int,
          sms: int = SMS) -> dict:
     """The launch geometry of one block. Expand: output tiles of ``th`` x
     ``tw`` pixels (``expand_tile``), ``tiles`` a frame, ``slices`` of 64
-    expanded channels. Projection: ``tpf`` 64-pixel tiles a frame,
-    ``ctiles`` of 128 output channels, ``splits`` K ranges of ``kc``
-    channels (a multiple of 64; more splits where the tiles leave SMs idle,
-    at most ``KC_MAX`` channels a range)."""
+    expanded channels, shared memory ``ex_layout`` (``expand_layout``).
+    Projection: ``tpf`` 64-pixel tiles a frame, ``ctiles`` of 128 output
+    channels, ``splits`` K ranges of ``kc`` channels (a multiple of 64; more
+    splits where the tiles leave SMs idle, at most ``KC_MAX`` channels a
+    range), shared memory ``pr_layout`` (``project_layout``)."""
     th, tw = expand_tile(N, H, W, C, M, K, elem, sms)
     tpf, ctiles = _cdiv(H * W, TM), _cdiv(C, PN)
     splits = max(_cdiv(M, KC_MAX),
                  min(_cdiv(sms, N * tpf * ctiles), _cdiv(M, 64)))
     kc = 64 * _cdiv(_cdiv(M, splits), 64)
-    if R > 8 * SLICE or project_smem(kc, R, elem) > SMEM_MAX:
+    pr_layout = project_layout(kc, R, elem)
+    if R > 8 * SLICE or pr_layout[-1] > SMEM_MAX:
         raise ValueError(f"mbconv_chain: SE width {R} is too large")
     return dict(th=th, tw=tw, tiles=_cdiv(H, th) * _cdiv(W, tw),
                 slices=_cdiv(M, SLICE), tpf=tpf, ctiles=ctiles, kc=kc,
-                splits=_cdiv(M, kc))
+                splits=_cdiv(M, kc),
+                ex_layout=expand_layout(th, tw, C, K, elem),
+                pr_layout=pr_layout)
 
 
 def mbconv_chain_ref(x: torch.Tensor, wpw, s1, wdw, s2, wse1, bse1, wse2,
@@ -195,7 +208,8 @@ def mbconv_chain(x: torch.Tensor, wpw, s1, wdw, s2, wse1, bse1, wse2, bse2,
                 bse2[b].data_ptr(), wpwl[b].data_ptr(), s3[b].data_ptr(),
                 d.data_ptr(), pool.data_ptr(), separt.data_ptr(),
                 ws.data_ptr(), counters.data_ptr(), out.data_ptr(), N, H, W,
-                C, M, R, K, p["th"], p["tw"], p["kc"], stream)
+                C, M, R, K, p["th"], p["tw"], p["kc"], *p["ex_layout"],
+                *p["pr_layout"], stream)
             build.check(err, "mbconv_chain")
             mbconv_chain.launches += LAUNCHES_PER_BLOCK
             x = out

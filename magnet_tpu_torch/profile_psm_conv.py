@@ -61,17 +61,13 @@ process each:
   * ``mb_no_expand``, ``mb_no_project``: the MBConv block skips its expand
     + depthwise launch or its projection launch; ``mb_no_se``: both skip
     the squeeze-excitation's products (the gate is left unset);
-  * ``mb_kc512``: the MBConv projection takes K ranges of up to 512
-    channels (one block an SM in bf16) in place of 256 (two); ``mb_ring4``:
-    the expand kernel's rings of x hold four stages in place of two (the
-    plan then picks tiles for the larger shared memory);
   * ``sg_no_red``: the sweep backward emits no reductions (the walk, the
     ballots and shuffles stay); ``sg_scalar_red``: it emits them as four
     scalar atomics a lane in place of one float4;
 Their outputs are wrong by design (all but ``kb64``, ``c128_n64``,
-``d2_n128``, ``gnet_three_wg``, ``mb_kc512``, ``mb_ring4`` and
-``sg_scalar_red``); the times split a kernel's between its parts (MMA, halo
-staging, weight stream, the SE, the reductions). Needs a CUDA device.
+``d2_n128``, ``gnet_three_wg`` and ``sg_scalar_red``); the times split a
+kernel's between its parts (MMA, halo staging, weight stream, the SE, the
+reductions). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -161,12 +157,6 @@ ABLATIONS = {
                  (MB, "for (int j = part; j < a.R; j += parts) {",
                   "for (int j = part; j < 0; j += parts) {")),
     "mb_no_project": ((MB, "  mb_project<T><<<grid,", "  if (pr.N < 0) mb_project<T><<<grid,"),),
-    "mb_kc512": (("magnet_tpu_torch/kernels/mbconv_chain.py", "PR_THREADS, KC_MAX = 256, 256",
-                  "PR_THREADS, KC_MAX = 256, 512"),),
-    "mb_ring4": ((MB, "constexpr int EX_STAGES = 2;", "constexpr int EX_STAGES = 4;"),
-                 ("magnet_tpu_torch/kernels/mbconv_chain.py",
-                  "EX_STAGES, EX_PER_SM, EX_OVERHEAD = 2, 2, 256",
-                  "EX_STAGES, EX_PER_SM, EX_OVERHEAD = 4, 2, 256")),
     "sg_no_red": ((SG, "    if (c >= C) continue;\n    float v[VEC];",
                    "    if (c >= 0) continue;\n    float v[VEC];"),),
     "sg_scalar_red": ((SG, """      atomicAdd(reinterpret_cast<float4*>(o + c),

@@ -376,18 +376,25 @@ PATH_A = [(1, 120, 160, 40, 240, 3), (1, 60, 80, 64, 384, 5),
 def test_mbconv_plan_fits_and_covers(site, N, elem):
     """Every path-A stage tail, one frame and five, both types: the expand
     tiles cover the map with a halo at most the tile (or are the map), the
-    K ranges cover M in multiples of 64, both kernels' shared memory fits,
-    and in bf16 at one frame each kernel puts a block on most SMs."""
+    K ranges cover M in multiples of 64, both kernels' shared-memory
+    layouts are in order, aligned as the kernels take them and fit, and in
+    bf16 at one frame each kernel puts a block on most SMs."""
     _, H, W, C, M, K = PATH_A[site]
     R = C // 4
     p = mk.plan(N, H, W, C, M, R, K, elem)
     th, tw = p["th"], p["tw"]
     assert p["tiles"] == -(-H // th) * -(-W // tw) and th <= H and tw <= W
     assert min(th, tw) >= K - 1 or (th, tw) == (H, W)
-    assert mk.expand_smem(th, tw, C, K, elem) <= mk.SMEM_MAX
+    ring, e, red, ex_bytes = p["ex_layout"]
+    assert (ring, e, red, ex_bytes) == mk.expand_layout(th, tw, C, K, elem)
+    assert 0 < ring < e < red < ex_bytes <= mk.SMEM_MAX
+    assert ring % 1024 == 0 and e % 16 == 0 and red % 16 == 0
+    assert red - e >= (th + K - 1) * (tw + K - 1) * 64 * elem
     assert p["kc"] % 64 == 0 and p["kc"] <= mk.KC_MAX
     assert p["splits"] * p["kc"] >= M > (p["splits"] - 1) * p["kc"]
-    assert mk.project_smem(p["kc"], R, elem) <= mk.SMEM_MAX
+    a, gate, r, pr_bytes = p["pr_layout"]
+    assert 0 < a < gate < r < pr_bytes <= mk.SMEM_MAX
+    assert a % 1024 == 0 and gate % 16 == 0 and r - gate >= 4 * p["kc"]
     assert p["slices"] == -(-M // 64) and p["tpf"] == -(-H * W // 64)
     if N == 1 and elem == 2:
         assert N * p["tiles"] * p["slices"] >= 0.85 * mk.SMS
