@@ -18,7 +18,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      volume is held to 1e-4 * max|ref| in both types (both accumulate exact
      products in f32) on the elements that do not sit within 1e-4 of its
      consistency threshold (at most 1 % may), also at a roll of 0.9 rad
-     about the optical axis and with one view invalid. The F-Net's kernels
+     about the optical axis, with one view invalid and at the KITTI cost
+     volume (88x304, 2 views), each site with the kernel's plan replayed in
+     plain PyTorch (the share of corners served from staged windows, the
+     bytes copied into shared memory, the bytes a plain gather requests).
+     Convex upsampling runs as MaGNet calls it (the 3 maps of a frame in one
+     launch, each bit-equal to its one-map call) and as the D-Net does (one
+     map). The F-Net's kernels
      run at the shapes of its one pass over the 5 frames: every chain of the
      residual stages, both transition blocks, the tail. The plane-sweep
      backward (row 10) runs at the F-Net training shape (B = 2, V = 4,
@@ -37,7 +43,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      path (magnet_tpu_torch.test_magnet) at 480x640, cost volume 120x160, 4
      source views, 5 candidates, 3 iterations, bf16, seeded random weights
      in a trained network's depth regime, on synthetic samples; launch
-     counts as predicted; outputs finite with sigma > 0; a cost volume that
+     counts as predicted (one upsampling launch a frame for the 3
+     iterations' maps); outputs finite with sigma > 0; a cost volume that
      is not all zero; ms per frame;
   7. MaGNet reference: one f32 forward on the card against the same forward
      on the CPU, each iteration's map held to 1e-4 * max|ref| on all but at
@@ -140,7 +147,7 @@ from magnet_tpu_torch.profile_dnet import (cuda_ms, graph_ms, kernel_profile,
 from magnet_tpu_torch.profile_fnet_train import (protocol_args, step_account,
                                                  sweep_case, sweep_grids,
                                                  sweep_samples)
-from magnet_tpu_torch.profile_magnet import eval_args, stage_times
+from magnet_tpu_torch.profile_magnet import cv_case, eval_args, stage_times
 from magnet_tpu_torch.train import checkpoint, optim, steps
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside the
@@ -348,57 +355,35 @@ def check_head_kernel(dev):
     return rows
 
 
-def cv_case(g, roll: float = 0.0, invalid: bool = False) -> list:
-    """Cost-volume inputs at the main-path shape, on the CPU in f32: depths
-    around 2 m, small camera motion (as the synthetic dataset makes it),
-    plus ``roll`` radians about the optical axis for every view."""
-    hw = HC * WC
-    fx = 0.9 * WC
-    K = torch.tensor([[fx, 0, WC / 2], [0, fx, HC / 2], [0, 0, 1.0]])
-    ys, xs = torch.meshgrid(torch.arange(HC) + 0.5, torch.arange(WC) + 0.5,
-                            indexing="ij")
-    rays = torch.stack([(xs - K[0, 2]) / fx, (ys - K[1, 2]) / fx,
-                        torch.ones_like(xs)]).reshape(1, 3, hw)
-    R = torch.empty(1, VIEWS, 3, 3)
-    for v in range(VIEWS):
-        ang = roll + 0.02 * float(_randn(g, 1))
-        c, s = np.cos(ang), np.sin(ang)
-        R[0, v] = torch.tensor([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
-    valid = torch.ones(1, VIEWS)
-    if invalid:
-        valid[0, 1] = 0.0
-    mu = 2.0 + 0.3 * _randn(g, 1, HC, WC, 1)
-    return [mu + 0.22 * torch.linspace(-1.5, 1.5, SAMPLES),       # d_volume
-            _randn(g, 1, HC, WC, FEAT), _randn(g, 1, VIEWS, HC, WC, FEAT),
-            2.0 + 0.3 * _randn(g, 1, VIEWS, HC, WC),             # src mu
-            0.1 + 0.3 * torch.rand(1, VIEWS, HC, WC, generator=g),
-            R, _randn(g, 1, VIEWS, 3, scale=0.05), valid, K[None], rays]
-
-
-def gather_bytes(a: list, elem: int) -> int:
-    """Bytes the gather requests for these inputs: every in-image corner of
-    every (sample, valid view) reads C features and the (mu, sigma) pair."""
-    d, R, t, valid, K, rays = a[0], a[5], a[6], a[7], a[8], a[9]
-    n = 0
-    for v in range(VIEWS):
-        if valid[0, v] == 0:
-            continue
-        x, y, _ = cvk.project(K[0], R[0, v], t[0, v], rays[0],
-                              d[0].reshape(HC * WC, -1), HC, WC)
-        x0, y0 = torch.floor(x), torch.floor(y)
-        for cy in (0, 1):
-            for cx in (0, 1):
-                n += int((((x0 + cx) >= 0) & ((x0 + cx) < WC)
-                          & ((y0 + cy) >= 0) & ((y0 + cy) < HC)).sum())
-    return n * (FEAT + 2) * elem
+def plan_stats(a: list) -> dict:
+    """The kernel's plan for these inputs (``cost_volume_cw_plan``, run on
+    their device): the share of in-image corners that staged windows serve,
+    the bytes copied into shared memory, and the bytes a plain gather
+    requests (every in-image corner of every valid view's sample reads C
+    features and the (mu, sigma) pair)."""
+    p = cvk.cost_volume_cw_plan(*a[:10])
+    src = a[2]
+    return dict(staged_share=p["staged_corners"] / max(p["corners"], 1),
+                staged_jobs=p["staged_jobs"], global_jobs=p["global_jobs"],
+                smem_mb=p["smem_bytes"] / 1e6, corners=p["corners"],
+                gather_mb=p["corners"] * (src.shape[-1] + 2)
+                * src.element_size() / 1e6)
 
 
 def check_cost_volume_kernel(dev):
+    """Row 4 at the MaGNet main path (ScanNet: 120x160, V = 4), at a 0.9 rad
+    roll, with one view invalid, and at the KITTI cost volume (88x304, V =
+    2; timed, in no frame's sum); timed on (mu, sigma) pairs packed once, as
+    ``Magnet.fuse`` keeps them."""
     g = torch.Generator().manual_seed(2)
     rows = []
-    for site, kw in (("main path", {}), ("roll 0.9 rad", dict(roll=0.9)),
-                     ("one view invalid", dict(invalid=True))):
+    kitti = dict(hc=KITTI_HC, wc=KITTI_WC, views=KITTI_VIEWS)
+    for site, path, kw in (("main path", "magnet", {}),
+                           ("roll 0.9 rad", "magnet", dict(roll=0.9)),
+                           ("one view invalid", "magnet", dict(invalid=True)),
+                           ("KITTI", "kitti", kitti)):
         a32 = [t.to(dev) for t in cv_case(g, **kw)]
+        views = a32[2].shape[1]
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             a = a32[:1] + [t.to(dtype) for t in a32[1:3]] + a32[3:]
@@ -416,21 +401,20 @@ def check_cost_volume_kernel(dev):
         n_valid = int(a[7].sum())
         # each input once, the output once; an invalid view's maps are not
         # needed; mu and sigma are read packed in the features' type
-        packed = (a[3].numel() + a[4].numel()) * a[2].element_size()
+        ops = cvk.cv_operands(a[3], a[4], a[2].dtype)
         need = (nbytes(a[0], a[1], *a[5:], out)
-                + (nbytes(a[2]) + packed) * n_valid // VIEWS)
-        samples = HC * WC * SAMPLES * n_valid
+                + (nbytes(a[2]) + nbytes(ops)) * n_valid // views)
+        samples = a[0].numel() * n_valid
         flops = samples * (2.0 * 4 * (FEAT + 2) + 60)
         bms, by = bound_ms(need, flops)
         rows.append(dict(
-            site=f"cost_volume_cw ({site})", path="magnet",
+            site=f"cost_volume_cw ({site})", path=path,
             frame=site == "main path", err_f32=errs[torch.float32],
             err_bf16=errs[torch.bfloat16],
-            ms=graph_ms(lambda: cvk.cost_volume_cw(*a, 5.0)),
+            ms=graph_ms(lambda: cvk.cost_volume_cw(*a, 5.0, ops)),
             plain_ms=plain_time(lambda: cvk.cost_volume_cw_ref(*a, 5.0)),
             library_ms=None, bound_ms=bms, bound_by=by, gflop=flops / 1e9,
-            compulsory_mb=need / 1e6,
-            gather_mb=gather_bytes([t.cpu() for t in a32], 2) / 1e6))
+            compulsory_mb=need / 1e6, **plan_stats(a)))
     return rows
 
 
@@ -499,25 +483,33 @@ def check_gnet_kernel(dev):
 
 
 def check_upsample_kernel(dev):
+    """Row 11 as MaGNet calls it (the ITERS maps of a frame through one
+    mask, one launch) and as the D-Net does (one map); each map of the
+    MaGNet call must equal its one-map call bit for bit."""
     g = torch.Generator().manual_seed(4)
-    depth = _randn(g, 1, HC, WC, 2).to(dev)
     mask = _randn(g, 1, HC, WC, 9 * 16, scale=2.0).to(dev)
-    err32 = check_close("upsample_mask", uk.upsample_mask(depth, mask, 4),
-                        uk.upsample_mask_ref(depth, mask, 4), torch.float32)
-    d16, m16 = depth.to(torch.bfloat16), mask.to(torch.bfloat16)
-    out = uk.upsample_mask(d16, m16, 4)
-    err16 = check_close("upsample_mask", out,
-                        uk.upsample_mask_ref(d16, m16, 4), torch.bfloat16)
-    fine = HC * WC * 16
-    flops = fine * (9 * 3.0 + 9 * 2 * 2)
-    bms, by = bound_ms(nbytes(d16, m16, out), flops)
-    return [dict(site="upsample_mask", path="both", frame=True,
-                 err_f32=err32, err_bf16=err16,
-                 ms=graph_ms(lambda: uk.upsample_mask(d16, m16, 4)),
-                 plain_ms=plain_time(
-                     lambda: uk.upsample_mask_ref(d16, m16, 4)),
-                 library_ms=None, bound_ms=bms, bound_by=by,
-                 gflop=flops / 1e9)]
+    maps = [_randn(g, 1, HC, WC, 2).to(dev) for _ in range(ITERS)]
+    rows = []
+    for site, path, n in ((f"upsample_mask, {ITERS} maps", "magnet", ITERS),
+                          ("upsample_mask, 1 map", "dnet", 1)):
+        d32 = maps[:n]
+        err32 = max(check_close(f"{site}", o, r, torch.float32) for o, r in zip(
+            uk.upsample_mask(d32, mask, 4), uk.upsample_mask_ref(d32, mask, 4)))
+        d16, m16 = [d.to(torch.bfloat16) for d in d32], mask.to(torch.bfloat16)
+        outs = uk.upsample_mask(d16, m16, 4)
+        err16 = max(check_close(f"{site}", o, r, torch.bfloat16) for o, r in
+                    zip(outs, uk.upsample_mask_ref(d16, m16, 4)))
+        if not all(torch.equal(o, uk.upsample_mask(d, m16, 4))
+                   for d, o in zip(d16, outs)):
+            raise RuntimeError(f"{site}: a map differs from its one-map call")
+        flops = n * HC * WC * 16 * (9 * 3.0 + 9 * 2 * 2)
+        bms, by = bound_ms(nbytes(*d16, m16, *outs), flops)
+        rows.append(dict(
+            site=site, path=path, frame=path == "magnet", err_f32=err32,
+            err_bf16=err16, ms=graph_ms(lambda: uk.upsample_mask(d16, m16, 4)),
+            plain_ms=plain_time(lambda: uk.upsample_mask_ref(d16, m16, 4)),
+            library_ms=None, bound_ms=bms, bound_by=by, gflop=flops / 1e9))
+    return rows
 
 
 def _bn_pair(g, n, c, dev):
@@ -696,7 +688,7 @@ def check_sweep_forward(dev):
             ms=graph_ms(lambda: cvk.cost_volume_cw(*a)),
             plain_ms=plain_time(lambda: cvk.cost_volume_cw_ref(*a)),
             library_ms=None, bound_ms=bms, bound_by=by, gflop=flops / 1e9,
-            compulsory_mb=need / 1e6, corners=corners))
+            compulsory_mb=need / 1e6, **plan_stats(a)))
     return rows
 
 
@@ -1095,11 +1087,11 @@ def run_magnet_path(frames: int, exp_dir: str, args=None,
     # per frame: one batched D-Net pass over the 5 frames (conv_a and conv_b
     # in up2 and in up3; the depth head; no D-Net mask head), G-Net's
     # feature term and MaGNet's mask head through the head chain; per
-    # iteration one cost volume and one G-Net update; one upsampling per
-    # iteration's prediction; one F-Net pass over the 5 frames
+    # iteration one cost volume and one G-Net update; one upsampling launch
+    # for the ITERS predictions; one F-Net pass over the 5 frames
     want = dict.fromkeys(WRAPPERS, 0)
     want.update(conv3x3_bnact=4, up2=2, up3=2, head_chain=3,
-                cost_volume_cw=ITERS, gnet_update=ITERS, upsample_mask=ITERS,
+                cost_volume_cw=ITERS, gnet_update=ITERS, upsample_mask=1,
                 **fnet, **(trunk or {}))
     launches = check_counts("MaGNet", counts, per_stage, want, frames)
     for out in outs:
@@ -1643,12 +1635,13 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms, library call {lib}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{r['gflop']:.3f} GFLOP")
-    for r in cv_rows:
-        log(f"  {r['site']}: compulsory {r['compulsory_mb']:.1f} MB, the "
+    for r in cv_rows + sweep_fwd_rows:
+        log(f"  {r['site']}: compulsory {r['compulsory_mb']:.1f} MB; the "
+            f"plan stages {100 * r['staged_share']:.2f} % of the "
+            f"{r['corners']} in-image corners in {r['staged_jobs']} windows "
+            f"({r['global_jobs']} global jobs) and copies "
+            f"{r['smem_mb']:.1f} MB into shared memory, where a plain "
             f"gather requests {r['gather_mb']:.1f} MB")
-    for r in sweep_fwd_rows:
-        log(f"  {r['site']}: compulsory {r['compulsory_mb']:.1f} MB, "
-            f"{r['corners']} in-image corners")
     for r in sweep_rows:
         log(f"  {r['site']}: f32 features {r['ms_f32']:.4f} ms; compulsory "
             f"{r['compulsory_mb']:.1f} MB, {r['corners']} in-image corners, "
@@ -1761,7 +1754,7 @@ def main() -> int:
               "gnet_update", ITERS),
         entry("upsample_mask", csrc + "upsample_mask.cu",
               "magnet_tpu/kernels/upsample_pallas.py:79", up_rows,
-              "upsample_mask", ITERS),
+              "upsample_mask"),
     ] + [
         entry(name, csrc + source, "magnet_tpu/kernels/" + replaces,
               [r for r in psm_rows if r["kernel"] == name], name)

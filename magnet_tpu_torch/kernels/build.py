@@ -39,8 +39,8 @@ _SIGNATURES = {
     "mt_cost_volume_cw": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
     # dtype, cv, feat, prev, w0..w3, b1..b3, out, B, H, W, D, stream
     "mt_gnet_update": [_I] + [_P] * 11 + [_I] * 4 + [_P],
-    # dtype, depth, mask, out, B, H, W, C, k, stream
-    "mt_upsample_mask": [_I] + [_P] * 3 + [_I] * 5 + [_P],
+    # dtype, n, depth0..3, mask, out0..3, B, H, W, C, k, stream
+    "mt_upsample_mask": [_I] * 2 + [_P] * 9 + [_I] * 5 + [_P],
     # dtype, x0, x1, x2, w, scale, shift, res, out, N, H, W, C0, C1, C2,
     # Cout, taps, stride, dil, relu, kblock, stream
     "mt_psm_conv": [_I] + [_P] * 8 + [_I] * 12 + [_P],

@@ -8,8 +8,17 @@ the view in f32, the view's feature, mu and sigma maps are sampled
 bilinearly (zeros outside), the sampled feature is dotted with the
 reference feature, the cost is zeroed where ``|z - mu_w| >= kappa *
 sigma_w`` and weighted by the view's validity; the views are summed and
-divided by their number. The CUDA kernel (``csrc/cost_volume_cw.cu``) is a
-gather kernel bounded by bytes; see the source note.
+divided by their number.
+
+The CUDA kernel (``csrc/cost_volume_cw.cu``) gives a block an 8 x 8 tile of
+reference pixels and all their candidates, and cuts each view's candidates
+into chunks whose samples' in-image corners fit a window of the source maps
+in shared memory; a single candidate that does not fit is gathered from
+global memory in the same kernel. ``cost_volume_cw_plan`` replays that rule
+in plain PyTorch (the chunks, the corners each branch serves, the bytes
+copied into shared memory); ``kernel_positions`` is the kernel's projection
+with its roundings. ``cv_operands`` packs the (mu, sigma) pairs in the
+features' type, once for every call on the same source maps.
 
 The consistency test is a hard threshold: two correct f32 implementations
 order their sums differently and a sample that sits on the threshold lands
@@ -36,6 +45,12 @@ from magnet_tpu_torch.ops.resample import bilinear_gather
 EPS_DIV = 1e-10
 COORD_CLIP = 10.0
 MAX_C = 128
+MAX_D = 256
+# the kernel's compile-time shapes (csrc/cost_volume_cw.cu: CV_TILE_H,
+# CV_TILE_W, CV_CHUNK, CV_WINDOW_BYTES)
+TILE = 8
+CHUNK = 16
+WINDOW_BYTES = 24576
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # ``compare``: elements closer than this to the consistency threshold (in
 # depth units) are left out, and at most this share of them may be.
@@ -125,6 +140,135 @@ def compare(out: torch.Tensor, ref: torch.Tensor, margin: torch.Tensor,
     return err, limit, excluded
 
 
+def cv_operands(src_mu: torch.Tensor, src_sigma: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The (B, V, H, W, 2) (mu, sigma) pairs in the features' type, as the
+    kernel reads them; make them once for every call on the same maps."""
+    return torch.stack([src_mu, src_sigma], -1).to(dtype).contiguous()
+
+
+def _fma(a, b, c):
+    """f32 fused multiply-add: the exact product and sum in f64, rounded
+    once more to f32 (equal to one rounding but where the f64 sum sits on an
+    f32 tie, which the sample positions never were in the tests)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def kernel_positions(K: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
+                     rays: torch.Tensor, d: torch.Tensor, H: int, W: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's projection (``cv_sample``), rounding for rounding: K, R
+    (3, 3); t (3,); rays (3, N); d (N, D), all f32. Returns the top-left
+    corner (x0, y0) of each sample, int64 (N, D), and whether it touches the
+    map (``x0`` in [-1, W - 1] and ``y0`` in [-1, H - 1])."""
+    f32 = torch.float32
+    K, R, t, rays, d = (x.to(f32) for x in (K, R, t, rays, d))
+    kt = [_fma(K[i, 2], t[2], _fma(K[i, 1], t[1], K[i, 0] * t[0]))
+          for i in range(3)]
+    rr = [_fma(R[i, 2], rays[2], _fma(R[i, 1], rays[1], R[i, 0] * rays[0]))
+          for i in range(3)]
+    p = [_fma(_fma(K[i, 2], rr[2], _fma(K[i, 1], rr[1], K[i, 0] * rr[0]))[:, None],
+              d, kt[i]) for i in range(3)]
+    denom = p[2] + torch.tensor(EPS_DIV, dtype=f32)
+    hw, hh = torch.tensor(W * 0.5, dtype=f32), torch.tensor(H * 0.5, dtype=f32)
+    gx = ((p[0] / denom - hw) / hw).clamp(-COORD_CLIP, COORD_CLIP)
+    gy = ((p[1] / denom - hh) / hh).clamp(-COORD_CLIP, COORD_CLIP)
+    xf = torch.floor(((gx + 1.0) * W - 1.0) * 0.5)
+    yf = torch.floor(((gy + 1.0) * H - 1.0) * 0.5)
+    hit = (xf >= -1) & (xf <= W - 1) & (yf >= -1) & (yf <= H - 1)
+    return (torch.where(hit, xf, 0.0).long(), torch.where(hit, yf, 0.0).long(),
+            hit)
+
+
+def _union(x: torch.Tensor) -> torch.Tensor:
+    """(..., n, 4) boxes (xlo, xhi, ylo, yhi) -> their (..., 4) union."""
+    return torch.stack([x[..., 0].amin(-1), x[..., 1].amax(-1),
+                        x[..., 2].amin(-1), x[..., 3].amax(-1)], -1)
+
+
+def cost_volume_cw_plan(d_volume: torch.Tensor, ref_feat: torch.Tensor,
+                        src_feat: torch.Tensor, src_mu, src_sigma,
+                        R: torch.Tensor, t: torch.Tensor,
+                        is_valid: torch.Tensor, intM: torch.Tensor,
+                        rays2d: torch.Tensor, kappa=None) -> dict:
+    """The kernel's chunks for these inputs (the arguments of
+    ``cost_volume_cw``; only the geometry, the shapes and the features' type
+    are read), in plain PyTorch on the inputs' device. Per 8 x 8 tile and
+    valid view the box of the in-image bilinear corners of each candidate's
+    samples; a candidate's chunk is the largest aligned run of ``CHUNK``,
+    ..., 2, 1 candidates whose boxes' union times (C + 2) channels fits
+    ``WINDOW_BYTES`` (staged), or the candidate alone (a global job).
+
+    Returns ``jobs``, (n, 11) int64 rows (b, tile row, tile column, view,
+    first candidate, candidates, staged, xlo, ylo, width, height), a tile's
+    in the kernel's order (view, candidate); the in-image ``corners`` of
+    all samples and those that staged and global jobs serve;
+    ``staged_jobs``, ``global_jobs``; ``smem_bytes``, the bytes copied into
+    shared memory."""
+    B, H, W, D = d_volume.shape
+    C, elem = src_feat.shape[-1], src_feat.element_size()
+    dev, T = d_volume.device, TILE
+    ty, tx = -(-H // T), -(-W // T)
+    dp = -(-D // CHUNK) * CHUNK
+    empty = torch.tensor([1 << 40, -(1 << 40)] * 2, device=dev)
+    jobs, stats = [], dict(corners=0, staged_corners=0, global_corners=0,
+                           staged_jobs=0, global_jobs=0, smem_bytes=0)
+    for b in range(B):
+        for v in range(R.shape[1]):
+            if float(is_valid[b, v]) == 0.0:
+                continue
+            x0, y0, hit = kernel_positions(
+                intM[b], R[b, v], t[b, v], rays2d[b],
+                d_volume[b].reshape(H * W, D), H, W)
+            lo = torch.stack([x0.clamp(min=0), (x0 + 1).clamp(max=W - 1),
+                              y0.clamp(min=0), (y0 + 1).clamp(max=H - 1)], -1)
+            # per (tile, candidate) the box of in-image corners and their count
+            grid = empty.expand(ty * T, tx * T, dp, 4).clone()
+            grid[:H, :W, :D] = torch.where(hit[..., None], lo,
+                                           empty).reshape(H, W, D, 4)
+            box = _union(grid.reshape(ty, T, tx, T, dp, 4).permute(
+                0, 2, 4, 1, 3, 5).reshape(ty, tx, dp, T * T, 4))
+            cnt = torch.zeros(ty * T, tx * T, dp, dtype=torch.int64,
+                              device=dev)
+            cnt[:H, :W, :D] = ((lo[..., 1] - lo[..., 0] + 1)
+                               * (lo[..., 3] - lo[..., 2] + 1)
+                               * hit).reshape(H, W, D)
+            cnt = cnt.reshape(ty, T, tx, T, dp).sum((1, 3))
+            # the largest aligned run that fits (fitting only shrinks as
+            # runs grow)
+            size = torch.ones(ty, tx, dp, dtype=torch.int64, device=dev)
+            staged = torch.zeros(ty, tx, dp, dtype=torch.bool, device=dev)
+            pick, level = box, 1
+            while level <= CHUNK:
+                u = _union(box.reshape(ty, tx, dp // level, level, 4)
+                           ).repeat_interleave(level, -2)
+                area = (u[..., 1] - u[..., 0] + 1) * (u[..., 3] - u[..., 2] + 1)
+                fits = (u[..., 0] > u[..., 1]) | (area * (C + 2) * elem
+                                                  <= WINDOW_BYTES)
+                size = torch.where(fits, level, size)
+                staged |= fits
+                pick = torch.where(fits[..., None], u, pick)
+                level *= 2
+            d = torch.arange(dp, device=dev)
+            lead = (d % size == 0) & (d < D) & (pick[..., 0] <= pick[..., 1])
+            stats["corners"] += int(cnt.sum())
+            stats["staged_corners"] += int((cnt * staged).sum())
+            stats["global_corners"] += int((cnt * ~staged).sum())
+            i, j, d = lead.nonzero().unbind(-1)
+            pk, st = pick[i, j, d], staged[i, j, d]
+            ww, wh = pk[:, 1] - pk[:, 0] + 1, pk[:, 3] - pk[:, 2] + 1
+            stats["staged_jobs"] += int(st.sum())
+            stats["global_jobs"] += int((~st).sum())
+            stats["smem_bytes"] += int((ww * wh * st).sum()) * (C + 2) * elem
+            jobs.append(torch.stack(
+                [torch.full_like(i, b), i, j, torch.full_like(i, v), d,
+                 torch.minimum(size[i, j, d], D - d), st.long(), pk[:, 0],
+                 pk[:, 2], ww, wh], -1))
+    stats["jobs"] = (torch.cat(jobs) if jobs else
+                     torch.zeros(0, 11, dtype=torch.int64, device=dev))
+    return stats
+
+
 def _need(t: torch.Tensor, name: str, shape, dtype, device,
           what: str = "cost_volume_cw") -> torch.Tensor:
     """``t`` checked for shape and device (raises) and made a contiguous
@@ -142,12 +286,15 @@ def cost_volume_cw(d_volume: torch.Tensor, ref_feat: torch.Tensor,
                    src_feat: torch.Tensor, src_mu: torch.Tensor,
                    src_sigma: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
                    is_valid: torch.Tensor, intM: torch.Tensor,
-                   rays2d: torch.Tensor, kappa: float) -> torch.Tensor:
+                   rays2d: torch.Tensor, kappa: float,
+                   ops: torch.Tensor = None) -> torch.Tensor:
     """The cost volume with the arguments of ``cost_volume_cw_ref``. CPU
     tensors take the plain version; CUDA tensors launch the kernel on the
     current stream: features f32 or bf16, C a multiple of 16 bytes and at
-    most 128. The geometry and the depths are passed in f32; mu and sigma are
-    packed as (mu, sigma) pairs in the features' type."""
+    most 128, D at most 256 (and V x D within the block's shared memory,
+    else the launch raises). The geometry and the depths are passed in f32;
+    ``ops``, the (mu, sigma) pairs of ``cv_operands``, is made here when it
+    is not given."""
     if d_volume.device.type == "cpu":
         return cost_volume_cw_ref(d_volume, ref_feat, src_feat, src_mu,
                                   src_sigma, R, t, is_valid, intM, rays2d,
@@ -166,12 +313,18 @@ def cost_volume_cw(d_volume: torch.Tensor, ref_feat: torch.Tensor,
     if C % (16 // src_feat.element_size()) or C > MAX_C:
         raise ValueError(f"cost_volume_cw: C={C} must be a multiple of 16 "
                          f"bytes and at most {MAX_C}")
+    if D > MAX_D:
+        raise ValueError(f"cost_volume_cw: D={D} is over {MAX_D}")
     d = _need(d_volume, "d_volume", (B, H, W, D), f32, dev)
     ref = _need(ref_feat, "ref_feat", (B, H, W, C), mdt, dev)
     src = _need(src_feat, "src_feat", (B, V, H, W, C), mdt, dev)
-    _need(src_mu, "src_mu", (B, V, H, W), f32, dev)
-    _need(src_sigma, "src_sigma", (B, V, H, W), f32, dev)
-    ms = torch.stack([src_mu, src_sigma], -1).to(mdt).contiguous()
+    if ops is None:
+        ops = cv_operands(_need(src_mu, "src_mu", (B, V, H, W), f32, dev),
+                          _need(src_sigma, "src_sigma", (B, V, H, W), f32,
+                                dev), mdt)
+    if ops.dtype != mdt or not ops.is_contiguous():
+        raise ValueError(f"cost_volume_cw: ops must be contiguous {mdt}")
+    ms = _need(ops, "ops", (B, V, H, W, 2), mdt, dev)
     Rc = _need(R, "R", (B, V, 3, 3), f32, dev)
     tc = _need(t, "t", (B, V, 3), f32, dev)
     valid = _need(is_valid, "is_valid", (B, V), f32, dev)

@@ -11,8 +11,8 @@ Counterpart of ``magnet_tpu/models/magnet.py``:
      from the D-Net decoder feature.
 On the card each refinement step is two kernel launches
 (``kernels.cost_volume_cw``, ``kernels.gnet_update``), the mask head and
-G-Net's feature term go through ``kernels.head_chain``, and each upsampling
-is one launch of ``kernels.upsample_mask``.
+G-Net's feature term go through ``kernels.head_chain``, and the upsamplings
+of all the iterations are one launch of ``kernels.upsample_mask``.
 
 Parameter names give the reference checkpoint layout: ``d_net.d_net.*``,
 ``f_net.f_net.*``, ``g_net.gnet.{0,2,4,6}``, ``mask_head.{0,2,4,6}``.
@@ -30,11 +30,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from magnet_tpu_torch.kernels import cost_volume_cw as cvk
 from magnet_tpu_torch.models.dnet import DNetCoarse
 from magnet_tpu_torch.models.fnet import FNet
 from magnet_tpu_torch.nn.densedepth import run_head
 from magnet_tpu_torch.nn.gnet import GNet
-from magnet_tpu_torch.kernels.cost_volume_cw import cost_volume_cw
 from magnet_tpu_torch.ops.costvolume import cost_volume_sweep
 from magnet_tpu_torch.ops.upsample import upsample_via_mask
 from magnet_tpu_torch.utils.profiling import stage
@@ -117,19 +117,20 @@ class Magnet(nn.Module):
         n_iters = self.n_iters if n_iters is None else n_iters
         src_mu = src_gauss[..., 0].float()
         src_sigma = src_gauss[..., 1].float()
+        # the cost volume's (mu, sigma) pairs do not change either
+        ops = cvk.cv_operands(src_mu, src_sigma, src_feat.dtype)
         # G-Net's feature term does not change over the iterations.
         feat_contrib = self.g_net.precompute_feature(x_d3)
         preds = [ref_gauss]
         for _ in range(n_iters):
             prev = preds[-1].float()
             d_volume = prev[..., 0:1] + prev[..., 1:2] * self.k_list
-            cv = cost_volume_cw(d_volume, ref_feat, src_feat, src_mu,
-                                src_sigma, src_R, src_t, is_valid, intM,
-                                rays2d, self.kappa)
+            cv = cvk.cost_volume_cw(d_volume, ref_feat, src_feat, src_mu,
+                                    src_sigma, src_R, src_t, is_valid, intM,
+                                    rays2d, self.kappa, ops)
             preds.append(self.g_net(cv, feat_contrib, preds[-1]))
         mask = run_head(self.mask_head, x_d3)
-        return [upsample_via_mask(p, mask, self.downsample_ratio)
-                for p in preds[1:]]
+        return upsample_via_mask(preds[1:], mask, self.downsample_ratio)
 
     def forward(self, ref_img: torch.Tensor, src_imgs: torch.Tensor,
                 src_R: torch.Tensor, src_t: torch.Tensor,

@@ -13,8 +13,8 @@ entry point's parser):
   * per stage, with CUDA events around each stage run alone on the inputs
     the whole forward gives it: D-Net on the 1 + V frames, F-Net on them,
     then per iteration candidate sampling, cost volume and G-Net
-    update, then G-Net's feature term, the mask head, one upsampling, and
-    the whole forward;
+    update, then G-Net's feature term, the mask head, the upsampling of
+    every iteration's map (one launch), and the whole forward;
   * per kernel, with ``torch.profiler`` over five forwards: kernel launches
     per frame, device busy time per frame and the device's idle share, the
     ported kernels' share, and, from a second profile of the F-Net alone,
@@ -28,14 +28,15 @@ import argparse
 import json
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from magnet_tpu_torch import test_magnet
 from magnet_tpu_torch.core import config
 from magnet_tpu_torch.data.synthetic import SyntheticMultiView
+from magnet_tpu_torch.kernels import cost_volume_cw as cvk
 from magnet_tpu_torch.models import build
 from magnet_tpu_torch.nn.densedepth import run_head
-from magnet_tpu_torch.kernels.cost_volume_cw import cost_volume_cw
 from magnet_tpu_torch.ops.upsample import upsample_via_mask
 from magnet_tpu_torch.profile_dnet import cuda_ms, kernel_profile
 
@@ -59,6 +60,41 @@ def eval_args(dtype: str, device: str = "cuda", config_name: str = "scannet",
         device, "--synthetic_length", "1", *extra])
 
 
+def _randn(g, *shape, scale=1.0):
+    return torch.randn(*shape, generator=g) * scale
+
+
+def cv_case(g: torch.Generator, roll: float = 0.0, invalid: bool = False,
+            hc: int = 120, wc: int = 160, views: int = 4) -> list:
+    """Inputs of ``kernels.cost_volume_cw`` (without kappa) at a main-path
+    shape (ScanNet's 120x160 cost volume and 4 views unless ``hc``, ``wc``,
+    ``views`` say otherwise; 5 candidates, 64 channels), on the CPU in f32:
+    depths around 2 m, small camera motion (as the synthetic dataset makes
+    it), plus ``roll`` radians about the optical axis for every view, the
+    second view invalid with ``invalid``."""
+    hw = hc * wc
+    fx = 0.9 * wc
+    K = torch.tensor([[fx, 0, wc / 2], [0, fx, hc / 2], [0, 0, 1.0]])
+    ys, xs = torch.meshgrid(torch.arange(hc) + 0.5, torch.arange(wc) + 0.5,
+                            indexing="ij")
+    rays = torch.stack([(xs - K[0, 2]) / fx, (ys - K[1, 2]) / fx,
+                        torch.ones_like(xs)]).reshape(1, 3, hw)
+    R = torch.empty(1, views, 3, 3)
+    for v in range(views):
+        ang = roll + 0.02 * float(_randn(g, 1))
+        c, s = np.cos(ang), np.sin(ang)
+        R[0, v] = torch.tensor([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
+    valid = torch.ones(1, views)
+    if invalid:
+        valid[0, 1] = 0.0
+    mu = 2.0 + 0.3 * _randn(g, 1, hc, wc, 1)
+    return [mu + 0.22 * torch.linspace(-1.5, 1.5, 5),      # d_volume
+            _randn(g, 1, hc, wc, 64), _randn(g, 1, views, hc, wc, 64),
+            2.0 + 0.3 * _randn(g, 1, views, hc, wc),            # src mu
+            0.1 + 0.3 * torch.rand(1, views, hc, wc, generator=g),
+            R, _randn(g, 1, views, 3, scale=0.05), valid, K[None], rays]
+
+
 def stage_times(model, inputs) -> dict:
     ref_img, src_imgs, R, t, valid, K, rays = inputs
     B, V, H, W = src_imgs.shape[:4]
@@ -69,6 +105,7 @@ def stage_times(model, inputs) -> dict:
     src_gauss = gauss[B:].reshape(B, V, *gauss.shape[1:])
     src_feat = feat_m[B:].reshape(B, V, *feat_m.shape[1:])
     src_mu, src_sigma = src_gauss[..., 0].float(), src_gauss[..., 1].float()
+    ops = cvk.cv_operands(src_mu, src_sigma, src_feat.dtype)
     k = model.downsample_ratio
 
     def sample(prev):
@@ -76,8 +113,9 @@ def stage_times(model, inputs) -> dict:
         return prev[..., 0:1] + prev[..., 1:2] * model.k_list
 
     def cv_of(d_volume):
-        return cost_volume_cw(d_volume, ref_feat, src_feat, src_mu,
-                              src_sigma, R, t, valid, K, rays, model.kappa)
+        return cvk.cost_volume_cw(d_volume, ref_feat, src_feat, src_mu,
+                                  src_sigma, R, t, valid, K, rays,
+                                  model.kappa, ops)
 
     feat_contrib = model.g_net.precompute_feature(x_d3)
     mask = run_head(model.mask_head, x_d3)
@@ -87,7 +125,7 @@ def stage_times(model, inputs) -> dict:
         "G-Net feature term (head kernel)":
             lambda: model.g_net.precompute_feature(x_d3),
     }
-    prev = ref_gauss
+    prev, preds = ref_gauss, []
     for it in range(model.n_iters):
         d_volume = sample(prev)
         cv = cv_of(d_volume)
@@ -98,10 +136,12 @@ def stage_times(model, inputs) -> dict:
         stages[f"iter {it}: G-Net update (kernel)"] = \
             lambda c=cv, p=prev: model.g_net(c, feat_contrib, p)
         prev = model.g_net(cv, feat_contrib, prev)
+        preds.append(prev)
     stages.update({
         "mask head (head kernel)":
             lambda: run_head(model.mask_head, x_d3),
-        "one upsampling (kernel)": lambda: upsample_via_mask(prev, mask, k),
+        f"upsampling of {len(preds)} maps (kernel, one launch)":
+            lambda: upsample_via_mask(preds, mask, k),
         "whole forward": lambda: model(*inputs),
     })
     return {name: cuda_ms(fn, iters=10, warmup=2)

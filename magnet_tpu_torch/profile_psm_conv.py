@@ -4,12 +4,14 @@
 (``kernels/csrc/res_block.cu``, row 14), the G-Net update
 (``kernels/csrc/gnet_update.cu``, row 5), the depthwise conv
 (``kernels/csrc/dw_conv.cu``, row 13), the MBConv chain
-(``kernels/csrc/mbconv_chain.cu``, row 12) and the sweep backward
-(``kernels/csrc/sweep_grad_src.cu``, row 10) spend their time on the GPU,
+(``kernels/csrc/mbconv_chain.cu``, row 12), the sweep backward
+(``kernels/csrc/sweep_grad_src.cu``, row 10), the cost volume
+(``kernels/csrc/cost_volume_cw.cu``, row 4) and convex upsampling
+(``kernels/csrc/upsample_mask.cu``, row 11) spend their time on the GPU,
 bf16. The first four run on ``kernels/csrc/hopper_conv.cuh``.
 
     python -m magnet_tpu_torch.profile_psm_conv [--ablate [NAME,...]]
-        [--sites TEXT,...] [--out p.json]
+        [--sites TEXT,...] [--parent DIR] [--out p.json]
 
 Times each kernel (calls captured in a CUDA graph, the replay timed with
 events) and cuDNN over the same convolutions at the sites of ``sites``: one
@@ -25,8 +27,13 @@ bf16 cuDNN convs and elementwise ops beside it), the depthwise conv at
 its four path-A sites on 5 frames (cuDNN's grouped conv), the MBConv chain
 at the six path-A stage tails (1 and 5 frames; no library call) and the
 sweep backward at the F-Net training shape (small motion, a 0.9 rad roll,
-one view invalid; bf16 features); each output is held against the plain
-version (2e-2 * max|ref|). ``--sites`` keeps the sites whose name holds one of the
+one view invalid; bf16 features), the cost volume at the MaGNet sites of
+``profile_magnet.cv_case`` (ScanNet: small motion, a 0.9 rad roll, one
+view invalid; the KITTI cost volume) on (mu, sigma) pairs packed once and
+at the sweep forward's three cases, and convex upsampling of the 3 maps of
+a MaGNet frame (one launch) and of the D-Net's one map; each output is held
+against the plain version (2e-2 * max|ref|; the cost volume within 1e-4 *
+max|ref| off its consistency threshold, ``cost_volume_cw.compare``). ``--sites`` keeps the sites whose name holds one of the
 comma-separated TEXT. With
 ``--ablate`` it also builds copies of the package under
 ``build/profile_psm_conv/`` with one part of the kernels switched off (all
@@ -64,10 +71,25 @@ process each:
   * ``sg_no_red``: the sweep backward emits no reductions (the walk, the
     ballots and shuffles stay); ``sg_scalar_red``: it emits them as four
     scalar atomics a lane in place of one float4;
+  * ``cv_global``: the cost volume's plan stages no window, every sample
+    is gathered from global memory (the time the windows save);
+    ``cv_no_match``: it matches no sample; ``cv_no_stage``: it copies no
+    window (the match reads stale windows);
+  * ``up_no_compute``, ``up_no_store``, ``up_no_load``: the upsampling
+    computes no fine pixel, stores no fine row, or loads neither the mask
+    nor the coarse rows;
+  * ``parent_cv``, ``parent_up``: the cost volume's (``parent_cv``) or
+    convex upsampling's (``parent_up``, with that commit's ``build.py``)
+    kernel and wrapper taken from the checkout of an earlier commit at
+    ``--parent`` (default ``build/parent``, e.g. ``mkdir -p build/parent
+    && git archive <commit> magnet_tpu_torch | tar -x -C build/parent``),
+    called as that commit's code calls them: the cost volume packing its
+    (mu, sigma) pairs at every call, one upsampling launch a map.
 Their outputs are wrong by design (all but ``kb64``, ``c128_n64``,
-``d2_n128``, ``gnet_three_wg`` and ``sg_scalar_red``); the times split a
-kernel's between its parts (MMA, halo staging, weight stream, the SE, the
-reductions). Needs a CUDA device.
+``d2_n128``, ``gnet_three_wg``, ``sg_scalar_red``, ``cv_global`` and the
+parent variants); the times split a kernel's between its parts (MMA, halo
+staging, weight stream, the SE, the reductions, the windows, the match).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -75,12 +97,15 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
+from magnet_tpu_torch.kernels import cost_volume_cw as cvk
 from magnet_tpu_torch.kernels import dw_conv as dwk
 from magnet_tpu_torch.kernels import gnet_update as gk
 from magnet_tpu_torch.kernels import head_chain as hc
@@ -89,10 +114,14 @@ from magnet_tpu_torch.kernels import psm_blocks as pb
 from magnet_tpu_torch.kernels import res_block as rbk
 from magnet_tpu_torch.kernels import spp_tail as st
 from magnet_tpu_torch.kernels import sweep_grad_src as sgk
+from magnet_tpu_torch.kernels import upsample_mask as uk
 from magnet_tpu_torch.nn.efficientnet import CHAIN_OPERANDS, fold_mbconv_chain
+from magnet_tpu_torch.ops.costvolume import sweep_forward_args
 from magnet_tpu_torch.profile_conv import PEAK_BF16_FLOPS, ROOT, edited_copy
 from magnet_tpu_torch.profile_dnet import graph_ms, random_chain, trunk_tail_sites
-from magnet_tpu_torch.profile_fnet_train import sweep_case
+from magnet_tpu_torch.profile_fnet_train import (SWEEP_B, SWEEP_C, SWEEP_V,
+                                                 sweep_case)
+from magnet_tpu_torch.profile_magnet import cv_case
 
 ABLATE_DIR = ROOT / "build" / "profile_psm_conv"
 CONV = "magnet_tpu_torch/kernels/csrc/hopper_conv.cuh"
@@ -102,6 +131,17 @@ GNET = "magnet_tpu_torch/kernels/csrc/gnet_update.cu"
 DW = "magnet_tpu_torch/kernels/csrc/dw_conv.cu"
 MB = "magnet_tpu_torch/kernels/csrc/mbconv_chain.cu"
 SG = "magnet_tpu_torch/kernels/csrc/sweep_grad_src.cu"
+CV = "magnet_tpu_torch/kernels/csrc/cost_volume_cw.cu"
+UP = "magnet_tpu_torch/kernels/csrc/upsample_mask.cu"
+# variant -> the files it takes from the earlier commit at --parent
+PARENTS = {
+    "parent_cv": (CV, "magnet_tpu_torch/kernels/cost_volume_cw.py"),
+    "parent_up": ("magnet_tpu_torch/kernels/csrc/upsample_mask.cu",
+                  "magnet_tpu_torch/kernels/upsample_mask.py",
+                  "magnet_tpu_torch/kernels/build.py"),
+}
+# the kinds of site whose calls differ at the earlier commit
+PARENT_KINDS = ("cv", "up")
 _NO_HALO = ((CONV, "for (int r = r0; r < g.rows; r += rstep) {",
              "for (int r = r0; r < 0; r += rstep) {"),
             (CONV, "for (int row = r0; row < g.rows; row += rstep) {",
@@ -162,6 +202,23 @@ ABLATIONS = {
     "sg_scalar_red": ((SG, """      atomicAdd(reinterpret_cast<float4*>(o + c),
                 make_float4(w * v[0], w * v[1], w * v[2], w * v[3]));""",
                        """      for (int e = 0; e < 4; ++e) atomicAdd(o + c + e, w * v[e]);"""),),
+    "cv_global": ((CV, "bpp <= (long long)CV_WINDOW_BYTES;", "bpp < 0;"),),
+    "cv_no_match": ((CV, """    if (job.w)
+      cv_match<T, NCH, true>(a, b * a.V + v, valid, job, cur, geom, acc, q, off, g, l);
+    else
+      cv_match<T, NCH, false>(a, b * a.V + v, valid, job, cur, geom, acc, q, off, g, l);""",
+                     "    (void)valid;"),),
+    "cv_no_stage": ((CV, "hp::cp_async16(win + (size_t)i * 16, src + r * pitch + (size_t)e * 16, true);",
+                     ";"),
+                    (CV, "cv_cp_async<MSB>(wms + i * MSB, ms + ((size_t)r * a.W + c) * MSB);", ";")),
+    "up_no_compute": ((UP, "for (int f = tid; f < k * fw; f += UP_THREADS) {",
+                       "for (int f = tid; f < 0; f += UP_THREADS) {"),),
+    "up_no_store": ((UP, "for (int i = threadIdx.x; i < a.n * a.k * nv; i += UP_THREADS) {",
+                     "for (int i = threadIdx.x; i < 0; i += UP_THREADS) {"),),
+    "up_no_load": ((UP, "for (int i = threadIdx.x; i < bytes / VB; i += UP_THREADS) {",
+                    "for (int i = threadIdx.x; i < 0; i += UP_THREADS) {"),
+                   (UP, "for (int i = tid; i < a.n * per; i += UP_THREADS) {",
+                    "for (int i = tid; i < 0; i += UP_THREADS) {")),
 }
 
 
@@ -171,7 +228,8 @@ def sites(h: int = 480, w: int = 640, frames: int = 5) -> list:
     F-Net conv, "head" specs (N, H, W, C0, widths after the 3x3), "tail"
     specs (N, H, W, map widths, Cout), "block" specs (N, H, W, C,
     dilation), "gnet" specs (B, H, W, D) of the cost volume, "dw" specs
-    (N, H, W, C, K)."""
+    (N, H, W, C, K), "cv" specs the keywords of ``cv_case``, "cv_sweep" and
+    "sweep" specs (roll, one view invalid), "up" specs (H, W, maps)."""
     hh, wh, hc_, wc = h // 2, w // 2, h // 4, w // 4
     n = frames
     return [
@@ -210,6 +268,17 @@ def sites(h: int = 480, w: int = 640, frames: int = 5) -> list:
         ("sweep_grad_src main path", "sweep", (0.0, False)),
         ("sweep_grad_src roll 0.9 rad", "sweep", (0.9, False)),
         ("sweep_grad_src one view invalid", "sweep", (0.0, True)),
+        ("cost_volume_cw main path", "cv", dict()),
+        ("cost_volume_cw roll 0.9 rad", "cv", dict(roll=0.9)),
+        ("cost_volume_cw one view invalid", "cv", dict(invalid=True)),
+        ("cost_volume_cw KITTI 88x304 V=2", "cv",
+         dict(hc=88, wc=304, views=2)),
+        ("cost_volume_cw sweep forward", "cv_sweep", (0.0, False)),
+        ("cost_volume_cw sweep forward roll 0.9 rad", "cv_sweep", (0.9, False)),
+        ("cost_volume_cw sweep forward one view invalid", "cv_sweep",
+         (0.0, True)),
+        ("upsample_mask 3 maps (MaGNet)", "up", (hc_, wc, 3)),
+        ("upsample_mask 1 map (D-Net)", "up", (hc_, wc, 1)),
     ]
 
 
@@ -370,29 +439,110 @@ def sweep_grad_case(spec, g):
             lambda: sgk.sweep_grad_src_ref(*a), None, 0.0)
 
 
+def cost_volume_case(spec, g, parent=False):
+    """(kernel call, plain call, None, 0) of row 4 at a MaGNet site, bf16
+    features; the plain call gives the plain values off the consistency
+    threshold and the kernel's on it (``cost_volume_cw.compare``'s
+    elements), or the plain values everywhere if more than its share of
+    the elements sit on the threshold. With ``parent`` the call is the
+    earlier commit's, which packs the (mu, sigma) pairs at every call."""
+    a = [x.cuda() for x in cv_case(g, **spec)]
+    a[1], a[2] = a[1].to(torch.bfloat16), a[2].to(torch.bfloat16)
+    if parent:
+        def call():
+            return cvk.cost_volume_cw(*a, 5.0)
+    else:
+        ops = cvk.cv_operands(a[3], a[4], torch.bfloat16)
+
+        def call():
+            return cvk.cost_volume_cw(*a, 5.0, ops)
+
+    def plain():
+        ref, margin = cvk.cost_volume_cw_ref(*a, 5.0, return_margin=True)
+        keep = margin > cvk.MARGIN
+        if keep.float().mean() < 1.0 - cvk.MAX_EXCLUDED:
+            return ref
+        return torch.where(keep, ref, call())
+    return call, plain, None, 0.0
+
+
+def cost_volume_sweep_case(spec, g):
+    """(kernel call, plain call, None, 0) of row 4 as the F-Net training
+    sweep's forward calls it (``sweep_forward_args``, 80 SID planes), bf16
+    features."""
+    roll, invalid = spec
+    case = [x.cuda() for x in sweep_case(roll=roll, invalid=invalid)]
+    src = _r(g, SWEEP_B, SWEEP_V, *case[1].shape[1:3], SWEEP_C)
+    a = sweep_forward_args(case[0], case[1].to(torch.bfloat16),
+                           src.to(torch.bfloat16), *case[3:])
+    return (lambda: cvk.cost_volume_cw(*a),
+            lambda: cvk.cost_volume_cw_ref(*a), None, 0.0)
+
+
+def upsample_case(spec, g, parent=False):
+    """(kernel call, plain call, None, 0) of row 11: ``n`` (H, W, 2) maps
+    through one (H, W, 144) mask, by 4, bf16; one launch for them all (with
+    ``parent``, one a map, as the earlier commit called it)."""
+    h, w, n = spec
+    mask = _r(g, 1, h, w, 144, scale=2.0).to(torch.bfloat16)
+    maps = [_r(g, 1, h, w, 2).to(torch.bfloat16) for _ in range(n)]
+    if parent:
+        def call():
+            return [uk.upsample_mask(d, mask, 4) for d in maps]
+    else:
+        def call():
+            return uk.upsample_mask(maps, mask, 4)
+    return (call, lambda: [uk.upsample_mask_ref(d, mask, 4) for d in maps],
+            None, 0.0)
+
+
 CASES = {"conv": conv_case, "head": head_case, "tail": tail_case,
          "block": block_case, "gnet": gnet_case, "dw": dw_case,
-         "mbchain": mbchain_case, "sweep": sweep_grad_case}
+         "mbchain": mbchain_case, "sweep": sweep_grad_case,
+         "cv": cost_volume_case, "cv_sweep": cost_volume_sweep_case,
+         "up": upsample_case}
 
 
-def time_sites(library: bool, tolerate: bool = False, only: str = "") -> list:
+def _flat(out) -> torch.Tensor:
+    """A call's output (a tensor or a list of them) as one f32 vector."""
+    if isinstance(out, (list, tuple)):
+        return torch.cat([o.float().reshape(-1) for o in out])
+    return out.float()
+
+
+def parent_copy(root: Path, files, parent: Path) -> Path:
+    """A copy of the package under ``root`` with ``files`` taken from the
+    checkout of an earlier commit at ``parent``."""
+    edited_copy(root, ())
+    for f in files:
+        if not (parent / f).exists():
+            raise RuntimeError(f"{parent / f} is missing: unpack the commit "
+                               f"to compare with under {parent}")
+        shutil.copyfile(parent / f, root / f)
+    return root
+
+
+def time_sites(library: bool, tolerate: bool = False, only: str = "",
+               parent: bool = False) -> list:
     """The kernels (and cuDNN) at every site; with ``tolerate`` a site whose
     launch raises (an ablated kernel's shared memory too large) is recorded
-    with ``ms`` None."""
+    with ``ms`` None; with ``parent`` the ``PARENT_KINDS`` sites call their
+    wrappers as the earlier commit did."""
     g = torch.Generator().manual_seed(0)
     rows = []
     for site, kind, spec in sites():
         if not any(text in site for text in only.split(",")):
             continue
-        call, plain, lib, flops, *chain = CASES[kind](spec, g)
+        kw = {"parent": parent} if kind in PARENT_KINDS else {}
+        call, plain, lib, flops, *chain = CASES[kind](spec, g, **kw)
         try:
-            out = call().float()
+            out = _flat(call())
         except RuntimeError as e:
             if not tolerate:
                 raise
             rows.append(dict(site=site, kind=kind, ms=None, error=str(e)))
             continue
-        ref = plain().float()
+        ref = _flat(plain())
         torch.cuda.synchronize()
         ms = graph_ms(call)
         rows.append(dict(
@@ -409,13 +559,19 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--ablate", nargs="?", const=",".join(ABLATIONS),
                    default="", metavar="NAME,...",
-                   help="also time the ablated copies of the kernels (all, "
-                        "or the variants named)")
+                   help="also time the ablated copies of the kernels (all "
+                        "of ABLATIONS, or the variants named, parent_* ones "
+                        "too)")
     p.add_argument("--sites", default="",
                    help="only the sites whose name holds one of these "
                         "comma-separated texts")
+    p.add_argument("--parent", default=str(ROOT / "build" / "parent"),
+                   help="the checkout of the earlier commit that the parent_* "
+                        "variants take their files from")
     p.add_argument("--sites-only", action="store_true",
                    help=argparse.SUPPRESS)   # one ablated copy's process
+    p.add_argument("--parent-calls", action="store_true",
+                   help=argparse.SUPPRESS)   # a parent_* copy's process
     p.add_argument("--out", default="")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -423,17 +579,22 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     if a.sites_only:
         print(json.dumps(time_sites(library=False, tolerate=True,
-                                    only=a.sites)))
+                                    only=a.sites, parent=a.parent_calls)))
         return {}
     res = dict(device=torch.cuda.get_device_name(0),
                kernel=time_sites(library=True, only=a.sites), ablations={})
     for name in filter(None, a.ablate.split(",")):
-        root = edited_copy(ABLATE_DIR / name, ABLATIONS[name])
+        if name in PARENTS:
+            root = parent_copy(ABLATE_DIR / name, PARENTS[name],
+                               Path(a.parent))
+        else:
+            root = edited_copy(ABLATE_DIR / name, ABLATIONS[name])
         env = dict(os.environ, PYTHONPATH=str(root))
         done = subprocess.run(
             [sys.executable, "-m", "magnet_tpu_torch.profile_psm_conv",
-             "--sites-only", "--sites", a.sites], cwd=root, env=env,
-            capture_output=True, text=True, check=True)
+             "--sites-only", "--sites", a.sites,
+             *(["--parent-calls"] if name in PARENTS else [])], cwd=root,
+            env=env, capture_output=True, text=True, check=True)
         res["ablations"][name] = json.loads(done.stdout.splitlines()[-1])
     for i, r in enumerate(res["kernel"]):
         ablated = "".join(f", {name} {rows[i]['ms'] or float('nan'):.4f}"

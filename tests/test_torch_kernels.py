@@ -312,6 +312,123 @@ def test_cpu_tensors_take_the_plain_version():
     assert [w.launches for w in wrappers] == before
 
 
+# ---- the cost volume's plan; maps that share an upsampling mask ------------
+
+def _plan_boxes(x0, y0, hit, H, W):
+    """Per sample the in-image corner range (xlo, xhi, ylo, yhi)."""
+    return (x0.clamp(min=0), (x0 + 1).clamp(max=W - 1), y0.clamp(min=0),
+            (y0 + 1).clamp(max=H - 1), hit)
+
+
+def _check_plan(a):
+    """Hold ``cost_volume_cw_plan`` to its rule: every sample with an
+    in-image corner of a valid view is in exactly one job; a staged job's
+    corners lie in its window, which fits, and its run of candidates is the
+    largest aligned one that fits; a global job is one candidate whose box
+    does not fit. Returns the plan."""
+    plan = cvk.cost_volume_cw_plan(*a, 5.0)
+    d, src, R, t, valid, K, rays = a[0], a[2], a[5], a[6], a[7], a[8], a[9]
+    B, H, W, D = d.shape
+    V, T = R.shape[1], cvk.TILE
+    bpp = (src.shape[-1] + 2) * src.element_size()
+    pos = {(b, v): _plan_boxes(*cvk.kernel_positions(
+        K[b], R[b, v], t[b, v], rays[b], d[b].reshape(H * W, D), H, W),
+        H, W) for b in range(B) for v in range(V)}
+
+    def box(b, v, i, j, d0, d1):
+        xl, xh, yl, yh, hit = (x.reshape(H, W, D)[i * T:i * T + T,
+                                                  j * T:j * T + T, d0:d1]
+                               for x in pos[b, v])
+        if not hit.any():
+            return None
+        return (int(xl[hit].min()), int(xh[hit].max()), int(yl[hit].min()),
+                int(yh[hit].max()))
+
+    def fits(bx):
+        return bx is None or ((bx[1] - bx[0] + 1) * (bx[3] - bx[2] + 1)
+                              * bpp <= cvk.WINDOW_BYTES)
+
+    seen = torch.zeros(B, V, H, W, D, dtype=torch.long)
+    for b, i, j, v, d0, nd, st, xlo, ylo, ww, wh in plan["jobs"].tolist():
+        seen[b, v, i * T:i * T + T, j * T:j * T + T, d0:d0 + nd] += 1
+        bx = box(b, v, i, j, d0, d0 + nd)
+        assert bx is not None
+        if st:
+            assert (xlo <= bx[0] and bx[1] < xlo + ww and ylo <= bx[2]
+                    and bx[3] < ylo + wh and ww * wh * bpp <= cvk.WINDOW_BYTES)
+            size = 1 << (nd - 1).bit_length()
+            assert d0 % size == 0 and size <= cvk.CHUNK
+            if d0 + nd < D and size < cvk.CHUNK:   # a run that D does not cut
+                assert size == nd                  # is the largest that fits
+                p0 = d0 // (2 * size) * 2 * size
+                assert not fits(box(b, v, i, j, p0, min(p0 + 2 * size, D)))
+        else:
+            assert nd == 1 and not fits(bx)
+    for b in range(B):
+        for v in range(V):
+            hit = pos[b, v][4].reshape(H, W, D)
+            if valid[b, v] == 0:
+                assert not seen[b, v].any()
+            else:
+                assert (seen[b, v][hit] == 1).all()
+    assert seen.max() <= 1
+    assert plan["corners"] == plan["staged_corners"] + plan["global_corners"]
+    return plan
+
+
+@pytest.mark.parametrize("case,dtype", [
+    (dict(), torch.float32),
+    (dict(V=3, D=20, motion=0.3, C=32, H=32, W=40), torch.float32),
+    (dict(C=64, D=37, roll=0.5, shift=0.2, H=30, W=44), torch.bfloat16),
+], ids=["small_motion", "split_runs", "roll_d37"])
+def test_cost_volume_plan_covers_every_corner_once(case, dtype):
+    a = _cv_t("cpu", dtype, **case)
+    _check_plan(a)
+    # the kernel's roundings land on the plain projection's corners
+    d, R, t, K, rays = a[0], a[5], a[6], a[8], a[9]
+    H, W, D = d.shape[1:]
+    x, y, _ = cvk.project(K[0], R[0, 0], t[0, 0], rays[0],
+                          d[0].reshape(H * W, D), H, W)
+    x0, y0, hit = cvk.kernel_positions(K[0], R[0, 0], t[0, 0], rays[0],
+                                       d[0].reshape(H * W, D), H, W)
+    same = (x0 == torch.floor(x)) & (y0 == torch.floor(y))
+    assert hit.any() and same[hit].float().mean() > 0.999
+
+
+def test_cost_volume_plan_sends_wide_footprints_global():
+    """A 0.9 rad roll with a large translation spreads a tile's samples of
+    one candidate over more than a window: those go to the global branch,
+    the rest stay staged."""
+    plan = _check_plan(_cv_t("cpu", torch.bfloat16, C=64, H=48, W=64,
+                             roll=0.9, shift=0.6, invalid_last=False))
+    assert plan["global_jobs"] > 0 and plan["global_corners"] > 0
+    assert plan["staged_jobs"] > 0 and plan["staged_corners"] > 0
+
+
+def test_cost_volume_plan_constants_stand_in_the_kernel():
+    import pathlib
+    src = (pathlib.Path(cvk.__file__).parent / "csrc"
+           / "cost_volume_cw.cu").read_text()
+    for text in (f"CV_TILE_H = {cvk.TILE}, CV_TILE_W = {cvk.TILE};",
+                 f"CV_CHUNK = {cvk.CHUNK};",
+                 f"CV_WINDOW_BYTES = {cvk.WINDOW_BYTES};",
+                 f"CV_MAX_C = {cvk.MAX_C};", f"CV_MAX_D = {cvk.MAX_D};"):
+        assert text in src
+
+
+def test_upsample_maps_equal_one_map_calls():
+    """Maps that share a mask: each output equals the one-map call's, bit
+    for bit, through the plain version and the CPU wrapper."""
+    m = _t(upsample_inputs(B=2, H=5, W=7, C=3, seed=1)[1])
+    maps = [_t(upsample_inputs(B=2, H=5, W=7, C=3, seed=s)[0])
+            for s in (1, 2, 3)]
+    for fn in (uk.upsample_mask_ref, uk.upsample_mask):
+        outs = fn(maps, m, 4)
+        assert isinstance(outs, list) and len(outs) == 3
+        for d, o in zip(maps, outs):
+            assert torch.equal(o, uk.upsample_mask_ref(d, m, 4))
+
+
 # ---- the bf16 conv kernel's operands ---------------------------------------
 
 @pytest.mark.parametrize("cx,cs,cout", [(32, 16, 32), (1024, 64, 512),
@@ -772,6 +889,78 @@ def test_cost_volume_kernel_matches_plain(cuda, dtype, case):
     cvk.compare(out, ref, margin, _TOL[torch.float32])
 
 
+def _cv_cuda_check(a):
+    out = cvk.cost_volume_cw(*a, 5.0)
+    torch.cuda.synchronize()
+    ref, margin = cvk.cost_volume_cw_ref(*a, 5.0, return_margin=True)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    cvk.compare(out, ref, margin, _TOL[torch.float32])
+    return out
+
+
+# Which branch the plan gives each case's corners: all staged, nearly all
+# global (only tiles whose footprint the map's edge cuts fit a window), both.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("branch,case", [
+    ("staged", dict(H=48, W=64, C=16, V=4, invalid_last=False)),
+    ("global", dict(H=48, W=64, C=128, V=2, roll=0.9, shift=0.6)),
+    ("mix", dict(H=48, W=64, C=64, V=3, roll=0.9, shift=0.3)),
+], ids=["staged", "global", "mix"])
+def test_cost_volume_kernel_branches(cuda, dtype, branch, case):
+    a = _cv_t(cuda, dtype, **case)
+    plan = cvk.cost_volume_cw_plan(*a)
+    staged, glob = plan["staged_corners"], plan["global_corners"]
+    assert {"staged": staged > 0 and glob == 0,
+            "global": glob > 0.9 * plan["corners"],
+            "mix": staged > 0 and glob > 0}[branch], (staged, glob)
+    _cv_cuda_check(a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("V", [1, 2, 3, 4])
+@pytest.mark.parametrize("C", [16, 64, 128])
+def test_cost_volume_kernel_widths_views_odd_map(cuda, dtype, V, C):
+    """17x23 (no tile multiple), every width the port uses, one to four
+    views, the last view of the last batch invalid where there are two."""
+    _cv_cuda_check(_cv_t(cuda, dtype, B=2, V=V, H=17, W=23, C=C, D=7,
+                         motion=0.1, invalid_last=V > 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cost_volume_kernel_sweep_forward(cuda, dtype):
+    """The sweep's forward (``ops.costvolume.sweep_forward_args``: 80 SID
+    planes for every pixel, mu 0, sigma 1e30): no threshold to leave
+    elements out for, so 1e-4 * max|ref| everywhere."""
+    from magnet_tpu_torch.models.magnet import sid_depth_centers
+    from magnet_tpu_torch.ops.costvolume import sweep_forward_args
+    a = _cv_t(cuda, dtype, B=2, V=4, H=40, W=56, C=64, D=1, motion=0.1)
+    d_center = torch.from_numpy(sid_depth_centers(1e-3, 10.0, 80)).to(cuda)
+    args = sweep_forward_args(d_center, a[1], a[2], *a[5:])
+    out = cvk.cost_volume_cw(*args)
+    ref = cvk.cost_volume_cw_ref(*args)
+    torch.cuda.synchronize()
+    assert ref.abs().max() > 0.1
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cost_volume_kernel_calls_are_bit_equal(cuda, dtype):
+    a = _cv_t(cuda, dtype, B=2, V=3, H=48, W=64, C=64, D=20, roll=0.9,
+              shift=0.3)
+    ops = cvk.cv_operands(a[3], a[4], dtype)
+    first = cvk.cost_volume_cw(*a, 5.0, ops)
+    assert torch.equal(first, cvk.cost_volume_cw(*a, 5.0, ops))
+    assert torch.equal(first, cvk.cost_volume_cw(*a, 5.0))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -853,6 +1042,29 @@ def test_upsample_kernel_matches_plain(cuda, dtype, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("case", [dict(H=17, W=23, C=2, k=4),
+                                  dict(B=2, H=9, W=7, C=3, k=2),
+                                  dict(H=120, W=160, C=2, k=4)],
+                         ids=["17x23", "ragged", "eval_shape"])
+def test_upsample_kernel_maps_equal_one_map_calls(cuda, dtype, n, case):
+    """n maps through one mask: one launch for every four maps, each output
+    bit-equal to the one-map call's and held to the plain version."""
+    k = case["k"]
+    m = _t(upsample_inputs(**case, seed=1)[1], cuda, dtype)
+    maps = [_t(upsample_inputs(**case, seed=s)[0], cuda, dtype)
+            for s in range(1, n + 1)]
+    before = uk.upsample_mask.launches
+    outs = uk.upsample_mask(maps, m, k)
+    assert uk.upsample_mask.launches == before + -(-n // uk.MAX_MAPS)
+    for d, o in zip(maps, outs):
+        assert torch.equal(o, uk.upsample_mask(d, m, k))
+        _close_cuda(o, uk.upsample_mask_ref(d, m, k), dtype)
+
+
+@pytest.mark.cuda
 def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
@@ -894,3 +1106,5 @@ def test_cuda_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
     d, m = (_t(x, cuda, torch.bfloat16) for x in upsample_inputs())
     with pytest.raises(ValueError):                             # strided
         uk.upsample_mask(d, m.transpose(1, 2), 4)
+    with pytest.raises(ValueError):                             # two shapes
+        uk.upsample_mask([d, d[:, :4]], m, 4)
