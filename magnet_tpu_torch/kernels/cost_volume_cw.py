@@ -197,7 +197,8 @@ def cost_volume_cw_plan(d_volume: torch.Tensor, ref_feat: torch.Tensor,
     valid view the box of the in-image bilinear corners of each candidate's
     samples; a candidate's chunk is the largest aligned run of ``CHUNK``,
     ..., 2, 1 candidates whose boxes' union times (C + 2) channels fits
-    ``WINDOW_BYTES`` (staged), or the candidate alone (a global job).
+    ``WINDOW_BYTES`` (staged), or the candidate alone, and a run of such
+    lone candidates within an aligned ``CHUNK`` is one global job.
 
     Returns ``jobs``, (n, 11) int64 rows (b, tile row, tile column, view,
     first candidate, candidates, staged, xlo, ylo, width, height), a tile's
@@ -250,7 +251,18 @@ def cost_volume_cw_plan(d_volume: torch.Tensor, ref_feat: torch.Tensor,
                 pick = torch.where(fits[..., None], u, pick)
                 level *= 2
             d = torch.arange(dp, device=dev)
-            lead = (d % size == 0) & (d < D) & (pick[..., 0] <= pick[..., 1])
+            any_ = (d < D) & (pick[..., 0] <= pick[..., 1])
+            # runs of candidates that fit no window alone, within an
+            # aligned CHUNK: one global job each
+            glob = any_ & ~staged
+            run = torch.zeros_like(size)
+            for i in reversed(range(dp)):
+                nxt = run[..., i + 1] if (i + 1) % CHUNK else 0
+                run[..., i] = glob[..., i] * (1 + nxt)
+            prev = torch.cat([torch.zeros_like(glob[..., :1]), glob[..., :-1]],
+                             -1) & (d % CHUNK != 0)
+            lead = any_ & torch.where(staged, d % size == 0, ~prev)
+            size = torch.where(staged, torch.minimum(size, D - d), run)
             stats["corners"] += int(cnt.sum())
             stats["staged_corners"] += int((cnt * staged).sum())
             stats["global_corners"] += int((cnt * ~staged).sum())
@@ -262,8 +274,7 @@ def cost_volume_cw_plan(d_volume: torch.Tensor, ref_feat: torch.Tensor,
             stats["smem_bytes"] += int((ww * wh * st).sum()) * (C + 2) * elem
             jobs.append(torch.stack(
                 [torch.full_like(i, b), i, j, torch.full_like(i, v), d,
-                 torch.minimum(size[i, j, d], D - d), st.long(), pk[:, 0],
-                 pk[:, 2], ww, wh], -1))
+                 size[i, j, d], st.long(), pk[:, 0], pk[:, 2], ww, wh], -1))
     stats["jobs"] = (torch.cat(jobs) if jobs else
                      torch.zeros(0, 11, dtype=torch.int64, device=dev))
     return stats

@@ -30,8 +30,9 @@
 //     belongs to the largest aligned run of 16, 8, 4, 2 or 1 candidates
 //     whose boxes' union, times C + 2 channels in the features' type, fits a
 //     window buffer (CV_WINDOW_BYTES); such a chunk is staged. A single
-//     candidate whose box does not fit is a global job. The rule reads
-//     nothing but the sample positions, so
+//     candidate whose box does not fit goes to the global branch; a run of
+//     such candidates within an aligned 16 is one global job. The rule
+//     reads nothing but the sample positions, so
 //     kernels/cost_volume_cw.py::cost_volume_cw_plan replays it.
 //  2. Jobs run in (view, candidate) order over two window buffers: while
 //     one job is matched, the cp.async copies of the next job's window (16
@@ -429,12 +430,20 @@ __global__ void __launch_bounds__(CV_THREADS, NCH <= 2 ? 3 : 2) cost_volume_cw_k
             staged = true;
           }
         }
-        const bool lead = d < a.D && (lane & (size - 1)) == 0 && pick.x <= pick.y;
+        // candidates that fit no window alone: a run of them within an
+        // aligned 16 is one global job
+        const bool any = d < a.D && pick.x <= pick.y;
+        const unsigned long long gm = __ballot_sync(CV_FULL, any && !staged);
+        const int seg = lane & (CV_CHUNK - 1);
+        const bool gstart = ((gm >> lane) & 1) && (seg == 0 || !((gm >> (lane - 1)) & 1));
+        const int run = min(__ffsll(~(gm >> lane)) - 1, CV_CHUNK - seg);
+        const bool lead = any && (staged ? (lane & (size - 1)) == 0 : gstart);
         const unsigned m = __ballot_sync(CV_FULL, lead);
         __syncwarp();
         if (lead) {
           const int j = n + __popc(m & ((1u << lane) - 1));
-          box[v * a.D + j] = make_int4(d | min(size, a.D - d) << 16, pick.x | pick.z << 16,
+          const int nd = staged ? min(size, a.D - d) : run;
+          box[v * a.D + j] = make_int4(d | nd << 16, pick.x | pick.z << 16,
                                        (pick.y - pick.x + 1) | (pick.w - pick.z + 1) << 16, staged);
         }
         n += __popc(m);

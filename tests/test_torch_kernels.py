@@ -324,8 +324,9 @@ def _check_plan(a):
     """Hold ``cost_volume_cw_plan`` to its rule: every sample with an
     in-image corner of a valid view is in exactly one job; a staged job's
     corners lie in its window, which fits, and its run of candidates is the
-    largest aligned one that fits; a global job is one candidate whose box
-    does not fit. Returns the plan."""
+    largest aligned one that fits; a global job is a maximal run, within an
+    aligned ``CHUNK``, of candidates whose own boxes do not fit. Returns the
+    plan."""
     plan = cvk.cost_volume_cw_plan(*a, 5.0)
     d, src, R, t, valid, K, rays = a[0], a[2], a[5], a[6], a[7], a[8], a[9]
     B, H, W, D = d.shape
@@ -362,8 +363,14 @@ def _check_plan(a):
                 assert size == nd                  # is the largest that fits
                 p0 = d0 // (2 * size) * 2 * size
                 assert not fits(box(b, v, i, j, p0, min(p0 + 2 * size, D)))
-        else:
-            assert nd == 1 and not fits(bx)
+        else:                  # a run of lone candidates that fit no window
+            assert d0 // cvk.CHUNK == (d0 + nd - 1) // cvk.CHUNK
+            alone = [box(b, v, i, j, c, c + 1) for c in range(d0, d0 + nd)]
+            assert all(x is not None and not fits(x) for x in alone)
+            for c in (d0 - 1, d0 + nd):      # the run is maximal
+                if 0 <= c < D and c // cvk.CHUNK == d0 // cvk.CHUNK:
+                    x = box(b, v, i, j, c, c + 1)
+                    assert x is None or fits(x)
     for b in range(B):
         for v in range(V):
             hit = pos[b, v][4].reshape(H, W, D)
