@@ -24,7 +24,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      bytes copied into shared memory, the bytes a plain gather requests).
      Convex upsampling runs as MaGNet calls it (the 3 maps of a frame in one
      launch, each bit-equal to its one-map call) and as the D-Net does (one
-     map). The F-Net's kernels
+     map); its backward (the port's own kernel) at the two training sites
+     (MaGNet: batch 4, 3 maps, 120x160; the D-Net: batch 16, one map,
+     104x136) against autograd through the plain version, two calls equal
+     bit for bit. The F-Net's kernels
      run at the shapes of its one pass over the 5 frames: every chain of the
      residual stages, both transition blocks, the tail. The plane-sweep
      backward (row 10) runs at the F-Net training shape (B = 2, V = 4,
@@ -84,7 +87,32 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      outputs finite, sigma > 0, no cost volume all zero, ms per frame, peak
      memory, the stage split; the F-Net's f32 output with row 14 against
      the chains of row 6 on the card to 1e-5 * max|ref|. No CPU reference
-     at this shape: phase 7 holds every shared kernel to the CPU already.
+     at this shape: phase 7 holds every shared kernel to the CPU already;
+ 12. D-Net training (stage 1): the entry point's own loop
+     (magnet_tpu_torch.train_dnet) at train_scripts/dnet/scannet.txt (the
+     416x544 crop, batch 16 or the largest half of it that fits, bf16, f32
+     master weights), started by --resume_ckpt from a state whose depth
+     head is in a trained network's regime: 3 steps and a validation pass;
+     finite losses, launches as predicted (per step the upsampling and its
+     backward), ms per step by events, peak memory, a checkpoint that
+     restores;
+ 13. MaGNet training (stage 3): the entry point's own loop
+     (magnet_tpu_torch.train_magnet) at train_scripts/magnet/scannet.txt
+     (480x640, batch 4, 4 source views, 5 candidates, 3 iterations, bf16)
+     from phase 12's D-Net and phase 8's F-Net: 3 steps and a validation
+     pass; only g_net.* and mask_head.* change, launches per step as
+     predicted, ms per step by events; then one step's loss and G-Net and
+     mask-head gradients against the same step with f32 weights and the
+     plain encode (the D-Net and F-Net on the CPU), with the f32 encode of
+     the 20 frames and row 4 at batch 4 held to their plain versions on the
+     way;
+ 14. streaming: test_magnet --cache_features (its streaming forward and
+     the harness) at the ScanNet eval shape, bf16, on a 12-frame sliding
+     window built here (a reference and its 4 neighbours, one frame a
+     step): one miss a window in steady state, launches as predicted, ms
+     per window against the monolithic forward by events, the largest
+     difference between the two, and which stage of the encode depends on
+     the batch (N = 1 against N = 5).
 Phase 3 also holds rows 12 and 13 at their path-A sites (N = 1 and 5),
 row 14 at the four KITTI layer shapes (3 frames; row 6's chain over the
 same blocks timed beside it), rows 1 and 2 at the KITTI decoder's four
@@ -94,9 +122,9 @@ chains and transition blocks on the 3 frames of a KITTI sample (maps
 KITTI heads (88x304), f32 and bf16 (timed, in no frame's sum). The bf16
 F-Net convs, blocks, tail and heads are timed on packed operands made once,
 as the modules keep them.
-Then a {"kernels": [...]} line (14 rows), the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}. Without a CUDA device it exits
-non-zero.
+Then a {"kernels": [...]} line (15 rows: the 14 TPU kernels and the
+upsampling's backward), the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -109,16 +137,19 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from magnet_tpu_torch import profile_conv, test_dnet, test_magnet, train_fnet
+from magnet_tpu_torch import (profile_conv, test_dnet, test_magnet,
+                              train_dnet, train_fnet, train_magnet)
 from magnet_tpu_torch.core import config
 from magnet_tpu_torch.data import base
 from magnet_tpu_torch.data.synthetic import (SyntheticMultiView,
                                              SyntheticSingleView)
+from magnet_tpu_torch.eval import harness
 from magnet_tpu_torch.kernels import build
 from magnet_tpu_torch.kernels import conv3x3_bnact as cb
 from magnet_tpu_torch.kernels import cost_volume_cw as cvk
@@ -131,16 +162,19 @@ from magnet_tpu_torch.kernels import res_block as rbk
 from magnet_tpu_torch.kernels import spp_tail as st
 from magnet_tpu_torch.kernels import sweep_grad_src as sgk
 from magnet_tpu_torch.kernels import upsample_mask as uk
-from magnet_tpu_torch.models.build import (build_dnet, build_fnet,
-                                           build_magnet, build_magnet_f,
+from magnet_tpu_torch.models.build import (build_dnet, build_dnet_train,
+                                           build_fnet, build_magnet,
+                                           build_magnet_f,
+                                           build_magnet_train,
                                            cast_for_inference,
                                            realistic_depth_init_)
 from magnet_tpu_torch.models.magnet import sid_depth_centers
 from magnet_tpu_torch.nn import psmnet
+from magnet_tpu_torch.nn.densedepth import run_head
 from magnet_tpu_torch.nn.efficientnet import (CHAIN_OPERANDS,
                                               b5_stage_config, chain_stages,
                                               fold_mbconv_chain)
-from magnet_tpu_torch.nn.layers import BN_MOMENTUM, nchw
+from magnet_tpu_torch.nn.layers import BN_MOMENTUM, conv2d, nchw, nhwc
 from magnet_tpu_torch.ops.costvolume import sweep_forward_args
 from magnet_tpu_torch.profile_dnet import (cuda_ms, graph_ms, kernel_profile,
                                            random_chain, trunk_tail_sites)
@@ -177,9 +211,29 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_STATS_TOL = 1e-5, 1e-3, 1e-5
 # bf16) 1.2e-4, 0.40, 0.050, 1.8e-2.
 BF16_TRAIN_TOL = dict(loss=2e-3, grad=0.3, grad_median=0.035, stats=8e-3)
 KINK_MARGIN = 1e-5
+# D-Net training at train_scripts/dnet/scannet.txt (batch 16 where it fits)
+DNET_TRAIN_B, DNET_CROP, DNET_TRAIN_STEPS = 16, (416, 544), 3
+# MaGNet training at train_scripts/magnet/scannet.txt
+MAGNET_TRAIN_B, MAGNET_TRAIN_STEPS = 4, 3
+# the stage-3 step with the encode's f32 kernels against the plain encode:
+# the encode's f32 sums in another order through B5 and PSM-Net (phase 7
+# holds those maps to 1e-4 * max|ref|), and a cost-volume sample on its
+# consistency threshold may flip
+MAGNET_TRAIN_F32_TOL = dict(loss=1e-4, grad=1e-3, grad_median=1e-3)
+# the bf16 stage-3 step against the f32 one: the (mu, sigma) maps of the
+# loss are bf16 (8 bits: 0.4 % of a value), so the NLL moves by about 1 %
+# (1.35e-2 on the CPU at 96x128, B = 4, V = 4, 3 iterations, with gradients
+# 0.043 worst and 0.015 median of their tensor's max)
+MAGNET_TRAIN_BF16_TOL = dict(loss=5e-2, grad=0.3, grad_median=0.05)
+# streaming against the monolithic forward, of the largest |map|: the
+# encode at batch 1 may take other kernel plans (and cuDNN algorithms) than
+# at batch 5, each rounding its bf16 output once more or less
+STREAM_FRAMES, STREAM_TOL = 12, 2e-2
+REPO = Path(__file__).resolve().parent
 WRAPPERS = {"conv3x3_bnact": cb.conv3x3_bnact, "head_chain": hc.head_chain,
             "cost_volume_cw": cvk.cost_volume_cw,
             "gnet_update": gk.gnet_update, "upsample_mask": uk.upsample_mask,
+            "upsample_mask_bwd": uk.upsample_mask_bwd,
             "fused_residual_stage": pb.fused_residual_stage,
             "downsample_block": pb.downsample_block,
             "expand_block": pb.expand_block, "spp_tail": st.spp_tail,
@@ -508,6 +562,54 @@ def check_upsample_kernel(dev):
             site=site, path=path, frame=path == "magnet", err_f32=err32,
             err_bf16=err16, ms=graph_ms(lambda: uk.upsample_mask(d16, m16, 4)),
             plain_ms=plain_time(lambda: uk.upsample_mask_ref(d16, m16, 4)),
+            library_ms=None, bound_ms=bms, bound_by=by, gflop=flops / 1e9))
+    return rows
+
+
+def check_upsample_bwd_kernel(dev):
+    """The convex upsampling's backward (port-only) against autograd through
+    the plain version, at the two training sites: MaGNet (batch
+    MAGNET_TRAIN_B, the ITERS maps of a step through one mask, 120x160 ->
+    480x640) and the D-Net (batch DNET_TRAIN_B, one map, 104x136 -> the
+    416x544 crop), f32 and bf16 at KERNEL_TOL of each gradient's largest
+    element; two calls equal bit for bit (no atomics)."""
+    g = torch.Generator().manual_seed(8)
+    rows = []
+    for site, path, B, h, w, n in (
+            (f"upsample_mask_bwd, {ITERS} maps (MaGNet train)",
+             "magnet_train", MAGNET_TRAIN_B, HC, WC, ITERS),
+            ("upsample_mask_bwd, 1 map (D-Net train)", "dnet_train",
+             DNET_TRAIN_B, DNET_CROP[0] // 4, DNET_CROP[1] // 4, 1)):
+        mask32 = _randn(g, B, h, w, 9 * 16, scale=2.0).to(dev)
+        maps32 = [_randn(g, B, h, w, 2).to(dev) for _ in range(n)]
+        gouts32 = [_randn(g, B, 4 * h, 4 * w, 2).to(dev) for _ in range(n)]
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            mask, maps = mask32.to(dt), [d.to(dt) for d in maps32]
+            gouts = [x.to(dt) for x in gouts32]
+            got = uk.upsample_mask_bwd(gouts, maps, mask, 4)
+            want = uk.upsample_mask_bwd_ref(gouts, maps, mask, 4)
+            errs[dt] = max(check_close(f"{site}, {name}", a, b, dt)
+                           for name, a, b in zip(
+                               ["grad map"] * n + ["grad mask"],
+                               got[0] + [got[1]], want[0] + [want[1]]))
+            again = uk.upsample_mask_bwd(gouts, maps, mask, 4)
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got[0] + [got[1]], again[0] + [again[1]])):
+                raise RuntimeError(f"{site}: two calls differ")
+        kk, fine = 16, B * h * w * 16
+        # per fine pixel the softmax (9 exp, 9 sub, 9 mul, 9 add) and the
+        # mask's gradient (9 n C FMAs, 9 FMAs, 9 mul); per coarse pixel, map
+        # and channel 9 kk FMAs
+        flops = fine * (36 + 2 * 9 * n * 2 + 27) + 2 * B * h * w * n * 2 * 9 * kk
+        bms, by = bound_ms(nbytes(*gouts, *maps, mask, *got[0], got[1]), 0.0,
+                           f32_flops=flops)
+        rows.append(dict(
+            site=site, path=path, frame=True, err_f32=errs[torch.float32],
+            err_bf16=errs[torch.bfloat16],
+            ms=graph_ms(lambda: uk.upsample_mask_bwd(gouts, maps, mask, 4)),
+            plain_ms=cuda_ms(lambda: uk.upsample_mask_bwd_ref(
+                gouts, maps, mask, 4), iters=3, warmup=1),
             library_ms=None, bound_ms=bms, bound_by=by, gflop=flops / 1e9))
     return rows
 
@@ -1296,7 +1398,7 @@ def run_train_path(exp_dir: str) -> dict:
                 losses=losses, step_ms=host_ms,
                 step_event_ms=ev_ms, first_step_ms=out["step_ms"][0],
                 max_memory_allocated_gb=peak_gb, metrics=out["metrics"],
-                args=args, state=state)
+                ckpt=out["ckpt"], args=args, state=state)
 
 
 def train_account(args, state) -> dict:
@@ -1592,6 +1694,514 @@ def check_kitti_fnet(exp_dir: str) -> dict:
     return dict(err=err, limit=lim, events_ms=ms)
 
 
+# ---- phase 12: D-Net training (stage 1) ------------------------------------
+
+def dnet_train_args(exp_dir: str, batch: int) -> argparse.Namespace:
+    """The flags of train_scripts/dnet/scannet.txt on the synthetic dataset:
+    the 416x544 crop, bf16, at ``batch``, DNET_TRAIN_STEPS steps and a
+    validation pass over as many frames at 480x640."""
+    args = config.parse_args(config.build_train_dnet_parser(), [
+        "@" + str(REPO / "train_scripts" / "dnet" / "scannet.txt"),
+        "--dataset_name", "synthetic", "--dataset_path", "none",
+        "--exp_name", "chip_smoke_dnet", "--exp_dir", exp_dir,
+        "--batch_size", str(batch), "--n_epochs", "1",
+        "--synthetic_length", str(batch * DNET_TRAIN_STEPS),
+        "--validate_every", "1000000", "--log_every", "1"])
+    if ((args.crop_height, args.crop_width) != DNET_CROP
+            or (args.input_height, args.input_width) != (H, W)
+            or args.compute_dtype != "bfloat16"):
+        raise RuntimeError("the flag file is not the D-Net training shape")
+    return config.setup_exp_dirs(args, kind="train")
+
+
+def dnet_start(args) -> steps.TrainState:
+    """The state ``train_dnet`` starts from (its model, optimizer and
+    generator), the depth head in a trained network's regime (last conv 0,
+    bias (2, -3): mu 2 m, var 0.05), so that phase 13's cost volume sees
+    depths a trained D-Net gives."""
+    model = build_dnet_train(args, "cuda")
+    head = model.d_net.decoder.depth_head[4]
+    with torch.no_grad():
+        head.weight.zero_()
+        head.bias.copy_(torch.tensor([2.0, -3.0]))
+    opt = optim.make_dnet_optimizer(
+        model, lr=args.lr, total_steps=DNET_TRAIN_STEPS,
+        weight_decay=args.weight_decay, grad_clip=args.grad_clip,
+        same_lr=args.same_lr, div_factor=args.div_factor,
+        final_div_factor=args.final_div_factor)
+    return steps.TrainState(model, opt, seed=args.seed)
+
+
+def dnet_batch_that_fits(exp_dir: str) -> int:
+    """The flag file's batch if one training step fits the card, else the
+    largest half of it that does."""
+    b = DNET_TRAIN_B
+    while True:
+        args = dnet_train_args(exp_dir, b)
+        raw = base.collate([SyntheticSingleView(args, DNET_CROP).get(i)
+                            for i in range(b)])
+        try:
+            state = dnet_start(args)
+            step_fn = steps.make_dnet_train_step(
+                args.max_depth, args.min_depth, torch.bfloat16)
+            step_fn(state, train_dnet.batch_to_device(raw, "cuda"))
+            torch.cuda.synchronize()
+            return b
+        except torch.cuda.OutOfMemoryError:
+            log(f"  batch {b} does not fit the card")
+            if b == 1:
+                raise
+            b //= 2
+        finally:
+            state = step_fn = None
+            torch.cuda.empty_cache()
+
+
+def run_dnet_train_path(exp_dir: str) -> dict:
+    """D-Net training through the entry point's own loop
+    (``train_dnet.train``) at train_scripts/dnet/scannet.txt's shape,
+    started from ``dnet_start`` by ``--resume_ckpt``: finite losses, the
+    launches (per step the upsampling forward and its backward; per
+    validation frame the D-Net's inference kernels), step ms by events, the
+    peak memory, a checkpoint that restores."""
+    b = dnet_batch_that_fits(exp_dir)
+    args = dnet_train_args(exp_dir, b)
+    args.resume_ckpt = checkpoint.save(
+        os.path.join(args.exp_dir, "start"), dnet_start(args), 0)
+    n_val = b * DNET_TRAIN_STEPS
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = train_dnet.train(args)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = dict(upsample_mask=1, upsample_mask_bwd=1)
+    per_val = dict(conv3x3_bnact=4, head_chain=2, upsample_mask=1)
+    want = {k: DNET_TRAIN_STEPS * per_step.get(k, 0)
+            + n_val * per_val.get(k, 0) for k in WRAPPERS}
+    log(f"  launches over {DNET_TRAIN_STEPS} steps and {n_val} validation "
+        f"frames: found {counts}, expected {want}")
+    if counts != want:
+        raise RuntimeError("the D-Net training path did not run its kernels "
+                           "as expected")
+    losses = out["losses"]
+    if len(losses) != DNET_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise RuntimeError(f"D-Net training losses {losses}")
+    if not all(np.isfinite(v) for v in out["metrics"].values()):
+        raise RuntimeError(f"non-finite validation metrics {out['metrics']}")
+    saved = checkpoint.restore(out["ckpt"])
+    current = out["state"].model.state_dict()
+    if saved["step"] != DNET_TRAIN_STEPS or any(
+            not torch.equal(v, current[k].cpu())
+            for k, v in saved["model"].items()):
+        raise RuntimeError("the D-Net checkpoint does not restore the state")
+    ev_ms = float(np.mean(out["step_event_ms"][1:]))
+    log(f"  batch {b} (the flag file's {DNET_TRAIN_B}) at "
+        f"{DNET_CROP[0]}x{DNET_CROP[1]}, bf16: losses {losses}; step "
+        f"{ev_ms:.3f} ms by CUDA events (steps 2-{DNET_TRAIN_STEPS}; first "
+        f"{out['step_event_ms'][0]:.3f}), host clock "
+        f"{np.mean(out['step_ms'][1:]):.3f} ms; max_memory_allocated "
+        f"{peak_gb:.3f} GiB; validation abs_rel "
+        f"{out['metrics']['abs_rel']:.4f}; checkpoint {out['ckpt']}")
+    return dict(batch=b, launches=counts, per_step=per_step, losses=losses,
+                step_event_ms=ev_ms, step_ms=float(np.mean(out["step_ms"][1:])),
+                first_step_event_ms=out["step_event_ms"][0],
+                max_memory_allocated_gb=peak_gb, metrics=out["metrics"],
+                ckpt=out["ckpt"])
+
+
+# ---- phase 13: MaGNet training (stage 3) ------------------------------------
+
+def magnet_train_args(exp_dir: str, dnet_ckpt: str,
+                      fnet_ckpt: str) -> argparse.Namespace:
+    """The flags of train_scripts/magnet/scannet.txt on the synthetic
+    dataset with the given stage checkpoints: MAGNET_TRAIN_STEPS steps and a
+    validation pass over as many samples."""
+    args = config.parse_args(config.build_train_magnet_parser(), [
+        "@" + str(REPO / "train_scripts" / "magnet" / "scannet.txt"),
+        "--dataset_name", "synthetic", "--dataset_path", "none",
+        "--exp_name", "chip_smoke_magnet_train", "--exp_dir", exp_dir,
+        "--DNET_ckpt", dnet_ckpt, "--FNET_ckpt", fnet_ckpt, "--n_epochs",
+        "1", "--synthetic_length", str(MAGNET_TRAIN_B * MAGNET_TRAIN_STEPS),
+        "--validate_every", "1000000", "--log_every", "1"])
+    if ((args.input_height, args.input_width, args.dpv_height,
+         args.dpv_width, args.MAGNET_num_source_views,
+         args.MAGNET_num_samples, args.MAGNET_num_train_iter,
+         args.batch_size, args.loss_fn, args.compute_dtype)
+            != (H, W, HC, WC, VIEWS, SAMPLES, ITERS, MAGNET_TRAIN_B,
+                "gaussian", "bfloat16")):
+        raise RuntimeError("the flag file is not the MaGNet training shape")
+    return config.setup_exp_dirs(args, kind="train")
+
+
+def run_magnet_train_path(args) -> dict:
+    """MaGNet training through the entry point's own loop
+    (``train_magnet.train``): finite losses, only ``g_net.*`` and
+    ``mask_head.*`` changed (against the same model built and loaded
+    alone), the launches of each kernel per step (the validation's, per
+    sample as phase 6 counts them, taken off), step ms by events."""
+    init = {k: v.clone() for k, v in
+            build_magnet_train(args, "cuda").state_dict().items()}
+    n_val = MAGNET_TRAIN_B * MAGNET_TRAIN_STEPS
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = train_magnet.train(args)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    # per step: the frozen encode of B (V + 1) frames (the decoder's four
+    # convs, the depth head, the F-Net's kernels), the batched cost volume
+    # once an iteration, the upsampling of the iterations and its backward;
+    # G-Net and the mask head train as plain convs
+    per_step = dict(conv3x3_bnact=4, head_chain=1, cost_volume_cw=ITERS,
+                    upsample_mask=1, upsample_mask_bwd=1, **FNET_LAUNCHES)
+    per_val = dict(conv3x3_bnact=4, head_chain=3, cost_volume_cw=ITERS,
+                   gnet_update=ITERS, upsample_mask=1, **FNET_LAUNCHES)
+    want = {k: MAGNET_TRAIN_STEPS * per_step.get(k, 0)
+            + n_val * per_val.get(k, 0) for k in WRAPPERS}
+    log(f"  launches over {MAGNET_TRAIN_STEPS} steps and {n_val} validation "
+        f"samples: found {counts}, expected {want}")
+    if counts != want:
+        raise RuntimeError("the MaGNet training path did not run its "
+                           "kernels as expected")
+    losses = out["losses"]
+    if len(losses) != MAGNET_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise RuntimeError(f"MaGNet training losses {losses}")
+    after = out["state"].model.state_dict()
+    moved = sorted({k.split(".")[0] for k, v in after.items()
+                    if not torch.equal(v, init[k])})
+    unmoved = [k for k, v in after.items()
+               if k.split(".")[0] in ("g_net", "mask_head")
+               and torch.equal(v, init[k])]
+    log(f"  modules whose tensors changed: {moved}")
+    if moved != ["g_net", "mask_head"] or unmoved:
+        raise RuntimeError(f"stage 3 changed {moved}; unchanged trained "
+                           f"tensors {unmoved[:4]}")
+    ev_ms = float(np.mean(out["step_event_ms"][1:]))
+    log(f"  batch {MAGNET_TRAIN_B}, {VIEWS} source views, {ITERS} "
+        f"iterations, bf16: losses {losses}; step {ev_ms:.3f} ms by CUDA "
+        f"events (steps 2-{MAGNET_TRAIN_STEPS}; first "
+        f"{out['step_event_ms'][0]:.3f}), host clock "
+        f"{np.mean(out['step_ms'][1:]):.3f} ms; max_memory_allocated "
+        f"{peak_gb:.3f} GiB; launches per step {per_step}")
+    return dict(launches=counts, per_step=per_step, losses=losses,
+                step_event_ms=ev_ms, step_ms=float(np.mean(out["step_ms"][1:])),
+                first_step_event_ms=out["step_event_ms"][0],
+                max_memory_allocated_gb=peak_gb, metrics=out["metrics"])
+
+
+def magnet_step_grads(model, batch: dict, args, dtype, encodings=None):
+    """The stage-3 loss and the G-Net and mask-head gradients of one step of
+    ``model`` (train mode, no update): the whole forward in ``dtype``, or
+    ``fuse`` from ``encodings``."""
+    model.zero_grad(set_to_none=True)
+    model.train()
+    if encodings is None:
+        loss = steps.magnet_batch_loss(model, batch, args.loss_gamma,
+                                       args.max_depth, args.min_depth,
+                                       ITERS, dtype)
+    else:
+        preds = model.fuse(*encodings, *[batch[k] for k in (
+            "R", "t", "is_valid", "intM", "rays2d")], n_iters=ITERS)
+        loss = steps.magnet_preds_loss(preds, batch["depth"], args.loss_gamma,
+                                       args.max_depth, args.min_depth)
+    loss.backward()
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def grad_errors(res: tuple, ref: tuple) -> dict:
+    (loss, grads), (loss_ref, grads_ref) = res, ref
+    if grads.keys() != grads_ref.keys():
+        raise RuntimeError("the steps differ in what they train")
+    g = [(grads[k] - v).abs().max().item() / v.abs().max().item()
+         for k, v in grads_ref.items()]
+    return dict(loss=abs(loss - loss_ref) / abs(loss_ref), grad=max(g),
+                grad_median=float(np.median(g)))
+
+
+def check_magnet_train_step(args) -> dict:
+    """One stage-3 step (loss and gradients, no update) from the phase's
+    loaded model (G-Net's last conv scaled by 0.05: residuals of O(1), as a
+    trained G-Net gives) on its first batch, against the same step with f32
+    weights and the plain encode (D-Net and F-Net on the CPU, the fuse on
+    the card): the f32 step with the encode's kernels to
+    MAGNET_TRAIN_F32_TOL, the bf16 step to MAGNET_TRAIN_BF16_TOL; on the
+    way the f32 encode of the B (V + 1) frames against the plain one and
+    row 4 at batch B against its plain version."""
+    model = build_magnet_train(args, "cuda")
+    with torch.no_grad():
+        model.g_net.gnet[6].weight.mul_(0.05)
+    raw = base.collate([SyntheticMultiView(args).get(i)
+                        for i in range(MAGNET_TRAIN_B)])
+    batch = train_magnet.batch_to_device(raw, "cuda")
+    bf16 = magnet_step_grads(model, batch, args, torch.bfloat16)
+    f32 = magnet_step_grads(model, batch, args, torch.float32)
+    cpu = copy.deepcopy(model).cpu()
+    B, V = MAGNET_TRAIN_B, VIEWS
+    imgs = torch.cat([raw_t.reshape(-1, H, W, 3) for raw_t in (
+        torch.from_numpy(raw["ref_img"]), torch.from_numpy(raw["src_imgs"]))])
+    t = time.perf_counter()
+    plain = [e.cuda() for e in cpu.encode(imgs)]
+    cpu_s = time.perf_counter() - t
+    # the encode's kernels at N = B (V + 1) frames against the plain encode,
+    # f32, at the whole-forward limit of phase 7
+    card = model.encode(imgs.cuda())
+    enc_err = []
+    for name, a, b in zip(("gauss", "decoder feature", "matching feature"),
+                          card, plain):
+        err = (a - b).abs().max().item()
+        lim = MAGNET_TOL * b.abs().max().item()
+        log(f"  encode of {imgs.shape[0]} frames, {name}, f32 card vs CPU: "
+            f"max_abs_err {err:.3e} (limit {lim:.3e})")
+        if not err <= lim:
+            raise RuntimeError(f"the encode at N = {imgs.shape[0]} disagrees "
+                               "with its plain version")
+        enc_err.append(err / b.abs().max().item())
+    gauss, feat_d, feat_m = plain
+    encodings = (gauss[:B], feat_d[:B].contiguous(), feat_m[:B],
+                 gauss[B:].reshape(B, V, *gauss.shape[1:]),
+                 feat_m[B:].reshape(B, V, *feat_m.shape[1:]))
+    # row 4 on the batch of B samples against its plain version
+    geo = [batch[k] for k in ("R", "t", "is_valid", "intM", "rays2d")]
+    d_volume = encodings[0][..., 0:1] + encodings[0][..., 1:2] * model.k_list
+    cv_args = [d_volume, encodings[2], encodings[4], encodings[3][..., 0],
+               encodings[3][..., 1], *geo]
+    cv = cvk.cost_volume_cw(*cv_args, model.kappa)
+    cv_ref, margin = cvk.cost_volume_cw_ref(*cv_args, model.kappa,
+                                            return_margin=True)
+    cv_err, cv_lim, excluded = cvk.compare(cv, cv_ref, margin,
+                                           KERNEL_TOL[torch.float32])
+    log(f"  cost_volume_cw at batch {B}, f32: max_abs_err {cv_err:.3e} "
+        f"(limit {cv_lim:.3e}), {excluded:.5f} of the elements within "
+        f"{cvk.MARGIN} of the threshold left out")
+    ref = magnet_step_grads(model, batch, args, torch.float32, encodings)
+    if not ref[0] > 0 or not all(g.abs().max() > 0
+                                 for g in ref[1].values()):
+        raise RuntimeError("the reference step has no gradient")
+    errs = {"f32": grad_errors(f32, ref), "bf16": grad_errors(bf16, ref)}
+    for name, e in errs.items():
+        tol = MAGNET_TRAIN_F32_TOL if name == "f32" else MAGNET_TRAIN_BF16_TOL
+        log(f"  {name} step (the encode's kernels) vs the f32 step with the "
+            f"plain encode (CPU, {cpu_s:.1f} s): loss {ref[0]:.6f}, rel err "
+            f"{e['loss']:.2e} (limit {tol['loss']}); {len(ref[1])} G-Net and "
+            f"mask-head gradients worst {e['grad']:.2e} (limit "
+            f"{tol['grad']}), median {e['grad_median']:.2e} (limit "
+            f"{tol['grad_median']}) of their tensor's max")
+        if not all(e[k] <= v for k, v in tol.items()):
+            raise RuntimeError(f"the {name} stage-3 step disagrees with the "
+                               "f32 step with the plain encode")
+    return dict(errs, encode_rel_err=max(enc_err), cv_err=cv_err,
+                cv_excluded=excluded, cpu_encode_s=cpu_s)
+
+
+# ---- phase 14: streaming inference ----------------------------------------
+
+class SlidingWindows:
+    """A synthetic video of ``n`` frames of one scene along a smooth path,
+    and its windows: reference r with neighbours r - 2, r - 1, r + 1, r + 2,
+    stepping one frame. A frame keeps its view id in every window."""
+
+    def __init__(self, args, n: int):
+        from magnet_tpu_torch.data import synthetic
+        from magnet_tpu_torch.geometry import rays as rays_lib
+        self.args, self.n = args, n
+        h, w = args.input_height, args.input_width
+        K = np.array([[0.9 * w, 0, w / 2], [0, 0.9 * w, h / 2], [0, 0, 1.0]])
+        self.intM, self.rays2d = rays_lib.intrinsics_for_dpv(
+            K, w, h, args.dpv_width, args.dpv_height)
+        self.frames, self.depths, self.poses = [], [], []
+        pose = np.eye(4)
+        for i in range(n):
+            rng = np.random.RandomState(100 + i)
+            tex = np.stack([synthetic._smooth_noise(rng, h, w)
+                            for _ in range(3)], -1)
+            self.frames.append(base.normalize_image(
+                np.clip(0.5 + 0.25 * tex, 0, 1).astype(np.float32)))
+            self.depths.append(np.clip(
+                2.5 + synthetic._smooth_noise(rng, h, w), 0.5, 9.5))
+            self.poses.append(pose)
+            pose = pose @ synthetic._small_pose(rng)
+
+    def __len__(self) -> int:
+        return self.n - 4
+
+    def get(self, idx: int) -> dict:
+        from magnet_tpu_torch.data import synthetic
+        ids = list(range(idx, idx + 5))
+        return synthetic._pack_multiview(
+            [self.frames[i] for i in ids], [self.poses[i] for i in ids],
+            self.depths[idx + 2], 2, self.intM, self.rays2d, "video",
+            str(idx + 2), frame_ids=[str(i) for i in ids])
+
+
+def encode_batch_dependence(model, imgs: torch.Tensor) -> dict:
+    """Max |difference| between encoding the window's frames together (N = 5)
+    and one at a time (N = 1): ``encode``'s three outputs, and stage by
+    stage, once with each stage given the same input at both N (the N = 5
+    run's, sliced: "isolated") and once along each N's own path
+    ("chained"): the D-Net trunk (eager cuDNN), the decoder's 1x1 conv2 and
+    up1 (plain), up2 and up3 (rows 1-2), the head chain (row 3, on the
+    D-Net's mask head: the depth head's last conv is 0 here), the F-Net
+    (rows 6-9 with its plain stem conv and SPP branches)."""
+    dd = model.d_net.d_net
+    dec = dd.decoder
+
+    def stages(x):
+        """(name, fn, inputs, output) of each stage along x's own path."""
+        taps = dd.encoder(nchw(x))
+        f4, f5, f6, f8, f11 = taps
+        out = [("trunk", None, None, taps)]
+        fn = lambda t: nhwc(conv2d(t, dec.conv2))
+        y = fn(f11)
+        out.append(("conv2", fn, [f11], y))
+        for i, skip in enumerate([f8, f6, f5, f4][:dec.n_ups]):
+            up = getattr(dec, f"up{i + 1}")
+            fn = lambda a, b, up=up: up(a, nhwc(b))
+            nxt = fn(y, skip)
+            out.append((f"up{i + 1}", fn, [y, skip], nxt))
+            y = nxt
+        fn = lambda a: run_head(dec.mask_head, a)
+        out.append(("head chain", fn, [y], fn(y)))
+        out.append(("F-Net", model.f_net, [x], model.f_net(x)))
+        return out
+
+    diff = {"encode": {}, "isolated": {}, "chained": {}}
+
+    def note(kind, name, a, b):
+        for ai, bi in (zip(a, b) if isinstance(a, (list, tuple))
+                       else [(a, b)]):
+            d = (ai.float() - bi.float()).abs().max().item()
+            diff[kind][name] = max(diff[kind].get(name, 0.0), d)
+
+    with torch.inference_mode():
+        enc5 = model.encode(imgs)
+        full = stages(imgs)
+        for i in range(imgs.shape[0]):
+            enc1 = model.encode(imgs[i:i + 1])
+            for name, a, b in zip(("gauss", "decoder feature",
+                                   "matching feature"), enc1, enc5):
+                note("encode", name, a, b[i:i + 1])
+            for (name, fn, ins, out5), (_, _, _, out1) in zip(
+                    full, stages(imgs[i:i + 1])):
+                sl = ([t[i:i + 1] for t in out5] if name == "trunk"
+                      else out5[i:i + 1])
+                note("chained", name, out1, sl)
+                note("isolated", name, out1 if fn is None else
+                     fn(*[t[i:i + 1] for t in ins]), sl)
+    return diff
+
+
+def fusion_regime_(model, seed: int = 5):
+    """``realistic_depth_init_`` leaves G-Net's last conv at 0, so the fusion
+    would not move the map and a difference of features would not show;
+    give it weights at half the fan-in scale (residuals of O(0.5) sigma:
+    the map moves by several bf16 ulps, where phase 7's 0.05 moves it by
+    less than one) and bring the matching costs to O(1) (the F-Net's
+    projection / 500, as phase 7 does)."""
+    realistic_depth_init_(model)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        model.f_net.f_net.lastconv[2].weight.mul_(1.0 / 500.0)
+        w = model.g_net.gnet[6].weight
+        w.copy_(torch.randn(w.shape, generator=g) * (0.5 * 128 ** -0.5))
+    return model
+
+
+def run_streaming_path(exp_dir: str) -> dict:
+    """``test_magnet --cache_features`` (its streaming forward, the
+    harness) at test_scripts/magnet/scannet.txt's shape on a
+    STREAM_FRAMES-frame sliding-window sequence, then the monolithic forward
+    on the same windows: hits and misses (one miss a window in steady
+    state), ms per window by CUDA events, the largest difference between
+    the two, and which stage of the encode depends on the batch."""
+    args = config.setup_exp_dirs(magnet_args(
+        "cuda", "bfloat16", 1, exp_dir, ["--cache_features"]))
+    model, forward = test_magnet.prepare(args)
+    fusion_regime_(model)
+    mono = test_magnet.make_forward(model, torch.bfloat16,
+                                    torch.device("cuda"), ITERS)
+    windows = base.Loader(SlidingWindows(args, STREAM_FRAMES))
+    res = {"stream": ([], []), "mono": ([], [])}
+
+    def timed(fn, name):
+        def call(batch):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(batch)                 # ends in a copy to the host
+            ev[1].record()
+            torch.cuda.synchronize()
+            res[name][0].append(ev[0].elapsed_time(ev[1]))
+            res[name][1].append(out)
+            return out
+        return call
+
+    reset_counts()
+    m_stream = harness.evaluate_magnet(timed(forward, "stream"), windows,
+                                       args, progress=False)
+    counts = read_counts()
+    m_mono = harness.evaluate_magnet(timed(mono, "mono"), windows, args,
+                                     progress=False)
+    cache = forward.cache
+    n_win = len(windows)
+    log(f"  {STREAM_FRAMES} frames, {n_win} windows: cache {cache.hits} hits "
+        f"/ {cache.misses} misses (hit rate {cache.hit_rate:.3f})")
+    if (cache.misses, cache.hits) != (STREAM_FRAMES,
+                                      n_win * (VIEWS + 1) - STREAM_FRAMES):
+        raise RuntimeError("the streaming cache did not miss once a window "
+                           "in steady state")
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(conv3x3_bnact=4 * STREAM_FRAMES, head_chain=STREAM_FRAMES
+                + 2 * n_win, cost_volume_cw=ITERS * n_win,
+                gnet_update=ITERS * n_win, upsample_mask=n_win,
+                **{k: v * STREAM_FRAMES for k, v in FNET_LAUNCHES.items()})
+    log(f"  streaming launches: found {counts}, expected {want}")
+    if counts != want:
+        raise RuntimeError("the streaming path did not run its kernels as "
+                           "expected")
+    outs = {k: v[1] for k, v in res.items()}
+    for o in outs["stream"]:
+        if o.shape != (1, H, W, 2) or not np.isfinite(o).all() or not (
+                o[..., 1] > 0).all():
+            raise RuntimeError("bad streaming output")
+    moved = max(float(np.abs(b[..., 0] - 2.0).max()) for b in outs["mono"])
+    if not moved > 0.05:            # 3 bf16 ulps of the initial 2 m
+        raise RuntimeError(f"the fusion moved the map by {moved:.3e} only: "
+                           "a comparison would see no feature")
+    diff = max(float(np.abs(a - b).max())
+               for a, b in zip(outs["stream"], outs["mono"]))
+    equal = all(np.array_equal(a, b)
+                for a, b in zip(outs["stream"], outs["mono"]))
+    scale = max(float(np.abs(b).max()) for b in outs["mono"])
+    ms = {k: float(np.mean(v[0][1:])) for k, v in res.items()}
+    log(f"  ms per window by CUDA events (windows 2-{n_win}, host copies "
+        f"included): streaming {ms['stream']:.3f}, monolithic "
+        f"{ms['mono']:.3f} (first window {res['stream'][0][0]:.3f} / "
+        f"{res['mono'][0][0]:.3f}); largest |streaming - monolithic| "
+        f"{diff:.4e} of max|map| {scale:.4e} (the fusion moved mu by up to "
+        f"{moved:.4f} m), equal bit for bit: {equal}; "
+        f"abs_rel {m_stream['abs_rel']:.5f} / {m_mono['abs_rel']:.5f}")
+    if not diff <= STREAM_TOL * scale:
+        raise RuntimeError("the streaming forward disagrees with the "
+                           "monolithic one")
+    batch = windows.dataset.get(0)
+    imgs = torch.from_numpy(np.concatenate(
+        [batch["ref_img"][None], batch["src_imgs"]])).to("cuda",
+                                                         torch.bfloat16)
+    dep = encode_batch_dependence(model, imgs)
+    for kind, d in dep.items():
+        log(f"  the encode at N = 1 against N = 5, max |diff|, {kind}: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in d.items()))
+    return dict(hits=cache.hits, misses=cache.misses, windows=n_win,
+                ms_per_window=ms, first_window_ms={k: v[0][0] for k, v in
+                                                   res.items()},
+                max_abs_diff=diff, equal=equal, max_abs_map=scale,
+                fusion_moved=moved,
+                launches=counts, batch_dependence=dep,
+                abs_rel=dict(stream=m_stream["abs_rel"],
+                             mono=m_mono["abs_rel"]))
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default="", help="also write the results here")
@@ -1620,6 +2230,7 @@ def main() -> int:
     cv_rows = check_cost_volume_kernel(dev)
     gnet_rows = check_gnet_kernel(dev)
     up_rows = check_upsample_kernel(dev)
+    upbwd_rows = check_upsample_bwd_kernel(dev)
     psm_rows = check_psm_kernels(dev)
     sweep_fwd_rows = check_sweep_forward(dev)
     sweep_rows = check_sweep_kernel(dev)
@@ -1627,7 +2238,8 @@ def main() -> int:
     dw_rows = check_dw_kernel(dev)
     rb_rows = check_resblock_kernel(dev)
     sites = (conv_rows + head_rows + cv_rows + sweep_fwd_rows + gnet_rows
-             + up_rows + psm_rows + sweep_rows + mb_rows + dw_rows + rb_rows)
+             + up_rows + upbwd_rows + psm_rows + sweep_rows + mb_rows
+             + dw_rows + rb_rows)
     for r in sites:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -1696,6 +2308,21 @@ def main() -> int:
                                           exp_dir),
         fnet=KITTI_FNET_LAUNCHES, stages=True)
     kitti_fnet = check_kitti_fnet(exp_dir)
+    log(f"[12] D-Net training: train_dnet at {DNET_CROP[0]}x{DNET_CROP[1]}, "
+        f"bf16, batch {DNET_TRAIN_B} where it fits, {DNET_TRAIN_STEPS} "
+        f"steps and a validation pass")
+    dnet_train = run_dnet_train_path(exp_dir)
+    log(f"[13] MaGNet training: train_magnet at {H}x{W}, batch "
+        f"{MAGNET_TRAIN_B}, {VIEWS} source views, {SAMPLES} candidates, "
+        f"{ITERS} iterations, bf16, from phase 12's D-Net and phase 8's "
+        f"F-Net, {MAGNET_TRAIN_STEPS} steps and a validation pass")
+    margs = magnet_train_args(exp_dir, dnet_train["ckpt"], train_path["ckpt"])
+    magnet_train = run_magnet_train_path(margs)
+    magnet_train["step_check"] = check_magnet_train_step(margs)
+    log(f"[14] streaming: test_magnet --cache_features at {H}x{W}, bf16, on "
+        f"a {STREAM_FRAMES}-frame sliding window, against the monolithic "
+        f"forward")
+    stream = run_streaming_path(exp_dir)
 
     runs = {"magnet": (magnet_path, MAGNET_FRAMES),
             "dnet_trunk": (trunk_dnet, DNET_FRAMES),
@@ -1793,6 +2420,30 @@ def main() -> int:
     kernels.append(entry("res_block", csrc + "res_block.cu",
                          "magnet_tpu/kernels/resstream_pallas.py:173",
                          rb_rows, "res_block", path="magnet_kitti"))
+    # the port's own kernel: the convex upsampling's backward, per MaGNet
+    # training step (phase 13; the D-Net's step of phase 12 beside)
+    for path, run in (("magnet_train", magnet_train),
+                      ("dnet_train", dnet_train)):
+        r = next(r for r in upbwd_rows if r["path"] == path)
+        row = dict(
+            name="upsample_mask_bwd", route="cuda",
+            source=csrc + "upsample_mask.cu",
+            replaces="magnet_tpu/ops/upsample.py:31",
+            note="port-only: the backward of convex upsampling, which the "
+                 "JAX package takes by XLA autodiff (no TPU kernel)",
+            path=path, launches=run["launches"]["upsample_mask_bwd"],
+            launches_per_step=run["per_step"]["upsample_mask_bwd"],
+            max_abs_err=max(x["err_bf16"] for x in upbwd_rows),
+            max_abs_err_f32=max(x["err_f32"] for x in upbwd_rows),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None)
+        if row["launches"] < 1:
+            raise RuntimeError(f"upsample_mask_bwd was not launched on the "
+                               f"{path} path")
+        if path == "magnet_train":
+            kernels.append(row)
+        else:
+            kernels[-1]["dnet_train"] = row
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump(dict(device=smi, kernels=kernels, sites=sites,
@@ -1802,7 +2453,9 @@ def main() -> int:
                            trunk_dnet_path=trunk_dnet,
                            trunk_magnet_path=trunk_magnet,
                            trunk_f32=trunk_err, trunk_compare=trunk_cmp,
-                           kitti_path=kitti_path, kitti_fnet=kitti_fnet),
+                           kitti_path=kitti_path, kitti_fnet=kitti_fnet,
+                           dnet_train=dnet_train, magnet_train=magnet_train,
+                           streaming=stream),
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

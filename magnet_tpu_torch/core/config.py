@@ -2,7 +2,7 @@
 
 The port's copy of the flags of ``magnet_tpu/core/config.py::
 build_test_dnet_parser``, ``build_test_magnet_parser`` and
-``build_train_fnet_parser``, in the same ``@file`` format
+``build_train_{dnet,fnet,magnet}_parser``, in the same ``@file`` format
 (whitespace-separated tokens, one or more per line), so the reference flag
 files in ``test_scripts/`` and ``train_scripts/`` parse unchanged. Added:
 ``--device`` (default ``cuda``), and on the evaluation parsers the switches
@@ -144,34 +144,34 @@ def build_test_magnet_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream_blocks", default=False, action="store_true",
                    help="each stride-1 F-Net BasicBlock as one "
                         "kernels.res_block launch")
+    p.add_argument("--cache_features", default=False, action="store_true",
+                   help="streaming eval: encode each distinct frame once "
+                        "and cache the encodings across overlapping "
+                        "windows (eval/streaming.py)")
+    p.add_argument("--cache_max_frames", type=int, default=48,
+                   help="LRU capacity of the streaming feature cache")
     return p
 
 
-def build_train_fnet_parser() -> argparse.ArgumentParser:
-    """The flags of the reference train_FNet.py:236-295 that the port reads
-    or that the reference flag files set, and ``--remat`` and
-    ``--mesh_shape``, which raise unless off (``check_train_flags``)."""
-    p = argparse.ArgumentParser(fromfile_prefix_chars="@")
-    p.convert_arg_line_to_args = convert_arg_line_to_args
+def _add_train_flags(p: argparse.ArgumentParser, default_batch: int) -> None:
+    """The flags every training entry point shares: the run, the optimizer,
+    the data, the device."""
     p.add_argument("--exp_name", required=True, type=str)
     p.add_argument("--exp_dir", required=True, type=str)
     p.add_argument("--visible_gpus", default="0", type=str,
                    help="accepted for flag-file compatibility; unused")
-    p.add_argument("--FNET_architecture", type=str, default="PSM-Net")
-    p.add_argument("--FNET_feature_dim", type=int, default=64)
-    p.add_argument("--MAGNET_window_radius", type=int, default=20,
-                   help="accepted for flag-file compatibility; unused")
-    p.add_argument("--MAGNET_num_source_views", type=int, default=4)
-    p.add_argument("--loss_fn", default="l1", type=str)
     p.add_argument("--n_epochs", default=5, type=int)
-    p.add_argument("--batch_size", default=4, type=int)
+    p.add_argument("--batch_size", default=default_batch, type=int)
     p.add_argument("--validate_every", default=5000, type=int)
     p.add_argument("--visualize_every", default=1000, type=int,
-                   help="accepted; the port does not visualise yet")
+                   help="accepted; the port does not visualise (no "
+                        "matplotlib on the card's machine)")
     p.add_argument("--workers", default=4, type=int,
                    help="accepted; the port's loader runs in the caller")
     p.add_argument("--remat", default=False, action="store_true",
-                   help="not in the port yet: raises")
+                   help="recompute the backbone's blocks in the backward "
+                        "(torch.utils.checkpoint): less memory, the same "
+                        "gradients")
     p.add_argument("--weight_decay", default=0.01, type=float)
     p.add_argument("--lr", default=0.000357, type=float)
     p.add_argument("--grad_clip", default=1.0, type=float)
@@ -181,14 +181,11 @@ def build_train_fnet_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset_path", required=True, type=str)
     p.add_argument("--input_height", type=int, default=480)
     p.add_argument("--input_width", type=int, default=640)
-    p.add_argument("--dpv_height", type=int, default=120)
-    p.add_argument("--dpv_width", type=int, default=160)
     p.add_argument("--min_depth", type=float, default=1e-3)
     p.add_argument("--max_depth", type=float, default=10)
+    p.add_argument("--do_kb_crop", default=True, action="store_true")
     p.add_argument("--eigen_crop", default=False, action="store_true")
     p.add_argument("--garg_crop", default=False, action="store_true")
-    p.add_argument("--FNET_num_depth_bins", type=int, default=80,
-                   help="number of fixed sweep planes for F-Net training")
     p.add_argument("--mesh_shape", type=str, default="auto",
                    help="'auto' or '1': the port trains on --device")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
@@ -203,22 +200,127 @@ def build_train_fnet_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the plain versions of "
                         "the kernels")
+
+
+def _new_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(fromfile_prefix_chars="@")
+    p.convert_arg_line_to_args = convert_arg_line_to_args
     return p
 
 
-def check_train_flags(args: argparse.Namespace) -> None:
-    """Raise on a training flag whose feature the port does not have."""
+def build_train_fnet_parser() -> argparse.ArgumentParser:
+    """The flags of the reference train_FNet.py:236-295 that the port reads
+    or that the reference flag files set, and ``--mesh_shape``, which
+    raises unless one device (``check_train_flags``)."""
+    p = _new_parser()
+    _add_train_flags(p, default_batch=4)
+    p.add_argument("--FNET_architecture", type=str, default="PSM-Net")
+    p.add_argument("--FNET_feature_dim", type=int, default=64)
+    p.add_argument("--MAGNET_window_radius", type=int, default=20,
+                   help="accepted for flag-file compatibility; unused")
+    p.add_argument("--MAGNET_num_source_views", type=int, default=4)
+    p.add_argument("--loss_fn", default="l1", type=str)
+    p.add_argument("--dpv_height", type=int, default=120)
+    p.add_argument("--dpv_width", type=int, default=160)
+    p.add_argument("--FNET_num_depth_bins", type=int, default=80,
+                   help="number of fixed sweep planes for F-Net training")
+    return p
+
+
+def _add_dnet_train_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--DNET_fix_encoder_weights", type=str, default="None",
+                   help="None, or AdaBins_fix: the encoder loaded from "
+                        f"{ADABINS_ENCODER} and frozen")
+    p.add_argument("--encoder_ckpt", type=str, default="",
+                   help="a tf_efficientnet_b5_ap ImageNet state dict (.pt) "
+                        "to start the D-Net encoder from (trainable, at "
+                        "lr / 10)")
+
+
+def build_train_dnet_parser() -> argparse.ArgumentParser:
+    """The flags of the reference train_DNet.py:215-272 (the JAX package's
+    ``build_train_dnet_parser``) that the port reads or that the reference
+    flag files set. The synthetic training items are drawn at
+    ``--crop_height`` x ``--crop_width``, validation at the input size;
+    the augmentation flags are accepted and the synthetic items are not
+    augmented, as in the JAX package."""
+    p = _new_parser()
+    _add_train_flags(p, default_batch=16)
+    p.add_argument("--output_dim", required=True, type=int, help="{1, 2}")
+    p.add_argument("--output_type", required=True, type=str, help="{R, G}")
+    p.add_argument("--downsample_ratio", type=int, default=4)
+    p.add_argument("--DNET_architecture", required=True, type=str,
+                   help="DenseDepth_BN (the port's only D-Net)")
+    _add_dnet_train_flags(p)
+    p.add_argument("--loss_fn", default="gaussian", type=str)
+    p.add_argument("--same_lr", default=False, action="store_true",
+                   help="the encoder at the full learning rate")
+    p.add_argument("--crop_height", type=int, default=416)
+    p.add_argument("--crop_width", type=int, default=544)
+    for flag in ("flip", "crop", "color", "rotate"):
+        p.add_argument(f"--data_augmentation_{flag}", default=True,
+                       action="store_true",
+                       help="accepted; the synthetic items are not "
+                            "augmented")
+    return p
+
+
+def build_train_magnet_parser() -> argparse.ArgumentParser:
+    """The flags of the reference train_MaGNet.py:222-290 (the JAX package's
+    ``build_train_magnet_parser``) that the port reads or that the reference
+    flag files set."""
+    p = _new_parser()
+    _add_train_flags(p, default_batch=4)
+    p.add_argument("--output_dim", default=2, type=int, help="{1, 2}")
+    p.add_argument("--output_type", default="G", type=str, help="{R, G}")
+    p.add_argument("--downsample_ratio", type=int, default=4)
+    p.add_argument("--DNET_architecture", type=str, default="DenseDepth_BN",
+                   help="DenseDepth_BN (the port's only D-Net)")
+    p.add_argument("--DNET_fix_encoder_weights", type=str, default="None",
+                   help="accepted for flag-file compatibility; unused")
+    p.add_argument("--DNET_ckpt", required=True, type=str,
+                   help="stage-1 checkpoint (reference .pt or the port's "
+                        "train_dnet); empty keeps seeded weights")
+    p.add_argument("--FNET_architecture", type=str, default="PSM-Net")
+    p.add_argument("--FNET_feature_dim", type=int, default=64)
+    p.add_argument("--FNET_ckpt", required=True, type=str,
+                   help="stage-2 checkpoint (reference .pt or the port's "
+                        "train_fnet); empty keeps seeded weights")
+    p.add_argument("--MAGNET_sampling_range", type=int, default=3)
+    p.add_argument("--MAGNET_num_samples", type=int, default=5)
+    p.add_argument("--MAGNET_mvs_weighting", type=str, default="CW5")
+    p.add_argument("--MAGNET_num_train_iter", type=int, default=3)
+    p.add_argument("--MAGNET_num_test_iter", type=int, default=3)
+    p.add_argument("--MAGNET_window_radius", type=int, default=10,
+                   help="accepted for flag-file compatibility; unused")
+    p.add_argument("--MAGNET_num_source_views", type=int, default=4)
+    p.add_argument("--loss_fn", default="gaussian", type=str)
+    p.add_argument("--loss_gamma", default=0.8, type=float)
+    p.add_argument("--dpv_height", type=int, default=120)
+    p.add_argument("--dpv_width", type=int, default=160)
+    p.add_argument("--data_augmentation_color", default=True,
+                   action="store_true",
+                   help="accepted; the synthetic items are not augmented")
+    return p
+
+
+# AdaBins_fix's encoder, the path the reference and the JAX package read
+ADABINS_ENCODER = "./ckpts/AdaBins_kitti_encoder.pt"
+
+
+def check_train_flags(args: argparse.Namespace, loss_fn: str = "l1") -> None:
+    """Raise on a training flag whose feature the port does not have;
+    ``loss_fn`` is the loss of the calling stage."""
     unsupported = []
-    if args.remat:
-        unsupported.append("--remat")
     if args.mesh_shape not in ("auto", "1"):
         unsupported.append(f"--mesh_shape {args.mesh_shape} (one device)")
     if args.dataset_name != "synthetic":
         unsupported.append(f"--dataset_name {args.dataset_name} (the port "
                            "has 'synthetic')")
-    if args.FNET_architecture != "PSM-Net":
-        unsupported.append(f"--FNET_architecture {args.FNET_architecture}")
-    if args.loss_fn != "l1":
+    arch = getattr(args, "FNET_architecture", "PSM-Net")
+    if arch != "PSM-Net":
+        unsupported.append(f"--FNET_architecture {arch}")
+    if args.loss_fn != loss_fn:
         unsupported.append(f"--loss_fn {args.loss_fn}")
     if unsupported:
         raise ValueError("not ported yet: " + ", ".join(unsupported))

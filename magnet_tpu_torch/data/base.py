@@ -8,9 +8,10 @@ order for evaluation (batch 1 by default), shuffled per epoch for training.
 Item schema, multi-view: ref_img (H, W, 3) f32 ImageNet-normalised; src_imgs
 (V, H, W, 3); depth (H, W) of the reference frame, 0 where invalid; R, t
 (V, 3, 3), (V, 3) relative poses source <- reference; is_valid (V,); intM
-(3, 3) intrinsics at cost-volume resolution; rays2d (3, h*w) unit rays.
+(3, 3) intrinsics at cost-volume resolution; rays2d (3, h*w) unit rays;
+view_ids, one string a frame (reference first), the streaming cache's keys.
 Single-view: img (H, W, 3), depth (H, W). ``collate`` stacks the arrays of
-either and lists the rest.
+either and lists the rest (``view_ids`` as a list of lists).
 """
 
 from __future__ import annotations

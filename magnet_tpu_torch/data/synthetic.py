@@ -47,15 +47,18 @@ def _small_pose(rng, rot_scale=0.02, t_scale=0.05):
 
 
 def _pack_multiview(imgs, extMs, depth, center, intM, rays2d, scene,
-                    img_idx) -> Dict:
-    """Split reference and sources; relative poses and their validity."""
+                    img_idx, frame_ids=None) -> Dict:
+    """Split reference and sources; relative poses and their validity.
+    ``frame_ids``, one token a frame of ``imgs``, become ``view_ids`` =
+    ["scene/ref", "scene/src0", ...], the keys of the streaming cache
+    (``eval/streaming.py``): the same frame must get the same id."""
     ref_ext = np.asarray(extMs[center])[None]
     src_ext = np.asarray([extMs[i] for i in range(len(extMs))
                           if i != center])[None]
     rel, valid = poses_lib.relative_poses(ref_ext, src_ext)
     R, t = poses_lib.split_rt(rel)
     src_imgs = np.stack([imgs[i] for i in range(len(imgs)) if i != center])
-    return {
+    out = {
         "ref_img": imgs[center].astype(np.float32),
         "src_imgs": src_imgs.astype(np.float32),
         "depth": depth.astype(np.float32),
@@ -64,6 +67,11 @@ def _pack_multiview(imgs, extMs, depth, center, intM, rays2d, scene,
         "rays2d": rays2d.astype(np.float32),
         "scene_name": scene, "img_idx": img_idx,
     }
+    if frame_ids is not None:
+        out["view_ids"] = [f"{scene}/{frame_ids[center]}"] + [
+            f"{scene}/{frame_ids[i]}" for i in range(len(frame_ids))
+            if i != center]
+    return out
 
 
 class SyntheticMultiView:
@@ -93,14 +101,20 @@ class SyntheticMultiView:
             imgs.append(base.normalize_image(img))
             extMs.append(np.eye(4) if i == self.center
                          else _small_pose(rng))
+        # every sample draws its own frames, so every view id is unique
         return _pack_multiview(imgs, extMs, depth, self.center, intM,
-                               rays2d, "synthetic", str(idx))
+                               rays2d, "synthetic", str(idx),
+                               frame_ids=[f"{idx}_{i}"
+                                          for i in range(len(imgs))])
 
 
 class SyntheticSingleView:
-    def __init__(self, args):
+    """Single-view items at the input size, or at ``size`` (H, W): the
+    D-Net's training crop."""
+
+    def __init__(self, args, size=None):
         self.length = args.synthetic_length
-        self.img_w, self.img_h = args.input_width, args.input_height
+        self.img_h, self.img_w = size or (args.input_height, args.input_width)
 
     def __len__(self):
         return self.length
@@ -130,10 +144,18 @@ def make_multiview_loader(args, mode: str = "test") -> base.Loader:
                      "the port has 'synthetic'")
 
 
-def make_singleview_loader(args) -> base.Loader:
-    """Dataset dispatch for the D-Net evaluation. The on-disk datasets are
-    not ported yet."""
+def make_singleview_loader(args, mode: str = "test") -> base.Loader:
+    """Dataset dispatch for the D-Net: a mode containing "train" gives the
+    shuffled training loader at ``--batch_size``, its items drawn at
+    ``--crop_height`` x ``--crop_width`` (the size of the reference's random
+    crop), any other mode the evaluation loader at batch 1 and the input
+    size. The on-disk datasets are not ported yet."""
     if args.dataset_name == "synthetic":
+        if "train" in mode:
+            return base.Loader(
+                SyntheticSingleView(args, (args.crop_height, args.crop_width)),
+                batch_size=args.batch_size, train=True,
+                seed=getattr(args, "seed", 0))
         return base.Loader(SyntheticSingleView(args))
     raise ValueError(f"dataset {args.dataset_name!r} is not ported; "
                      "the port has 'synthetic'")

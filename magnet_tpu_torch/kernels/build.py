@@ -41,6 +41,9 @@ _SIGNATURES = {
     "mt_gnet_update": [_I] + [_P] * 11 + [_I] * 4 + [_P],
     # dtype, n, depth0..3, mask, out0..3, B, H, W, C, k, stream
     "mt_upsample_mask": [_I] * 2 + [_P] * 9 + [_I] * 5 + [_P],
+    # dtype, n, grad0..3, depth0..3, mask, gdepth0..3, gmask, B, H, W, C,
+    # k, stream
+    "mt_upsample_mask_bwd": [_I] * 2 + [_P] * 14 + [_I] * 5 + [_P],
     # dtype, x0, x1, x2, w, scale, shift, res, out, N, H, W, C0, C1, C2,
     # Cout, taps, stride, dil, relu, kblock, stream
     "mt_psm_conv": [_I] + [_P] * 8 + [_I] * 12 + [_P],

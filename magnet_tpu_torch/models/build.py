@@ -8,7 +8,9 @@ the port's own training checkpoints (``train/checkpoint.py``: a directory of
 steps, one step's directory or its ``state.pt``), and an empty path keeps
 the seeded weights (smoke runs without a checkpoint).
 ``build_magnet_f`` makes the F-Net training head with the JAX package's
-training initialisation (``init_train_weights_``).
+training initialisation (``init_train_weights_``), ``build_dnet_train`` the
+D-Net of stage 1 (``init_flax_weights_``) and ``build_magnet_train`` the
+stage-3 pipeline with its stage checkpoints loaded.
 ``cast_for_inference`` applies the compute-dtype policy;
 ``realistic_depth_init_`` puts seeded random weights into the depth regime
 of a trained network.
@@ -75,13 +77,45 @@ def init_train_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
     return model
 
 
+def init_flax_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
+    """flax's default initialisation, the JAX package's D-Net at the start
+    of training: every conv weight normal with std fan_in ** -0.5 (LeCun;
+    flax truncates it at two standard deviations, here it is not), biases
+    0, BatchNorm scale 1, bias 0, running mean 0 and variance 1; seeded from
+    ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                m.weight.normal_(0.0, m.weight[0].numel() ** -0.5,
+                                 generator=g)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+    return model
+
+
 def build_magnet_f(args, device: str = None) -> MagnetF:
     """The F-Net training head of the flags, initialised for training from
     ``--seed``, in train mode on ``device`` (default ``--device``), f32."""
     if args.FNET_architecture != "PSM-Net":
         raise ValueError(f"unknown F-Net arch {args.FNET_architecture!r}")
-    model = MagnetF(fnet_feature_dim=args.FNET_feature_dim)
+    model = MagnetF(fnet_feature_dim=args.FNET_feature_dim,
+                    remat=getattr(args, "remat", False))
     init_train_weights_(model, getattr(args, "seed", 0))
+    return model.train().to(device or args.device)
+
+
+def build_dnet_train(args, device: str = None) -> DNet:
+    """The D-Net of stage 1 from the flags (``--remat`` included),
+    initialised as flax initialises it from ``--seed``, in train mode on
+    ``device`` (default ``--device``), f32."""
+    _check_arch(args)
+    model = DNet(output_dim=args.output_dim, output_type=args.output_type,
+                 downsample_ratio=args.downsample_ratio,
+                 remat=getattr(args, "remat", False))
+    init_flax_weights_(model, getattr(args, "seed", 0))
     return model.train().to(device or args.device)
 
 
@@ -154,6 +188,14 @@ def build_magnet(args, device: str = None) -> Magnet:
                    **trunk_switches(args))
     init_weights_(model, getattr(args, "seed", 0))
     return model.eval().to(device or args.device)
+
+
+def build_magnet_train(args, device: str = None) -> Magnet:
+    """The stage-3 pipeline of the flags: ``build_magnet``'s model with the
+    ``--DNET_ckpt`` and ``--FNET_ckpt`` stage checkpoints loaded, in train
+    mode (G-Net and the mask head; ``Magnet.train``), f32."""
+    model = build_magnet(args, device)
+    return load_magnet_checkpoints(model, args).train()
 
 
 def load_magnet_checkpoints(model: Magnet, args) -> Magnet:

@@ -34,22 +34,25 @@ def activation_gaussian_stdev(out: torch.Tensor) -> torch.Tensor:
 
 class DNet(nn.Module):
     """Standalone D-Net: (B, H, W, 3) -> (B, H, W, output_dim).
-    ``mbconv_chain`` and ``dw_kernel`` switch the trunk's kernels
-    (``nn.efficientnet``)."""
+    ``mbconv_chain`` and ``dw_kernel`` switch the trunk's kernels,
+    ``remat`` recomputes its blocks in the backward (``nn.efficientnet``).
+    Train mode (stage 1) draws the trunk's drop-path masks from
+    ``generator``."""
 
     def __init__(self, output_dim: int = 2, output_type: str = "G",
                  downsample_ratio: int = 4, mbconv_chain=None,
-                 dw_kernel: bool = False):
+                 dw_kernel: bool = False, remat: bool = False):
         super().__init__()
         self.output_type = output_type
         self.d_net = DenseDepth(num_classes=output_dim,
                                 downsample_ratio=downsample_ratio,
                                 learned_upsampling=True, as_dnet=True,
                                 mbconv_chain=mbconv_chain,
-                                dw_kernel=dw_kernel)
+                                dw_kernel=dw_kernel, remat=remat)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
-        out = self.d_net(img)
+    def forward(self, img: torch.Tensor,
+                generator: torch.Generator = None) -> torch.Tensor:
+        out = self.d_net(img, generator)
         if self.output_type == "G":
             return activation_gaussian(out)
         return out

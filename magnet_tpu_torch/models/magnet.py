@@ -1,8 +1,8 @@
-"""MaGNet: the multi-view fusion pipeline, inference forward, PyTorch.
+"""MaGNet: the multi-view fusion pipeline, PyTorch.
 
 Counterpart of ``magnet_tpu/models/magnet.py``:
   1. ``encode``: D-Net and F-Net on the reference and source frames in one
-     batched pass;
+     batched pass, frozen (no autograd, eval mode);
   2. ``fuse``: N refinement steps, each sampling per-pixel depth candidates
      mu + sigma * k from the current Gaussian (k from the inverse normal CDF,
      equal-probability bins within +-beta), building the consistency-weighted
@@ -13,6 +13,14 @@ On the card each refinement step is two kernel launches
 (``kernels.cost_volume_cw``, ``kernels.gnet_update``), the mask head and
 G-Net's feature term go through ``kernels.head_chain``, and the upsamplings
 of all the iterations are one launch of ``kernels.upsample_mask``.
+
+Training (stage 3) trains G-Net and the mask head alone: ``Magnet.train()``
+leaves the D-Net and F-Net in eval mode, so ``encode`` still runs their
+kernels; G-Net and the mask head then run plain convs with autograd, the
+cost volume (row 4's kernel) sees the previous prediction detached, and the
+upsampling's backward is ``kernels.upsample_mask``'s kernel. The streaming
+path (``eval/streaming.py``) calls ``encode`` once a frame and ``fuse`` once
+a window.
 
 Parameter names give the reference checkpoint layout: ``d_net.d_net.*``,
 ``f_net.f_net.*``, ``g_net.gnet.{0,2,4,6}``, ``mask_head.{0,2,4,6}``.
@@ -98,10 +106,22 @@ class Magnet(nn.Module):
             "k_list", torch.from_numpy(gaussian_sampling_offsets(
                 sampling_range, n_samples)), persistent=False)
 
+    def train(self, mode: bool = True) -> "Magnet":
+        """G-Net and the mask head follow ``mode``; the D-Net and F-Net stay
+        in eval mode, frozen as the JAX package's ``_frozen`` backbones
+        are."""
+        super().train(mode)
+        self.d_net.eval()
+        self.f_net.eval()
+        return self
+
+    @torch.no_grad()
     def encode(self, imgs: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """imgs: (N, H, W, 3) -> coarse (mu, sigma) (N, h, w, 2), the
-        decoder feature (N, h, w, 256), the matching feature (N, h, w, F)."""
+        decoder feature (N, h, w, 256), the matching feature (N, h, w, F);
+        no gradient reaches the backbones (the JAX package's
+        stop_gradient)."""
         gauss, feat_d = self.d_net(imgs)
         return gauss, feat_d, self.f_net(imgs)
 
@@ -123,12 +143,14 @@ class Magnet(nn.Module):
         feat_contrib = self.g_net.precompute_feature(x_d3)
         preds = [ref_gauss]
         for _ in range(n_iters):
-            prev = preds[-1].float()
-            d_volume = prev[..., 0:1] + prev[..., 1:2] * self.k_list
+            # the previous prediction is detached, as in the JAX package
+            prev = preds[-1].detach()
+            d_volume = (prev[..., 0:1].float()
+                        + prev[..., 1:2].float() * self.k_list)
             cv = cvk.cost_volume_cw(d_volume, ref_feat, src_feat, src_mu,
                                     src_sigma, src_R, src_t, is_valid, intM,
                                     rays2d, self.kappa, ops)
-            preds.append(self.g_net(cv, feat_contrib, preds[-1]))
+            preds.append(self.g_net(cv, feat_contrib, prev))
         mask = run_head(self.mask_head, x_d3)
         return upsample_via_mask(preds[1:], mask, self.downsample_ratio)
 
@@ -154,12 +176,12 @@ class MagnetF(nn.Module):
     """F-Net training head: features + fixed-sweep cost volume
     (MAGNET.py:179-202). Inputs as in ``Magnet.forward``; d_center: (D,)
     sweep depths. Returns the (B, h, w, D) cost volume, softmaxed over D.
-    Train mode trains the F-Net (``nn.psmnet``); eval mode runs its
-    kernels."""
+    Train mode trains the F-Net (``nn.psmnet``; ``remat`` recomputes its
+    blocks in the backward); eval mode runs its kernels."""
 
-    def __init__(self, fnet_feature_dim: int = 64):
+    def __init__(self, fnet_feature_dim: int = 64, remat: bool = False):
         super().__init__()
-        self.f_net = FNet(feature_dim=fnet_feature_dim)
+        self.f_net = FNet(feature_dim=fnet_feature_dim, remat=remat)
 
     def forward(self, ref_img: torch.Tensor, src_imgs: torch.Tensor,
                 src_R: torch.Tensor, src_t: torch.Tensor,

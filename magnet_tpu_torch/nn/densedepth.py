@@ -12,7 +12,10 @@ Where the JAX package runs a TPU kernel, the port runs a Hopper kernel:
 * the depth and mask heads: ``kernels.head_chain``, on operands kept on
   the head (``run_head``).
 up1 (1024 features) and the 1x1 ``conv2`` run as plain PyTorch convs, as
-the JAX package runs them in XLA.
+the JAX package runs them in XLA. In train mode (D-Net training) every
+stage runs conv -> train-mode BatchNorm -> LeakyReLU and the heads run
+plain convs, as the JAX package gates its kernels ``not train``: a module
+chooses its path by ``self.training`` alone.
 
 Parameter names give the reference state-dict layout:
 ``encoder.original_model.*``, ``decoder.conv2``,
@@ -31,8 +34,8 @@ import torch.nn as nn
 from magnet_tpu_torch.kernels.conv3x3_bnact import conv3x3_bnact, pack_weights
 from magnet_tpu_torch.kernels.head_chain import head_chain, head_operands
 from magnet_tpu_torch.nn.efficientnet import EfficientNetB5Features
-from magnet_tpu_torch.nn.layers import (batch_norm, cached_fold, conv2d,
-                                        fold_bn, hwio, leaky_relu, nchw, nhwc)
+from magnet_tpu_torch.nn.layers import (cached_fold, conv2d, fold_bn, hwio,
+                                        leaky_relu, nchw, nhwc, norm)
 from magnet_tpu_torch.ops.resample import resize_bilinear_align_corners
 from magnet_tpu_torch.ops.upsample import upsample_bilinear, upsample_via_mask
 
@@ -76,7 +79,8 @@ class UpSampleBN(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         """x: (N, h, w, Cx), skip: (N, H, W, Cs), NHWC."""
-        if self.features in KERNEL_STAGE_FEATURES:
+        t = self.training
+        if self.features in KERNEL_STAGE_FEATURES and not t:
             op_a, op_b = self.operands(x.dtype, x.shape[-1])
             mid = conv3x3_bnact(x, skip=skip.to(x.dtype), upsample=True,
                                 **op_a)
@@ -84,8 +88,8 @@ class UpSampleBN(nn.Module):
         conv_a, bn_a, _, conv_b, bn_b, _ = self._net
         up = resize_bilinear_align_corners(x, skip.shape[1], skip.shape[2])
         y = conv2d(torch.cat([nchw(up), nchw(skip).to(x.dtype)], 1), conv_a)
-        y = leaky_relu(batch_norm(y, bn_a))
-        y = leaky_relu(batch_norm(conv2d(y, conv_b), bn_b))
+        y = leaky_relu(norm(y, bn_a, t))
+        y = leaky_relu(norm(conv2d(y, conv_b), bn_b, t))
         return nhwc(y)
 
 
@@ -96,10 +100,16 @@ def _head(in_ch: int, out_ch: int, hidden: int = 128) -> nn.Sequential:
 
 
 def run_head(head: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-    """conv3x3 -> ReLU -> conv1x1 -> ReLU -> conv1x1 through the head-chain
+    """conv3x3 -> ReLU -> conv1x1 -> ... -> conv1x1 through the head-chain
     kernel. x: (N, H, W, C) NHWC. The chain's HWIO weights and, on a CUDA
     device, the kernel's operands are kept on ``head`` until a parameter
-    changes (``cached_fold``)."""
+    changes (``cached_fold``). A head in train mode runs its plain convs in
+    x's dtype, with autograd."""
+    if head.training:
+        y = nchw(x)
+        for m in head:
+            y = conv2d(y, m) if isinstance(m, nn.Conv2d) else m(y)
+        return nhwc(y)
     mods = [m for m in head if isinstance(m, nn.Conv2d)]
 
     def fold():
@@ -113,12 +123,14 @@ def run_head(head: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
 
 class Encoder(nn.Module):
     def __init__(self, mbconv_chain: Union[None, str, Sequence[int]] = None,
-                 dw_kernel: bool = False):
+                 dw_kernel: bool = False, remat: bool = False):
         super().__init__()
-        self.original_model = EfficientNetB5Features(mbconv_chain, dw_kernel)
+        self.original_model = EfficientNetB5Features(mbconv_chain, dw_kernel,
+                                                     remat)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        return self.original_model(x)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator = None) -> List[torch.Tensor]:
+        return self.original_model(x, generator)
 
 
 class Decoder(nn.Module):
@@ -143,24 +155,26 @@ class DenseDepth(nn.Module):
       as_dnet=True:  (B, H, W, num_classes) learned-upsampled output
       as_dnet=False: ((B, h, w, num_classes), (B, h, w, i_dim) feature)
     where (h, w) = (H, W) / downsample_ratio. ``mbconv_chain`` and
-    ``dw_kernel`` switch the trunk's kernels (``nn.efficientnet``)."""
+    ``dw_kernel`` switch the trunk's kernels, ``remat`` recomputes its
+    blocks in the backward (``nn.efficientnet``); in train mode
+    ``generator`` draws the trunk's drop-path masks."""
 
     def __init__(self, num_classes: int = 2, downsample_ratio: int = 4,
                  learned_upsampling: bool = True, as_dnet: bool = True,
                  mbconv_chain: Union[None, str, Sequence[int]] = None,
-                 dw_kernel: bool = False):
+                 dw_kernel: bool = False, remat: bool = False):
         super().__init__()
         self.downsample_ratio = downsample_ratio
         self.learned_upsampling = learned_upsampling
         self.as_dnet = as_dnet
-        self.encoder = Encoder(mbconv_chain, dw_kernel)
+        self.encoder = Encoder(mbconv_chain, dw_kernel, remat)
         # The mask head exists whenever upsampling is learned, as in the
         # reference checkpoints, even where as_dnet=False leaves it unused.
         self.decoder = Decoder(num_classes, downsample_ratio,
                                learned_upsampling)
 
-    def forward(self, x: torch.Tensor):
-        f4, f5, f6, f8, f11 = self.encoder(nchw(x))
+    def forward(self, x: torch.Tensor, generator: torch.Generator = None):
+        f4, f5, f6, f8, f11 = self.encoder(nchw(x), generator)
         dec = self.decoder
         skips = [f8, f6, f5, f4][:dec.n_ups]
         y = nhwc(conv2d(f11, dec.conv2))

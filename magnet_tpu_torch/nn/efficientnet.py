@@ -15,10 +15,14 @@ as a feature pyramid of the block-stage 0/1/2/4 outputs and the raw
 squeeze-excitation width of 0.25 of each block's input channels. Module
 names give the reference state-dict keys (conv_stem, bn1,
 blocks.{stage}.{idx}.{conv_pw,bn1,conv_dw,bn2,se,conv_pwl,bn3}, conv_head,
-bn2). Only the inference path is ported: the trunk runs as plain PyTorch
-convolutions, as the JAX package runs it in XLA, unless one of the two
-switches of the JAX package's opt-in TPU kernels is on (both act in eval
-mode only, as there):
+bn2). The trunk runs as plain PyTorch convolutions, as the JAX package runs
+it in XLA. Train mode (D-Net training) has train-mode BatchNorm (eps 1e-3)
+and stochastic depth on the residual branches at the JAX package's rates
+(``drop_connect_rate`` 0.2 * block index / 39, the masks drawn from the
+caller's generator); with ``remat`` each block runs under
+``layers.remat``. In eval mode one of the two switches of the JAX
+package's opt-in TPU kernels may be on (both act in eval mode only, as
+there):
 
 * ``mbconv_chain`` (``MAGNET_TPU_PALLAS_MB``): ``"all"`` or a tuple of stage
   indices; blocks 1..n-1 of each selected inverted-residual stage run as one
@@ -43,10 +47,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from magnet_tpu_torch.kernels.mbconv_chain import mbconv_chain
-from magnet_tpu_torch.nn.layers import (batch_norm, cached_fold, conv2d,
-                                        conv2d_same, fold_bn, nchw, nhwc)
+from magnet_tpu_torch.nn.layers import (batch_norm_train, cached_fold, conv2d,
+                                        conv2d_same, drop_path,
+                                        drop_path_mask, fold_bn, nchw, nhwc,
+                                        norm, remat)
 
 BN_EPS_TF = 1e-3
+DROP_CONNECT_RATE = 0.2
 
 
 def round_channels(ch: float, multiplier: float, divisor: int = 8) -> int:
@@ -112,12 +119,15 @@ class SqueezeExcite(nn.Module):
 
 
 class DepthwiseSeparable(nn.Module):
-    """Stage-0 block: dw conv -> BN -> swish -> SE -> pw conv -> BN."""
+    """Stage-0 block: dw conv -> BN -> swish -> SE -> pw conv -> BN. A
+    block's ``drop_rate`` is its stochastic depth rate; ``forward`` takes the
+    keep mask of its samples (``layers.drop_path_mask``) in train mode."""
 
     def __init__(self, cfg: dict, dw_kernel: bool = False):
         super().__init__()
         c = cfg
         self.dw_kernel = dw_kernel
+        self.drop_rate = 0.0
         self.conv_dw = nn.Conv2d(c["in_ch"], c["in_ch"], c["kernel"],
                                  c["stride"], groups=c["in_ch"], bias=False)
         self.bn1 = _bn(c["in_ch"])
@@ -126,12 +136,24 @@ class DepthwiseSeparable(nn.Module):
         self.bn2 = _bn(c["out_ch"])
         self.residual = c["in_ch"] == c["out_ch"] and c["stride"] == 1
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv2d_same(x, self.conv_dw, self.dw_kernel and not self.training)
-        y = F.silu(batch_norm(y, self.bn1))
+    def forward(self, x: torch.Tensor, drop_mask=None) -> torch.Tensor:
+        t = self.training
+        y = conv2d_same(x, self.conv_dw, self.dw_kernel and not t)
+        y = F.silu(norm(y, self.bn1, t))
         y = self.se(y)
-        y = batch_norm(conv2d(y, self.conv_pw), self.bn2)
-        return y + x if self.residual else y
+        y = norm(conv2d(y, self.conv_pw), self.bn2, t)
+        return _residual(y, x, self, drop_mask)
+
+
+def _residual(y: torch.Tensor, x: torch.Tensor, block: nn.Module,
+              drop_mask) -> torch.Tensor:
+    """A block's output: with the shortcut where it has one, its branch
+    dropped per sample by ``drop_mask`` where that is given."""
+    if not block.residual:
+        return y
+    if drop_mask is not None:
+        y = drop_path(y, drop_mask, block.drop_rate)
+    return y + x
 
 
 class InvertedResidual(nn.Module):
@@ -141,6 +163,7 @@ class InvertedResidual(nn.Module):
         super().__init__()
         c = cfg
         self.dw_kernel = dw_kernel
+        self.drop_rate = 0.0
         mid = c["in_ch"] * c["expand"]
         self.conv_pw = nn.Conv2d(c["in_ch"], mid, 1, bias=False)
         self.bn1 = _bn(mid)
@@ -152,13 +175,14 @@ class InvertedResidual(nn.Module):
         self.bn3 = _bn(c["out_ch"])
         self.residual = c["in_ch"] == c["out_ch"] and c["stride"] == 1
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.silu(batch_norm(conv2d(x, self.conv_pw), self.bn1))
-        y = conv2d_same(y, self.conv_dw, self.dw_kernel and not self.training)
-        y = F.silu(batch_norm(y, self.bn2))
+    def forward(self, x: torch.Tensor, drop_mask=None) -> torch.Tensor:
+        t = self.training
+        y = F.silu(norm(conv2d(x, self.conv_pw), self.bn1, t))
+        y = conv2d_same(y, self.conv_dw, self.dw_kernel and not t)
+        y = F.silu(norm(y, self.bn2, t))
         y = self.se(y)
-        y = batch_norm(conv2d(y, self.conv_pwl), self.bn3)
-        return y + x if self.residual else y
+        y = norm(conv2d(y, self.conv_pwl), self.bn3, t)
+        return _residual(y, x, self, drop_mask)
 
 
 CHAIN_OPERANDS = ("wpw", "s1", "wdw", "s2", "wse1", "bse1", "wse2", "bse2",
@@ -217,15 +241,16 @@ def chain_stages(selection: Union[None, str, Sequence[int]]) -> frozenset:
 
 class EfficientNetB5Features(nn.Module):
     """Returns the 5 decoder taps (f4, f5, f6, f8, f11), NCHW; see the
-    module doc for ``mbconv_chain`` and ``dw_kernel``. ``bn2`` is held for
-    checkpoint completeness only: the decoder reads the head conv before
-    it."""
+    module doc for ``mbconv_chain``, ``dw_kernel`` and ``remat``. The
+    decoder reads the head conv before ``bn2``, which only tracks its
+    statistics in train mode, as in the JAX package."""
 
     def __init__(self, mbconv_chain: Union[None, str, Sequence[int]] = None,
-                 dw_kernel: bool = False):
+                 dw_kernel: bool = False, remat: bool = False):
         super().__init__()
         self.chain_stages = chain_stages(mbconv_chain)
         self.dw_kernel = dw_kernel
+        self.remat = remat
         self.conv_stem = nn.Conv2d(3, 48, 3, 2, bias=False)
         self.bn1 = _bn(48)
         self.blocks = nn.Sequential(*[
@@ -236,6 +261,9 @@ class EfficientNetB5Features(nn.Module):
             for stage in b5_stage_config()])
         self.conv_head = nn.Conv2d(512, 2048, 1, bias=False)
         self.bn2 = _bn(2048)
+        blocks = [b for stage in self.blocks for b in stage]
+        for i, b in enumerate(blocks):
+            b.drop_rate = DROP_CONNECT_RATE * i / len(blocks)
 
     def chain_operands(self, si: int, dtype: torch.dtype
                        ) -> List[torch.Tensor]:
@@ -247,21 +275,36 @@ class EfficientNetB5Features(nn.Module):
             [t for b in tail for t in (*b.parameters(), *b.buffers())],
             lambda: fold_mbconv_chain(tail, dtype))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        y = F.silu(batch_norm(conv2d_same(x, self.conv_stem), self.bn1))
-        if (self.chain_stages or self.dw_kernel) and not self.training:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator = None) -> List[torch.Tensor]:
+        """x: (N, 3, H, W). In train mode the drop masks come from
+        ``generator`` (required there), on the device of the maps."""
+        t = self.training
+        y = F.silu(norm(conv2d_same(x, self.conv_stem), self.bn1, t))
+        if (self.chain_stages or self.dw_kernel) and not t:
             # The kernels take the maps' NHWC views, which are free only in
             # channels-last memory; an input whose strides are ambiguous
             # (a size-1 batch with stride 0) gives an NCHW stem output.
             y = y.contiguous(memory_format=torch.channels_last)
         taps = []
         for si, stage in enumerate(self.blocks):
-            if si in self.chain_stages and not self.training:
+            if si in self.chain_stages and not t:
                 y = stage[0](y)
                 y = nchw(mbconv_chain(nhwc(y), *self.chain_operands(
                     si, y.dtype), stage[1].conv_dw.kernel_size[0]))
-            else:
-                y = stage(y)
+                taps.append(y)
+                continue
+            for b in stage:
+                mask = None
+                if t and b.residual and b.drop_rate > 0:
+                    if generator is None:
+                        raise ValueError("train mode draws the drop-path "
+                                         "masks from a generator")
+                    mask = drop_path_mask(y.shape[0], b.drop_rate, generator)
+                y = remat(b, y, mask) if self.remat and t else b(y, mask)
             taps.append(y)
         head = conv2d(y, self.conv_head)
+        if t:
+            with torch.no_grad():       # statistics only; the output is unused
+                batch_norm_train(head.detach(), self.bn2)
         return [taps[0], taps[1], taps[2], taps[4], head]

@@ -14,7 +14,9 @@ it: the cost-volume part (first D channels, no bias) and the feature part
 refinement iterations: ``precompute_feature`` runs it once per frame through
 ``kernels.head_chain``; each iteration then is one launch of
 ``kernels.gnet_update``. Both keep their weights, and the kernels' operands,
-on the module (``cached_fold``), so an iteration prepares nothing.
+on the module (``cached_fold``), so an iteration prepares nothing. In train
+mode (MaGNet training) both run as plain convs in the feature's dtype, with
+autograd, as the JAX package gates its kernels ``not train``.
 """
 
 from __future__ import annotations
@@ -22,9 +24,11 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+import torch.nn.functional as F
+
 from magnet_tpu_torch.kernels.gnet_update import gnet_operands, gnet_update
 from magnet_tpu_torch.kernels.head_chain import head_chain, head_operands
-from magnet_tpu_torch.nn.layers import cached_fold, hwio
+from magnet_tpu_torch.nn.layers import cached_fold, conv2d, hwio, nchw, nhwc
 
 
 class GNet(nn.Module):
@@ -43,6 +47,10 @@ class GNet(nn.Module):
         feat: (B, H, W, 256) -> (B, H, W, 128). Its weights and the kernel's
         operands are kept on the module (``cached_fold``)."""
         conv0 = self.gnet[0]
+        if self.training:
+            w = conv0.weight[:, self.n_samples:].to(feat.dtype)
+            return nhwc(F.conv2d(nchw(feat), w, conv0.bias.to(feat.dtype),
+                                 padding=1))
 
         def fold():
             w = hwio(conv0, feat.dtype)[:, :, self.n_samples:].contiguous()
@@ -59,6 +67,8 @@ class GNet(nn.Module):
         Returns the updated (mu, sigma), (B, H, W, 2)."""
         dt = feat_contrib.dtype
         conv0, _, conv1, _, conv2, _, conv3 = self.gnet
+        if self.training:
+            return self.train_forward(cost_volume, feat_contrib, ref_gaussian)
 
         def fold():
             w0 = hwio(conv0, dt)[:, :, :self.n_samples].contiguous()
@@ -72,3 +82,24 @@ class GNet(nn.Module):
                               for t in c.parameters()], fold)
         return gnet_update(cost_volume.to(dt).contiguous(), feat_contrib,
                            ref_gaussian.to(dt).contiguous(), convs, operands)
+
+    def train_forward(self, cost_volume: torch.Tensor,
+                      feat_contrib: torch.Tensor,
+                      ref_gaussian: torch.Tensor) -> torch.Tensor:
+        """The update as plain convs in the feature's dtype, the JAX
+        package's ``GNet.__call__`` off its kernel: the cost-volume part of
+        the first conv plus the feature term, ReLU, three 1x1 convs; then
+        mu = mu0 + mu1 sigma0, sigma = (elu(sigma1) + 1 + 1e-10) sigma0
+        (elu in f32) in ref_gaussian's dtype."""
+        dt = feat_contrib.dtype
+        conv0, _, conv1, _, conv2, _, conv3 = self.gnet
+        w0 = conv0.weight[:, :self.n_samples].to(dt)
+        y = F.conv2d(nchw(cost_volume.to(dt)), w0, padding=1)
+        y = F.relu(y + nchw(feat_contrib))
+        y = F.relu(conv2d(y, conv1))
+        y = nhwc(conv2d(F.relu(conv2d(y, conv2)), conv3))
+        mu0, sigma0 = ref_gaussian[..., 0:1], ref_gaussian[..., 1:2]
+        mu = mu0 + y[..., 0:1] * sigma0
+        sigma = (F.elu(y[..., 1:2].float()) + 1.0 + 1e-10).to(
+            sigma0.dtype) * sigma0
+        return torch.cat([mu, sigma], -1)

@@ -9,18 +9,24 @@ add the semantics the JAX package gives them:
 * eval BatchNorm with f32 statistics whatever the activation dtype
   (eps 1e-3 in the EfficientNet trunk, 1e-5 in the decoder), and train-mode
   BatchNorm with flax's statistics and running-buffer update;
-* ``leaky_relu`` with torch's default slope 0.01.
+* ``leaky_relu`` with torch's default slope 0.01;
+* stochastic depth (``drop_path``), its per-sample masks drawn from an
+  explicit generator;
+* ``remat``: a block under ``torch.utils.checkpoint`` (the JAX package's
+  ``nn.remat``), whose recomputation updates no BatchNorm buffer.
 
 Activations inside these modules are NCHW (channels-last in memory).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from magnet_tpu_torch.kernels.dw_conv import dw_conv
 
@@ -104,6 +110,31 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 BN_MOMENTUM = 0.9
 
 
+# set while ``remat`` recomputes a block in the backward: the forward has
+# updated the running buffers already
+_RECOMPUTING = [False]
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _RECOMPUTING[0] = True
+    try:
+        yield
+    finally:
+        _RECOMPUTING[0] = False
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)`` with its activations recomputed in the backward instead
+    of kept (``torch.utils.checkpoint``, non-reentrant): the same values and
+    gradients, less memory. ``fn`` must draw no random numbers (pass drop
+    masks in); its train-mode BatchNorms update their buffers once, in the
+    forward."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
+
+
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """Train-mode BatchNorm over NCHW as the JAX package computes it (flax
     ``BatchNorm`` on f32): the batch mean and the biased variance
@@ -111,18 +142,45 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     wider; scale and bias rounded to x's dtype first (the compute-dtype cast
     of every parameter) and applied in that type; the running buffers
     updated in place from the biased variance (``nn.BatchNorm2d`` would use
-    the unbiased one). Returns x's dtype."""
+    the unbiased one), except in ``remat``'s recomputation. Returns x's
+    dtype."""
     dt = x.dtype
     xf = x.to(torch.promote_types(dt, torch.float32))
     mean = xf.mean((0, 2, 3))
     var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
-    with torch.no_grad():
-        for buf, stat in ((bn.running_mean, mean), (bn.running_var, var)):
-            buf.copy_(BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * stat)
+    if not _RECOMPUTING[0]:
+        with torch.no_grad():
+            for buf, stat in ((bn.running_mean, mean),
+                              (bn.running_var, var)):
+                buf.copy_(BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * stat)
     mul = torch.rsqrt(var + bn.eps) * bn.weight.to(dt).to(xf.dtype)
     y = ((xf - mean[:, None, None]) * mul[:, None, None]
          + bn.bias.to(dt).to(xf.dtype)[:, None, None])
     return y.to(dt)
+
+
+def norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.Tensor:
+    """Train-mode BatchNorm where ``train``, else eval BatchNorm."""
+    return batch_norm_train(x, bn) if train else batch_norm(x, bn)
+
+
+def drop_path_mask(n: int, rate: float, generator: torch.Generator
+                   ) -> torch.Tensor:
+    """Stochastic depth's keep mask of n samples, (n, 1, 1, 1) f32 of 0 and
+    1, each 1 with probability 1 - rate, drawn from ``generator`` on its
+    device."""
+    keep = torch.full((n, 1, 1, 1), 1.0 - rate, device=generator.device)
+    return torch.bernoulli(keep, generator=generator)
+
+
+def drop_path(x: torch.Tensor, mask: torch.Tensor,
+              rate: float) -> torch.Tensor:
+    """The residual branch x with a sample's whole branch dropped where its
+    mask is 0 and the rest divided by 1 - rate, in x's dtype, as the JAX
+    package's ``nn/layers.py::drop_path`` given the same mask (the divisor
+    rounded to x's dtype first, as a Python scalar is there)."""
+    keep = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
+    return x * mask.to(x.dtype) / keep
 
 
 def fold_bn(bn: nn.BatchNorm2d,

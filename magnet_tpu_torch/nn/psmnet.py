@@ -32,6 +32,7 @@ normalises with the batch's statistics and updates its running buffers
 (``nn.layers.batch_norm_train``), as the JAX package trains it with XLA
 convs and flax BatchNorm, never its kernels. The weights are cast to the
 activation dtype in the forward, so that gradients reach the f32 masters.
+With ``remat`` each residual block is recomputed in the backward.
 
 Stride-2 stem of three conv-BN-ReLU layers, four residual stages (32x3,
 64x16 stride 2, 128x3, 128x3 dilation 2), a 4-branch spatial pyramid
@@ -47,6 +48,7 @@ and ``lastconv.2``. Tensors are NHWC at the module boundary.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -61,7 +63,7 @@ from magnet_tpu_torch.kernels.res_block import res_block
 from magnet_tpu_torch.kernels.spp_tail import spp_tail, tail_operands
 from magnet_tpu_torch.nn.layers import (batch_norm, batch_norm_train,
                                         cached_fold, fold_bn, hwio, nchw,
-                                        nhwc)
+                                        nhwc, remat)
 from magnet_tpu_torch.ops.resample import (avg_pool,
                                            resize_bilinear_align_corners)
 
@@ -183,10 +185,19 @@ def run_layer(x: torch.Tensor, layer: nn.Sequential,
                                 packed=packed)
 
 
+def _train_block(b: BasicBlock, y: torch.Tensor) -> torch.Tensor:
+    """A residual block of the training forward. NCHW."""
+    out = train_convbn(F.relu(train_convbn(y, b.conv1[0])), b.conv2)
+    return out + (y if b.downsample is None
+                  else train_convbn(y, b.downsample))
+
+
 class PSMNet(nn.Module):
-    def __init__(self, feature_dim: int = 64, stream_blocks: bool = False):
+    def __init__(self, feature_dim: int = 64, stream_blocks: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.stream_blocks = stream_blocks
+        self.remat = remat
         self.firstconv = nn.Sequential(
             convbn(3, 32, 3, 2, 1, 1), nn.ReLU(),
             convbn(32, 32, 3, 1, 1, 1), nn.ReLU(),
@@ -260,17 +271,17 @@ class PSMNet(nn.Module):
 
     def train_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The training forward: library convs with autograd, train-mode
-        BatchNorm. x: (N, H, W, 3) NHWC -> (N, H/4, W/4, feature_dim)."""
+        BatchNorm; with ``remat`` each residual block is recomputed in the
+        backward (``layers.remat``). x: (N, H, W, 3) NHWC ->
+        (N, H/4, W/4, feature_dim)."""
         y = nchw(x)
         for i in (0, 2, 4):
             y = F.relu(train_convbn(y, self.firstconv[i]))
         stages = []
         for li in range(1, len(STAGES) + 1):
             for b in getattr(self, f"layer{li}"):
-                out = train_convbn(F.relu(train_convbn(y, b.conv1[0])),
-                                   b.conv2)
-                y = out + (y if b.downsample is None
-                           else train_convbn(y, b.downsample))
+                block = functools.partial(_train_block, b)
+                y = remat(block, y) if self.remat else block(y)
             stages.append(y)
         raw, skip = nhwc(stages[1]), nhwc(stages[3])
         cat = torch.cat([raw, skip, self.spp_branches(skip, train_convbn)],

@@ -2,13 +2,15 @@
 
     python -m magnet_tpu_torch.test_magnet test_scripts/magnet/<dataset>.txt [--device cpu]
 
-Mirrors ``test_MaGNet.py`` without its streaming feature cache: build the
-whole pipeline, load the D-Net, F-Net and MAGNET checkpoints (reference
-torch ``.pt`` files; empty paths keep seeded random weights), evaluate
-every sample of the loader, and
-log the 12-metric table to ``exp/<name>/log/test_acc.txt``. With
-``--dataset_name synthetic`` it runs end to end without data on disk. The
-model runs on ``--device`` (default ``cuda``) in ``--compute_dtype``
+Mirrors ``test_MaGNet.py``: build the whole pipeline, load the D-Net,
+F-Net and MAGNET checkpoints (reference torch ``.pt`` files; empty paths
+keep seeded random weights), evaluate every sample of the loader, and log
+the 12-metric table to ``exp/<name>/log/test_acc.txt``. With
+``--cache_features`` each distinct frame is encoded once
+(``eval/streaming.py``, an LRU of ``--cache_max_frames`` encodings keyed by
+the samples' ``view_ids``) and the cache's hits and misses are printed.
+With ``--dataset_name synthetic`` it runs end to end without data on disk.
+The model runs on ``--device`` (default ``cuda``) in ``--compute_dtype``
 (default bfloat16); poses, intrinsics and rays stay f32.
 """
 
@@ -21,7 +23,7 @@ import torch
 
 from magnet_tpu_torch.core import config
 from magnet_tpu_torch.data.synthetic import make_multiview_loader
-from magnet_tpu_torch.eval import harness, metrics
+from magnet_tpu_torch.eval import harness, metrics, streaming
 from magnet_tpu_torch.models import build
 
 GEOMETRY_KEYS = ("R", "t", "is_valid", "intM", "rays2d")
@@ -53,7 +55,9 @@ def make_forward(model: torch.nn.Module, dtype: torch.dtype,
 
 
 def prepare(args):
-    """The model of the flags, loaded and cast, and its forward."""
+    """The model of the flags, loaded and cast, and its forward: the
+    streaming forward with ``--cache_features`` (its cache as the forward's
+    ``cache``), else the monolithic one."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
@@ -64,6 +68,12 @@ def prepare(args):
     print("loading checkpoints... / done")
     dtype = config.compute_dtype(args.compute_dtype)
     build.cast_for_inference(model, dtype)
+    if args.cache_features:
+        forward, cache = streaming.make_streaming_forward(
+            model, dtype, device, args.MAGNET_num_test_iter,
+            max_frames=args.cache_max_frames)
+        forward.cache = cache
+        return model, forward
     return model, make_forward(model, dtype, device,
                                args.MAGNET_num_test_iter)
 
@@ -77,6 +87,10 @@ def evaluate(args, forward) -> Dict[str, float]:
                   % (args.dataset_name, args.min_depth, args.max_depth,
                      args.MAGNET_ckpt))
     metrics.log_metrics(args.test_acc_txt, m, first_line)
+    cache = getattr(forward, "cache", None)
+    if cache is not None:
+        print(f"feature cache: {cache.hits} hits / {cache.misses} misses "
+              f"({100 * cache.hit_rate:.1f}% hit rate)")
     return m
 
 

@@ -1,12 +1,17 @@
-"""Optimizer and schedules of F-Net training.
+"""Optimizers and schedules of the three training stages.
 
 The port of ``magnet_tpu/train/optim.py`` (``onecycle``, ``onecycle_beta1``,
-``_clip``, ``_adamw``, ``make_fnet_optimizer``), which chains optax
-transforms: an elementwise clip at 1e6, a clip by global norm, then AdamW
-(weight decay 0.01 on every parameter, BatchNorm's included) whose learning
-rate and beta1 follow one-cycle schedules evaluated at the step count before
-the update. Here that is ``torch.optim.AdamW`` with its learning rate and
-beta1 set from the schedules before each step, after a clip written out:
+``_clip``, ``_adamw``, ``make_{dnet,fnet,magnet}_optimizer``), which chains
+optax transforms: an elementwise clip at 1e6, a clip by global norm, then
+AdamW (weight decay 0.01 on every parameter it updates, BatchNorm's
+included) whose learning rate and beta1 follow one-cycle schedules evaluated
+at the step count before the update; ``multi_transform`` gives the D-Net's
+encoder its own learning rate and sets a frozen group's update to zero (no
+step, no weight decay). The clip comes first, so a frozen parameter's
+gradient still counts in the global norm. Here that is
+``torch.optim.AdamW`` over the updated groups, each group's learning rate
+and beta1 set from the schedules before each step, after a clip written out
+over every gradient, the frozen ones' included:
 
 * ``onecycle`` is optax's ``cosine_onecycle_schedule``, whose phase
   boundaries sit at ``int(pct_start * T)`` and ``T`` with T floored at 4
@@ -23,7 +28,7 @@ to the update: ``p - lr * (adam + wd * p)`` either way, from the same ``p``.
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,32 +99,39 @@ def clip_(grads: List[torch.Tensor], grad_clip: float) -> None:
         g.copy_(torch.where(keep, g, (g / norm) * grad_clip))
 
 
-class ScheduledAdamW:
-    """The optax chain of the JAX package's ``make_fnet_optimizer``: clip,
-    then AdamW at the schedules' values for the current step. ``count`` is
-    the number of updates made, the schedules' position."""
+Groups = Sequence[Tuple[Iterable[torch.nn.Parameter], Schedule]]
 
-    def __init__(self, params: Iterable[torch.nn.Parameter],
-                 lr_schedule: Schedule, beta1_schedule: Schedule,
-                 weight_decay: float, grad_clip: float):
-        self.params = list(params)
-        self.lr_schedule = lr_schedule
+
+class ScheduledAdamW:
+    """The optax chain of the JAX package's optimizers: clip every gradient
+    (those of ``frozen`` too), then AdamW on each of ``groups`` (parameters,
+    learning-rate schedule) at the schedules' values for the current step;
+    ``frozen`` parameters are never updated. ``count`` is the number of
+    updates made, the schedules' position."""
+
+    def __init__(self, groups: Groups, beta1_schedule: Schedule,
+                 weight_decay: float, grad_clip: float,
+                 frozen: Iterable[torch.nn.Parameter] = ()):
+        groups = [(list(ps), sched) for ps, sched in groups]
+        self.params = [p for ps, _ in groups for p in ps] + list(frozen)
+        self.lr_schedules = [sched for _, sched in groups]
         self.beta1_schedule = beta1_schedule
         self.grad_clip = grad_clip
         self.count = 0
         self.adamw = torch.optim.AdamW(
-            self.params, lr=lr_schedule(0),
+            [dict(params=ps, lr=sched(0)) for ps, sched in groups],
             betas=(beta1_schedule(0), ADAM_B2), eps=ADAM_EPS,
             weight_decay=weight_decay)
 
     def zero_grad(self) -> None:
-        self.adamw.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
 
     def step(self) -> None:
         grads = [p.grad for p in self.params if p.grad is not None]
         clip_(grads, self.grad_clip)
-        for group in self.adamw.param_groups:
-            group["lr"] = self.lr_schedule(self.count)
+        for group, sched in zip(self.adamw.param_groups, self.lr_schedules):
+            group["lr"] = sched(self.count)
             group["betas"] = (self.beta1_schedule(self.count), ADAM_B2)
         self.adamw.step()
         self.count += 1
@@ -132,6 +144,10 @@ class ScheduledAdamW:
         self.count = int(state["count"])
 
 
+def _beta1(total_steps: int, beta1_cycle: bool) -> Schedule:
+    return onecycle_beta1(total_steps) if beta1_cycle else (lambda step: 0.9)
+
+
 def make_fnet_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                         total_steps: int, weight_decay: float = 0.01,
                         grad_clip: float = 1.0, div_factor: float = 25.0,
@@ -140,5 +156,45 @@ def make_fnet_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
     """One group: AdamW with one-cycle learning rate and beta1
     (train_FNet.py:45-48); ``beta1_cycle=False`` keeps beta1 at 0.9."""
     sched = onecycle(lr, total_steps, div_factor, final_div_factor)
-    b1 = onecycle_beta1(total_steps) if beta1_cycle else (lambda step: 0.9)
-    return ScheduledAdamW(params, sched, b1, weight_decay, grad_clip)
+    return ScheduledAdamW([(params, sched)], _beta1(total_steps, beta1_cycle),
+                          weight_decay, grad_clip)
+
+
+def make_dnet_optimizer(model: torch.nn.Module, lr: float, total_steps: int,
+                        weight_decay: float = 0.01, grad_clip: float = 1.0,
+                        same_lr: bool = False, div_factor: float = 25.0,
+                        final_div_factor: float = 10000.0,
+                        freeze_encoder: bool = False,
+                        beta1_cycle: bool = True) -> ScheduledAdamW:
+    """Two groups (train_DNet.py:48-53): the parameters of ``model`` whose
+    name holds "encoder" at lr / 10 (lr with ``same_lr``), the rest at lr.
+    With ``freeze_encoder`` (AdaBins_fix) the encoder is never updated, but
+    its gradients still count in the clip's global norm, as in the JAX
+    package's chain."""
+    enc, rest = [], []
+    for name, p in model.named_parameters():
+        (enc if "encoder" in name.split(".") else rest).append(p)
+    sched = onecycle(lr, total_steps, div_factor, final_div_factor)
+    sched_enc = onecycle(lr if same_lr else lr / 10, total_steps,
+                         div_factor, final_div_factor)
+    groups = [(rest, sched)] if freeze_encoder else [(enc, sched_enc),
+                                                     (rest, sched)]
+    return ScheduledAdamW(groups, _beta1(total_steps, beta1_cycle),
+                          weight_decay, grad_clip,
+                          frozen=enc if freeze_encoder else ())
+
+
+def make_magnet_optimizer(model: torch.nn.Module, lr: float,
+                          total_steps: int, weight_decay: float = 0.01,
+                          grad_clip: float = 1.0, div_factor: float = 25.0,
+                          final_div_factor: float = 10000.0,
+                          beta1_cycle: bool = True) -> ScheduledAdamW:
+    """One group of ``g_net.*`` and ``mask_head.*`` (MAGNET.py:82-92); the
+    D-Net and F-Net are frozen. Their gradients are never taken
+    (``Magnet.encode``), so the clip's norm is that of the trained
+    parameters, as in the JAX package, where they are zero."""
+    train = [p for name, p in model.named_parameters()
+             if name.split(".")[0] in ("g_net", "mask_head")]
+    sched = onecycle(lr, total_steps, div_factor, final_div_factor)
+    return ScheduledAdamW([(train, sched)], _beta1(total_steps, beta1_cycle),
+                          weight_decay, grad_clip)

@@ -11,14 +11,14 @@ schedule, step) under ``exp/<name>/models/`` at each validation and at the
 end; ``--resume_ckpt`` continues from one. The step runs on ``--device``
 (default ``cuda``; no card is an error) in ``--compute_dtype`` (default
 bfloat16) with f32 master weights; the validation forward runs the f32
-weights in eval mode, through the F-Net's inference kernels. With
-``--dataset_name synthetic`` it runs without data on disk; the on-disk
-datasets and the visualisation are not ported yet.
+weights in eval mode, through the F-Net's inference kernels. ``--remat``
+recomputes the F-Net's blocks in the backward. With ``--dataset_name
+synthetic`` it runs without data on disk; the on-disk datasets and the
+visualisation are not ported.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Dict
 
 import numpy as np
@@ -26,11 +26,10 @@ import torch
 
 from magnet_tpu_torch.core import config
 from magnet_tpu_torch.data.synthetic import make_multiview_loader
-from magnet_tpu_torch.eval import harness, metrics
+from magnet_tpu_torch.eval import harness
 from magnet_tpu_torch.models.build import build_magnet_f
 from magnet_tpu_torch.models.magnet import sid_depth_centers
-from magnet_tpu_torch.train import checkpoint, losses, optim, steps
-from magnet_tpu_torch.utils.profiling import StepTimer
+from magnet_tpu_torch.train import checkpoint, loop, losses, optim, steps
 
 GEOMETRY_KEYS = ("R", "t", "is_valid", "intM", "rays2d")
 
@@ -68,14 +67,11 @@ def make_val_forward(model: torch.nn.Module, d_center: torch.Tensor,
 
 
 def train(args) -> Dict:
-    """The training run of parsed flags. Returns the final state, the loss
-    and time of every step (host clock with the loss read, and CUDA events
-    around the step on a card), the last validation's metrics and the last
-    checkpoint's directory."""
+    """The training run of parsed flags (``train/loop.py::run``): the final
+    state, the loss and time of every step, the last validation's metrics
+    and the last checkpoint's directory."""
     config.check_train_flags(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is available")
+    device = loop.device_of(args)
     train_loader = make_multiview_loader(args, "train")
     val_loader = make_multiview_loader(args, "test")
     d_center = torch.from_numpy(sid_depth_centers(
@@ -97,46 +93,12 @@ def train(args) -> Dict:
         d_center, args.max_depth, args.min_depth,
         compute_dtype=config.compute_dtype(args.compute_dtype))
     val_forward = make_val_forward(model, d_center, device)
-
-    def run_validation():
-        return harness.evaluate_fnet(val_forward, val_loader, args,
-                                     progress=False)
-
-    on_card = device.type == "cuda"
-    out = dict(losses=[], step_ms=[], step_event_ms=[])
-    total_iter, t0, timer, mts, ckpt = 0, time.time(), StepTimer(), None, ""
-    for epoch in range(args.n_epochs):
-        for raw in train_loader:
-            batch = batch_to_device(raw, (args.dpv_height, args.dpv_width),
-                                    device)
-            t_step = time.perf_counter()
-            if on_card:
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                ev[0].record()
-            state, m = step_fn(state, batch)
-            if on_card:
-                ev[1].record()
-            loss = float(m["loss"])                # waits for the step
-            out["step_ms"].append(1e3 * (time.perf_counter() - t_step))
-            if on_card:
-                out["step_event_ms"].append(ev[0].elapsed_time(ev[1]))
-            out["losses"].append(loss)
-            sps = timer.tick()
-            total_iter += args.batch_size
-            if total_iter % (args.log_every * args.batch_size) < \
-                    args.batch_size:
-                print(f"epoch {epoch + 1}/{args.n_epochs} iter {total_iter} "
-                      f"loss {loss:.5f} ({time.time() - t0:.1f}s, "
-                      f"{sps:.2f} steps/s)", flush=True)
-            if total_iter % args.validate_every < args.batch_size:
-                mts = run_validation()
-                metrics.log_metrics(args.eval_acc_txt, mts,
-                                    f"total_iter: {total_iter}")
-                ckpt = checkpoint.save(args.exp_model_dir, state, total_iter)
-    mts = run_validation()
-    metrics.log_metrics(args.eval_acc_txt, mts, f"total_iter: {total_iter}")
-    ckpt = checkpoint.save(args.exp_model_dir, state, total_iter)
-    return dict(out, state=state, metrics=mts, ckpt=ckpt)
+    return loop.run(
+        args, state, step_fn, train_loader,
+        lambda raw: batch_to_device(raw, (args.dpv_height, args.dpv_width),
+                                    device),
+        lambda: harness.evaluate_fnet(val_forward, val_loader, args,
+                                      progress=False))
 
 
 def main(argv=None) -> Dict:

@@ -38,7 +38,8 @@ from magnet_tpu_torch.nn.gnet import GNet
 from magnet_tpu_torch.ops import resample
 from magnet_tpu_torch.ops.upsample import upsample_via_mask
 
-from test_torch_kernels import cv_inputs, gnet_inputs, upsample_inputs
+from test_torch_kernels import (  # noqa: F401 (torch_threads)
+    cv_inputs, gnet_inputs, upsample_inputs, torch_threads)
 
 TOL = 1e-4
 

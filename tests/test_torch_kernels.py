@@ -14,6 +14,8 @@ also run where JAX is not installed:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,21 @@ def _close(out, ref):
     ref = np.asarray(ref)
     np.testing.assert_allclose(np.asarray(out), ref, rtol=RTOL,
                                atol=1e-4 * float(np.abs(ref).max()))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads():
+    """PyTorch's CPU threads for a test module: one share of the cores a
+    worker. pytest-xdist runs several workers at once, and eager PyTorch
+    with a thread a core in each of them spends its time waiting on its own
+    threads (three D-Net train steps at 32x32 took 400 s in each of 6
+    processes on 8 cores, 8.5 s with one thread each). The other port test
+    modules import this fixture."""
+    prev = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(prev)
 
 
 def _jax_upstage(features, x, skip):
@@ -436,6 +453,72 @@ def test_upsample_maps_equal_one_map_calls():
             assert torch.equal(o, uk.upsample_mask_ref(d, m, 4))
 
 
+def _upsample_bwd_walk(gouts, maps, mask, k, seg):
+    """``csrc/upsample_mask.cu``'s backward walk in numpy f32, block by block
+    (a segment of ``seg`` coarse pixels of one row): the softmax of the
+    staged rows h - 1 .. h + 1, then the mask's gradient a fine pixel and the
+    maps' gradients a coarse pixel, as gathers over the staged tiles."""
+    B, H, W, C = maps[0].shape
+    n, kk = len(maps), k * k
+    gm = np.zeros((B, H, W, 9 * kk), np.float32)
+    gd = [np.zeros_like(m) for m in maps]
+    cols = seg + 2
+    for b, h, w0 in np.ndindex(B, H, -(-W // seg)):
+        w0 *= seg
+        segw = min(seg, W - w0)
+        P = np.zeros((3, cols, 9 * kk), np.float32)
+        G = np.zeros((n, 3 * k, cols * k, C), np.float32)
+        NB = np.zeros((n, 3, cols, C), np.float32)
+        for r, col in np.ndindex(3, cols):
+            y, x = h - 1 + r, w0 - 1 + col
+            if 0 <= y < H and 0 <= x < W:
+                e = np.exp(mask[b, y, x].reshape(9, kk)
+                           - mask[b, y, x].reshape(9, kk).max(0))
+                P[r, col] = (e / e.sum(0)).reshape(-1)
+                for m in range(n):
+                    NB[m, r, col] = maps[m][b, y, x]
+                    G[m, r * k:(r + 1) * k, col * k:(col + 1) * k] = gouts[m][
+                        b, y * k:(y + 1) * k, x * k:(x + 1) * k]
+        for ki, wl, kj in np.ndindex(k, segw, k):
+            q = P[1, wl + 1, ki * k + kj::kk]
+            dp = np.array([sum((G[m, k + ki, (wl + 1) * k + kj]
+                                * NB[m, j // 3, wl + j % 3]).sum()
+                               for m in range(n)) for j in range(9)])
+            gm[b, h, w0 + wl, ki * k + kj::kk] = q * (dp - (q * dp).sum())
+        for wl, m in np.ndindex(segw, n):
+            gd[m][b, h, w0 + wl] = sum(
+                P[2 - ky, wl + 2 - kx, (ky * 3 + kx) * kk + ki * k + kj]
+                * G[m, (2 - ky) * k + ki, (wl + 2 - kx) * k + kj]
+                for ky, kx, ki, kj in np.ndindex(3, 3, k, k))
+    return gd, gm
+
+
+def test_upsample_bwd_walk_matches_autograd():
+    """The backward kernel's gather order (emulated) against autograd
+    through the plain version, with segments that split the row; and
+    autograd through the CPU wrapper is the plain version's, with no
+    launch."""
+    B, H, W, C, k = 1, 4, 5, 2, 2
+    m = upsample_inputs(B, H, W, C, k, seed=3)[1]
+    maps = [upsample_inputs(B, H, W, C, k, seed=s)[0] for s in (4, 5)]
+    rng = np.random.RandomState(6)
+    gouts = [rng.randn(B, H * k, W * k, C).astype(np.float32)
+             for _ in maps]
+    want_d, want_m = uk.upsample_mask_bwd_ref(
+        [_t(g) for g in gouts], [_t(d) for d in maps], _t(m), k)
+    gd, gm = _upsample_bwd_walk(gouts, maps, m, k, seg=2)
+    for got, want in zip(gd + [gm], want_d + [want_m]):
+        _close(got, want.numpy())
+    before = (uk.upsample_mask.launches, uk.upsample_mask_bwd.launches)
+    ts = [_t(d).requires_grad_() for d in maps] + [_t(m).requires_grad_()]
+    outs = uk.upsample_mask(ts[:-1], ts[-1], k)
+    torch.autograd.backward(outs, [_t(g) for g in gouts])
+    for t, want in zip(ts, want_d + [want_m]):
+        assert torch.equal(t.grad, want)
+    assert (uk.upsample_mask.launches,
+            uk.upsample_mask_bwd.launches) == before
+
+
 # ---- the bf16 conv kernel's operands ---------------------------------------
 
 @pytest.mark.parametrize("cx,cs,cout", [(32, 16, 32), (1024, 64, 512),
@@ -542,11 +625,12 @@ def test_head_chain_over_packed_operands_matches_plain(n_convs, c_out):
 def test_head_operands_are_kept_until_a_weight_changes():
     """run_head (the D-Net and MaGNet heads) and G-Net's feature term
     prepare the chain's weights once, reuse them, and prepare them anew
-    after an in-place update of a weight or an optimizer step."""
+    after an in-place update of a weight or an optimizer step (in eval
+    mode: in train mode they run plain convs)."""
     from magnet_tpu_torch.nn.densedepth import _head, run_head
     from magnet_tpu_torch.nn.gnet import GNet
     g = torch.Generator().manual_seed(5)
-    head, gnet = _head(16, 2), GNet(n_samples=5, feature_dim=16)
+    head, gnet = _head(16, 2).eval(), GNet(n_samples=5, feature_dim=16).eval()
     x = torch.randn(1, 4, 6, 16, generator=g)
     with torch.no_grad():
         y0 = run_head(head, x)
@@ -648,10 +732,11 @@ def test_gnet_tile_walk_matches_plain(D):
 def test_gnet_update_operands_refold_when_a_parameter_changes():
     """GNet.forward keeps the update's layers (and on a card the kernel's
     operands) on the module, and folds them anew after an in-place update
-    of a parameter or an optimizer step."""
+    of a parameter or an optimizer step (in eval mode: in train mode it runs
+    plain convs)."""
     from magnet_tpu_torch.nn.gnet import GNet
     g = torch.Generator().manual_seed(6)
-    gnet = GNet(n_samples=5, feature_dim=16)
+    gnet = GNet(n_samples=5, feature_dim=16).eval()
     cv = torch.randn(1, 4, 6, 5, generator=g)
     feat = torch.randn(1, 4, 6, 128, generator=g)
     prev = torch.stack([torch.rand(1, 4, 6, generator=g) + 1.0,
@@ -1069,6 +1154,46 @@ def test_upsample_kernel_maps_equal_one_map_calls(cuda, dtype, n, case):
     for d, o in zip(maps, outs):
         assert torch.equal(o, uk.upsample_mask(d, m, k))
         _close_cuda(o, uk.upsample_mask_ref(d, m, k), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 3, 4])
+@pytest.mark.parametrize("case", [dict(), dict(B=2, H=5, W=3, C=1, k=2),
+                                  dict(B=4, H=120, W=160), dict(C=3, k=8),
+                                  dict(B=2, H=104, W=136)],
+                         ids=["small", "ragged", "magnet_train", "k8",
+                              "dnet_train"])
+def test_upsample_bwd_kernel_matches_plain(cuda, dtype, n, case):
+    """The backward kernel against autograd through the plain version: the
+    maps' gradients and the mask's (the maps' terms summed), one launch,
+    equal bit for bit on a second call; and autograd through
+    ``upsample_mask`` on the card launches it."""
+    k = case.get("k", 4)
+    m = _t(upsample_inputs(**case, seed=1)[1], cuda, dtype)
+    maps = [_t(upsample_inputs(**case, seed=s)[0], cuda, dtype)
+            for s in range(2, n + 2)]
+    g = torch.Generator().manual_seed(7)
+    gouts = [torch.randn((*d.shape[:1], d.shape[1] * k, d.shape[2] * k,
+                          d.shape[3]), generator=g).to(cuda, dtype)
+             for d in maps]
+    before = uk.upsample_mask_bwd.launches
+    gd, gm = uk.upsample_mask_bwd(gouts, maps, m, k)
+    assert uk.upsample_mask_bwd.launches == before + 1
+    want_d, want_m = uk.upsample_mask_bwd_ref(gouts, maps, m, k)
+    for got, want in zip(gd + [gm], want_d + [want_m]):
+        assert got.dtype == want.dtype == dtype
+        _close_cuda(got, want, dtype)
+    gd2, gm2 = uk.upsample_mask_bwd(gouts, maps, m, k)
+    assert all(torch.equal(a, b) for a, b in zip(gd + [gm], gd2 + [gm2]))
+    ts = [d.clone().requires_grad_() for d in maps] + [
+        m.clone().requires_grad_()]
+    launches = (uk.upsample_mask.launches, uk.upsample_mask_bwd.launches)
+    torch.autograd.backward(uk.upsample_mask(ts[:-1], ts[-1], k), gouts)
+    assert (uk.upsample_mask.launches, uk.upsample_mask_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert all(torch.equal(t.grad, w) for t, w in zip(ts, gd + [gm]))
 
 
 @pytest.mark.cuda

@@ -22,6 +22,7 @@ import torch
 
 from magnet_tpu_torch.kernels import psm_blocks as pb
 from magnet_tpu_torch.kernels import spp_tail as st
+from test_torch_kernels import torch_threads  # noqa: F401
 
 RTOL = 1e-4
 _TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}

@@ -40,6 +40,7 @@ from magnet_tpu_torch.core import config
 from magnet_tpu_torch.kernels import psm_blocks as pb
 from magnet_tpu_torch.kernels import res_block as rb
 from magnet_tpu_torch.nn import psmnet
+from test_torch_kernels import torch_threads  # noqa: F401
 
 RTOL = 1e-4
 _TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}

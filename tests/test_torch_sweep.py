@@ -31,6 +31,7 @@ import torch
 from magnet_tpu_torch.kernels import cost_volume_cw as cvk
 from magnet_tpu_torch.kernels import sweep_grad_src as sgk
 from magnet_tpu_torch.ops import costvolume as cv
+from test_torch_kernels import torch_threads  # noqa: F401
 
 
 def _rand_pose(rng, scale=0.08, roll=0.0):

@@ -24,6 +24,8 @@ Tolerances, each with its reason:
 Each JAX program is compiled once, in module-scoped fixtures.
 """
 
+import contextlib
+import io
 import os
 import re
 
@@ -40,15 +42,17 @@ from magnet_tpu.models.magnet import MagnetF as JMagnetF
 from magnet_tpu.train import losses as jlosses
 from magnet_tpu.train import optim as joptim
 from magnet_tpu.train import steps as jsteps
-from magnet_tpu_torch import train_fnet
+from magnet_tpu_torch import test_magnet, train_fnet
 from magnet_tpu_torch.compat.from_jax import fnet_state_dict
 from magnet_tpu_torch.core import config
 from magnet_tpu_torch.data import base
 from magnet_tpu_torch.data.synthetic import SyntheticMultiView
+from magnet_tpu_torch.models import build
 from magnet_tpu_torch.models.magnet import MagnetF, sid_depth_centers
 from magnet_tpu_torch.train import checkpoint, losses, optim, steps
 
 from test_torch_dnet import _random_variables
+from test_torch_kernels import torch_threads  # noqa: F401
 
 B, V, H, W, D, FEAT = 2, 2, 64, 64, 8, 16
 MAX_DEPTH, MIN_DEPTH = 10.0, 1e-3
@@ -451,10 +455,22 @@ def test_checkpoint_resumes_the_schedule_exactly(tmp_path):
     assert checkpoint.restore(path)["step"] == 3
 
 
-def test_entry_point_trains_on_the_cpu(tmp_path, capsys):
-    out = train_fnet.main(ENTRY_FLAGS + ["--exp_dir", str(tmp_path),
-                                         "--device", "cpu"])
-    lines = re.findall(r"iter (\d+) loss (\S+)", capsys.readouterr().out)
+@pytest.fixture(scope="module")
+def fnet_run(tmp_path_factory):
+    """One ``train_fnet`` run of the entry point at a tiny shape (two steps,
+    a validation pass, the checkpoint ``<exp>/models/<step>/state.pt``), its
+    standard output kept; the training and checkpoint tests share it."""
+    exp = tmp_path_factory.mktemp("fnet")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = train_fnet.main(ENTRY_FLAGS + ["--exp_dir", str(exp),
+                                             "--device", "cpu"])
+    return dict(out, exp=exp, stdout=printed.getvalue())
+
+
+def test_entry_point_trains_on_the_cpu(fnet_run):
+    out, tmp_path = fnet_run, fnet_run["exp"]
+    lines = re.findall(r"iter (\d+) loss (\S+)", fnet_run["stdout"])
     assert [int(i) for i, _ in lines] == [2, 4]
     assert all(np.isfinite(float(v)) for _, v in lines)
     acc = (tmp_path / "f" / "log" / "eval_acc.txt").read_text()
@@ -463,8 +479,35 @@ def test_entry_point_trains_on_the_cpu(tmp_path, capsys):
     assert out["state"].step == 2 and len(out["losses"]) == 2
 
 
+@pytest.mark.parametrize("form", ["parent", "step", "state.pt"])
+def test_fnet_training_checkpoint_loads(fnet_run, form):
+    """``--FNET_ckpt`` takes the checkpoint of the port's own ``train_fnet``
+    (``MagnetF``'s keys, ``f_net.f_net.*``) in each of its three forms;
+    every F-Net tensor is the trained one, bit for bit."""
+    from test_torch_magnet import _args as magnet_args, _ckpt_path
+    args = magnet_args(["--FNET_feature_dim", "16", "--FNET_ckpt",
+                        _ckpt_path(fnet_run["ckpt"], form)])
+    model = build.load_magnet_checkpoints(build.build_magnet(args), args)
+    trained = fnet_run["state"].model.f_net.state_dict()
+    loaded = model.f_net.state_dict()
+    assert loaded.keys() == trained.keys()
+    for k, v in trained.items():
+        torch.testing.assert_close(loaded[k], v, rtol=0, atol=0)
+
+
+def test_entry_point_loads_a_training_checkpoint(tmp_path, fnet_run):
+    """``test_magnet`` evaluates with the F-Net of a ``train_fnet`` run."""
+    from test_torch_magnet import SMALL
+    m = test_magnet.main(
+        ["--exp_name", "t", "--exp_dir", str(tmp_path), "--dataset_path",
+         "none", "--synthetic_length", "1"] + SMALL +
+        ["--FNET_feature_dim", "16", "--FNET_ckpt",
+         os.path.dirname(fnet_run["ckpt"])])
+    assert len(m) == 12 and all(np.isfinite(v) for v in m.values())
+
+
 def test_unported_training_flags_raise(tmp_path):
-    for extra in (["--remat"], ["--mesh_shape", "4"],
+    for extra in (["--loss_fn", "gaussian"], ["--mesh_shape", "4"],
                   ["--dataset_name", "scannet"]):
         with pytest.raises(ValueError, match="not ported"):
             train_fnet.main(ENTRY_FLAGS + ["--exp_dir", str(tmp_path),
@@ -503,3 +546,62 @@ def test_reference_flag_file_parses():
     assert (args.dpv_height, args.dpv_width) == (120, 160)
     assert args.FNET_num_depth_bins == 80 and args.device == "cuda"
     assert args.compute_dtype == "bfloat16"
+
+
+def test_remat_grads_match_baseline():
+    """``--remat`` (each residual block under ``layers.remat``) changes no
+    gradient and no BatchNorm buffer (the recomputation updates none): a
+    tiny F-Net's train forward with and without it, bit for bit (the JAX
+    package's tests/test_train.py:183)."""
+    from magnet_tpu_torch.models.fnet import FNet
+
+    img = torch.from_numpy(np.random.RandomState(3).rand(1, 32, 32, 3)
+                           .astype(np.float32))
+    runs = []
+    for remat in (False, True):
+        torch.manual_seed(0)
+        model = build.init_train_weights_(FNet(feature_dim=16, remat=remat))
+        model.train()(img).square().mean().backward()
+        runs.append(model)
+    base, rem = ({k: p.grad for k, p in m.named_parameters()} for m in runs)
+    assert base.keys() == rem.keys() and len(base) > 100
+    for k, g in base.items():
+        assert torch.equal(g, rem[k]), k
+    for (k, a), b in zip(runs[0].state_dict().items(),
+                         runs[1].state_dict().values()):
+        assert torch.equal(a, b), k
+
+
+def test_magnet_training_and_streaming_entry_points_on_the_cpu(
+        tmp_path, fnet_run, capsys):
+    """Stage 3 through ``train_magnet`` at a tiny shape, its F-Net from
+    ``fnet_run``'s checkpoint, then ``test_magnet --cache_features`` with
+    it: a finite loss and metrics, a checkpoint of the step that holds
+    G-Net, and the cache's line (every frame of a synthetic sample is its
+    own, so all misses). ``train_dnet`` runs on the card (``chip_smoke.py``
+    phase 12); its checkpoints load as ``test_dnet_training_checkpoint_
+    loads`` holds them."""
+    from magnet_tpu_torch import train_magnet
+
+    small = ["--dataset_name", "synthetic", "--dataset_path", "none",
+             "--device", "cpu", "--exp_dir", str(tmp_path),
+             "--input_height", "32", "--input_width", "32", "--dpv_height",
+             "8", "--dpv_width", "8", "--MAGNET_num_source_views", "2",
+             "--FNET_feature_dim", "16", "--DNET_ckpt", "", "--FNET_ckpt",
+             fnet_run["ckpt"], "--synthetic_length", "1"]
+    m = train_magnet.main(small + [
+        "--exp_name", "m", "--batch_size", "1", "--n_epochs", "1",
+        "--validate_every", "1000000", "--MAGNET_num_train_iter", "1",
+        "--MAGNET_num_test_iter", "1", "--loss_fn", "gaussian",
+        "--compute_dtype", "float32"])
+    assert len(m["losses"]) == 1 and np.isfinite(m["losses"]).all()
+    assert all(np.isfinite(v) for v in m["metrics"].values())
+    saved = checkpoint.restore(m["ckpt"])
+    assert saved["step"] == 1 and any(k.startswith("g_net.")
+                                      for k in saved["model"])
+    capsys.readouterr()
+    r = test_magnet.main(small + ["--exp_name", "s", "--MAGNET_ckpt", "",
+                                  "--cache_features", "--cache_max_frames",
+                                  "2"])
+    assert len(r) == 12 and all(np.isfinite(v) for v in r.values())
+    assert "feature cache: 0 hits / 3 misses" in capsys.readouterr().out

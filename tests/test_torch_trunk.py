@@ -30,6 +30,7 @@ from magnet_tpu_torch.nn import efficientnet, layers
 from magnet_tpu_torch.nn.efficientnet import (EfficientNetB5Features,
                                               InvertedResidual,
                                               fold_mbconv_chain)
+from test_torch_kernels import torch_threads  # noqa: F401
 
 RTOL = 1e-4
 _TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -270,7 +271,7 @@ def test_trunk_dispatch(monkeypatch, chain, dw, n_chain, dw_channels):
     else:
         assert dws == dw_channels
     model.train()                      # the switches act in eval mode only
-    model(torch.zeros(2, 3, 32, 32))
+    model(torch.zeros(2, 3, 32, 32), torch.Generator())  # drop-path masks
     assert len(chains) == n_chain and len(dws) == (35 if dw_channels is None
                                                    else len(dw_channels))
 
