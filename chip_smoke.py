@@ -90,7 +90,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      at this shape: phase 7 holds every shared kernel to the CPU already;
  12. D-Net training (stage 1): the entry point's own loop
      (magnet_tpu_torch.train_dnet) at train_scripts/dnet/scannet.txt (the
-     416x544 crop, batch 16 or the largest half of it that fits, bf16, f32
+     416x544 crop, given as the input size: synthetic items are drawn at
+     the input size and not augmented, as in the JAX package; batch 16 or
+     the largest half of it that fits, bf16, f32
      master weights), started by --resume_ckpt from a state whose depth
      head is in a trained network's regime: 3 steps and a validation pass;
      finite losses, launches as predicted (per step the upsampling and its
@@ -112,7 +114,30 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      step): one miss a window in steady state, launches as predicted, ms
      per window against the monolithic forward by events, the largest
      difference between the two, and which stage of the encode depends on
-     the batch (N = 1 against N = 5).
+     the batch (N = 1 against N = 5);
+ 15. the GroupNorm D-Net decoder (--DNET_architecture DenseDepth_GN): the
+     D-Net path of phase 4 with it (per frame 2 head-chain launches, 1
+     upsampling, no conv kernel: its stages are plain PyTorch, as the JAX
+     package runs them in XLA), ms by events, the profiler; the f32 GN
+     D-Net on the card against the CPU at 128x160 (phase 5's limit); the
+     bf16 frame against the f32 one on the card at 480x640 (phase 7's
+     limits for one map); the BN and GN D-Nets' stage split by events; the
+     MaGNet path of phase 6 on it; 2 stage-1 steps of phase 12 with it
+     (the batch that fits, ms per step, peak memory);
+ 16. the on-disk datasets: small ScanNet (scans_test: colour JPEG
+     1296x968, depth PNG 640x480, poses, intrinsics), 7-Scenes (640x480
+     PNGs with 65535 holes, poses) and KITTI (colour PNG 1242x375, sparse
+     ground-truth PNGs, calibration, OXTS) trees written under build/,
+     named after the first entries of the repository's split files; the
+     first 4 test batches of each through the port's dispatch
+     (magnet_tpu_torch.data) held to what was written (depth = uint16 /
+     1000 or / 256 in the kb-crop, 65535 as 0, finite poses and
+     intrinsics, every view valid), host ms per sample; the MaGNet forward
+     on each (bf16, the flag file's shape: 480x640 with 4 views, KITTI
+     352x1216 with 2 views and --stream_blocks) with finite maps and the
+     harness's metric line; the KITTI eigen_train single-view loader with
+     its augmentations at batch 16 and the 352x704 crop, host ms per batch
+     at --workers 1 and 4, beside phase 12's step.
 Phase 3 also holds rows 12 and 13 at their path-A sites (N = 1 and 5),
 row 14 at the four KITTI layer shapes (3 frames; row 6's chain over the
 same blocks timed beside it), rows 1 and 2 at the KITTI decoder's four
@@ -167,7 +192,9 @@ from magnet_tpu_torch.models.build import (build_dnet, build_dnet_train,
                                            build_magnet_f,
                                            build_magnet_train,
                                            cast_for_inference,
+                                           init_weights_,
                                            realistic_depth_init_)
+from magnet_tpu_torch.models.dnet import DNet
 from magnet_tpu_torch.models.magnet import sid_depth_centers
 from magnet_tpu_torch.nn import psmnet
 from magnet_tpu_torch.nn.densedepth import run_head
@@ -178,6 +205,7 @@ from magnet_tpu_torch.nn.layers import BN_MOMENTUM, conv2d, nchw, nhwc
 from magnet_tpu_torch.ops.costvolume import sweep_forward_args
 from magnet_tpu_torch.profile_dnet import (cuda_ms, graph_ms, kernel_profile,
                                            random_chain, trunk_tail_sites)
+from magnet_tpu_torch.profile_dnet import stage_times as dnet_stage_times
 from magnet_tpu_torch.profile_fnet_train import (protocol_args, step_account,
                                                  sweep_case, sweep_grids,
                                                  sweep_samples)
@@ -258,6 +286,23 @@ KITTI_FRAMES = 3
 # stride-1 BasicBlock of layer1-4 (3 + 15 + 2 + 3), the transitions, the tail
 KITTI_FNET_LAUNCHES = dict(fused_residual_stage=2, res_block=23,
                            downsample_block=3, expand_block=3, spp_tail=1)
+# per D-Net pass of the BN decoder: conv_a and conv_b in up2 and in up3
+BN_CONV = dict(conv3x3_bnact=4, up2=2, up3=2)
+# per D-Net frame: those, the depth and the mask head, one upsampling; the
+# GN decoder runs no conv kernel (its stages are plain PyTorch, as the JAX
+# package runs UpSampleGN in XLA)
+BN_DECODER = dict(BN_CONV, head_chain=2, upsample_mask=1)
+GN_DECODER = dict(head_chain=2, upsample_mask=1)
+GN_FLAGS = ["--DNET_architecture", "DenseDepth_GN"]
+# the GN D-Net card vs CPU in f32 (the BN D-Net's limit, phase 5), at a
+# reduced shape: the CPU side is slow
+GN_F32_H, GN_F32_W = 128, 160
+# GN D-Net training: steps through train_dnet at DNET_CROP
+GN_TRAIN_STEPS = 2
+# phase 16: batches taken of each dataset's test split; entries of KITTI
+# eigen_train written for its training loader (four batches)
+ONDISK_BATCHES = 4
+ONDISK_KITTI_TRAIN = 64
 
 
 def reset_counts() -> None:
@@ -1030,9 +1075,10 @@ def check_counts(path: str, counts: dict, per_stage: dict, per_frame: dict,
 
 
 def run_dnet_path(frames: int, exp_dir: str, extra=(),
-                  trunk: dict = None) -> dict:
+                  trunk: dict = None, decoder: dict = None) -> dict:
     """The D-Net through test_dnet's code with the flags ``extra``; ``trunk``
-    holds the launches per frame of the trunk's kernels they predict."""
+    holds the launches per frame of the trunk's kernels they predict,
+    ``decoder`` those of the decoder and heads (default BN_DECODER)."""
     args = config.setup_exp_dirs(dnet_args("cuda", "bfloat16", frames,
                                            exp_dir, extra))
     model, forward = test_dnet.prepare(args)
@@ -1053,9 +1099,9 @@ def run_dnet_path(frames: int, exp_dir: str, extra=(),
         h.remove()
     # per frame: conv_a and conv_b in up2 and in up3, the depth and the mask
     # head, one convex upsampling; nothing of the fusion or the F-Net
-    want = dict.fromkeys(WRAPPERS, 0)
-    want.update(conv3x3_bnact=4, up2=2, up3=2, head_chain=2,
-                upsample_mask=1, **(trunk or {}))
+    want = dict(dict.fromkeys(WRAPPERS, 0), up2=0, up3=0)
+    want.update(decoder or BN_DECODER)
+    want.update(trunk or {})
     launches = check_counts("D-Net", counts, per_stage, want, frames)
     for out in outs:
         if out.shape != (1, H, W, 2) or not np.isfinite(out).all():
@@ -1156,11 +1202,13 @@ def kitti_args(device: str, dtype: str, frames: int, exp_dir: str,
 
 def run_magnet_path(frames: int, exp_dir: str, args=None,
                     fnet: dict = FNET_LAUNCHES, trunk: dict = None,
-                    stages: bool = False) -> dict:
+                    stages: bool = False, decoder: dict = None) -> dict:
     """MaGNet through test_magnet's code (bf16; ``args`` default the ScanNet
-    eval flags); ``fnet`` and ``trunk`` hold the launches per frame of the
-    F-Net's and the trunk's kernels that the flags predict. With ``stages``
-    also ``profile_magnet.stage_times`` (CUDA events per stage)."""
+    eval flags); ``fnet``, ``trunk`` and ``decoder`` hold the launches per
+    frame of the F-Net's, the trunk's and the D-Net decoder's kernels
+    (default the BN decoder's conv kernel) that the flags predict. With
+    ``stages`` also ``profile_magnet.stage_times`` (CUDA events per
+    stage)."""
     if args is None:
         args = magnet_args("cuda", "bfloat16", frames, exp_dir)
     args = config.setup_exp_dirs(args)
@@ -1191,10 +1239,11 @@ def run_magnet_path(frames: int, exp_dir: str, args=None,
     # feature term and MaGNet's mask head through the head chain; per
     # iteration one cost volume and one G-Net update; one upsampling launch
     # for the ITERS predictions; one F-Net pass over the 5 frames
-    want = dict.fromkeys(WRAPPERS, 0)
-    want.update(conv3x3_bnact=4, up2=2, up3=2, head_chain=3,
-                cost_volume_cw=ITERS, gnet_update=ITERS, upsample_mask=1,
-                **fnet, **(trunk or {}))
+    want = dict(dict.fromkeys(WRAPPERS, 0), up2=0, up3=0, head_chain=3,
+                cost_volume_cw=ITERS, gnet_update=ITERS, upsample_mask=1)
+    want.update(fnet)
+    want.update(trunk or {})
+    want.update(BN_CONV if decoder is None else decoder)
     launches = check_counts("MaGNet", counts, per_stage, want, frames)
     for out in outs:
         if out.shape != shape or not np.isfinite(out).all():
@@ -1267,7 +1316,8 @@ def compare_f32_maps(outs: list, refs: list, what: str) -> dict:
     return worst
 
 
-def compare_bf16_maps(outs: list, refs: list, what: str) -> dict:
+def compare_bf16_maps(outs: list, refs: list, what: str,
+                      names=("mu", "sigma")) -> dict:
     """The bf16 forward rounds every iteration's (mu, sigma) map to bf16, so
     iteration i may be off by i ulp of the map's largest value before any
     error of the networks; on top of that it gets BF16_FORWARD_TOL of the
@@ -1276,7 +1326,7 @@ def compare_bf16_maps(outs: list, refs: list, what: str) -> dict:
     MAGNET_FLIPS of the pixels may be over, as in f32."""
     worst = dict(bf16_err=0.0, bf16_over=0.0)
     for i, (out, ref) in enumerate(zip(outs, refs)):
-        for c, name in enumerate(("mu", "sigma")):
+        for c, name in enumerate(names):
             o, r = out[..., c], ref[..., c]
             err = (o - r).abs()
             ulp = 2.0 ** (np.floor(np.log2(r.abs().max().item())) - 7)
@@ -1696,25 +1746,30 @@ def check_kitti_fnet(exp_dir: str) -> dict:
 
 # ---- phase 12: D-Net training (stage 1) ------------------------------------
 
-def dnet_train_args(exp_dir: str, batch: int) -> argparse.Namespace:
-    """The flags of train_scripts/dnet/scannet.txt on the synthetic dataset:
-    the 416x544 crop, bf16, at ``batch``, DNET_TRAIN_STEPS steps and a
-    validation pass over as many frames at 480x640."""
+def dnet_train_args(exp_dir: str, batch: int,
+                    n_steps: int = DNET_TRAIN_STEPS,
+                    extra=()) -> argparse.Namespace:
+    """The flags of train_scripts/dnet/scannet.txt on the synthetic dataset,
+    then ``extra``, at ``batch``: ``n_steps`` steps and a validation pass
+    over as many frames, bf16. The synthetic items are not augmented (they
+    are drawn at the input size, as in the JAX package), so the input size
+    is set to the flag file's 416x544 crop."""
     args = config.parse_args(config.build_train_dnet_parser(), [
         "@" + str(REPO / "train_scripts" / "dnet" / "scannet.txt"),
         "--dataset_name", "synthetic", "--dataset_path", "none",
         "--exp_name", "chip_smoke_dnet", "--exp_dir", exp_dir,
+        "--input_height", str(DNET_CROP[0]),
+        "--input_width", str(DNET_CROP[1]),
         "--batch_size", str(batch), "--n_epochs", "1",
-        "--synthetic_length", str(batch * DNET_TRAIN_STEPS),
-        "--validate_every", "1000000", "--log_every", "1"])
+        "--synthetic_length", str(batch * n_steps),
+        "--validate_every", "1000000", "--log_every", "1", *extra])
     if ((args.crop_height, args.crop_width) != DNET_CROP
-            or (args.input_height, args.input_width) != (H, W)
             or args.compute_dtype != "bfloat16"):
         raise RuntimeError("the flag file is not the D-Net training shape")
     return config.setup_exp_dirs(args, kind="train")
 
 
-def dnet_start(args) -> steps.TrainState:
+def dnet_start(args, n_steps: int = DNET_TRAIN_STEPS) -> steps.TrainState:
     """The state ``train_dnet`` starts from (its model, optimizer and
     generator), the depth head in a trained network's regime (last conv 0,
     bias (2, -3): mu 2 m, var 0.05), so that phase 13's cost volume sees
@@ -1725,20 +1780,20 @@ def dnet_start(args) -> steps.TrainState:
         head.weight.zero_()
         head.bias.copy_(torch.tensor([2.0, -3.0]))
     opt = optim.make_dnet_optimizer(
-        model, lr=args.lr, total_steps=DNET_TRAIN_STEPS,
+        model, lr=args.lr, total_steps=n_steps,
         weight_decay=args.weight_decay, grad_clip=args.grad_clip,
         same_lr=args.same_lr, div_factor=args.div_factor,
         final_div_factor=args.final_div_factor)
     return steps.TrainState(model, opt, seed=args.seed)
 
 
-def dnet_batch_that_fits(exp_dir: str) -> int:
+def dnet_batch_that_fits(exp_dir: str, extra=()) -> int:
     """The flag file's batch if one training step fits the card, else the
     largest half of it that does."""
     b = DNET_TRAIN_B
     while True:
-        args = dnet_train_args(exp_dir, b)
-        raw = base.collate([SyntheticSingleView(args, DNET_CROP).get(i)
+        args = dnet_train_args(exp_dir, b, extra=extra)
+        raw = base.collate([SyntheticSingleView(args).get(i)
                             for i in range(b)])
         try:
             state = dnet_start(args)
@@ -1757,47 +1812,49 @@ def dnet_batch_that_fits(exp_dir: str) -> int:
             torch.cuda.empty_cache()
 
 
-def run_dnet_train_path(exp_dir: str) -> dict:
+def run_dnet_train_path(exp_dir: str, n_steps: int = DNET_TRAIN_STEPS,
+                        extra=(), per_val: dict = None) -> dict:
     """D-Net training through the entry point's own loop
-    (``train_dnet.train``) at train_scripts/dnet/scannet.txt's shape,
-    started from ``dnet_start`` by ``--resume_ckpt``: finite losses, the
-    launches (per step the upsampling forward and its backward; per
-    validation frame the D-Net's inference kernels), step ms by events, the
-    peak memory, a checkpoint that restores."""
-    b = dnet_batch_that_fits(exp_dir)
-    args = dnet_train_args(exp_dir, b)
+    (``train_dnet.train``) at train_scripts/dnet/scannet.txt's shape with
+    the flags ``extra``, ``n_steps`` steps, started from ``dnet_start`` by
+    ``--resume_ckpt``: finite losses, the launches (per step the upsampling
+    forward and its backward; per validation frame ``per_val``, default the
+    BN D-Net's inference kernels), step ms by events, the peak memory, a
+    checkpoint that restores."""
+    b = dnet_batch_that_fits(exp_dir, extra)
+    args = dnet_train_args(exp_dir, b, n_steps, extra)
     args.resume_ckpt = checkpoint.save(
-        os.path.join(args.exp_dir, "start"), dnet_start(args), 0)
-    n_val = b * DNET_TRAIN_STEPS
+        os.path.join(args.exp_dir, "start"), dnet_start(args, n_steps), 0)
+    n_val = b * n_steps
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     out = train_dnet.train(args)
     counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     per_step = dict(upsample_mask=1, upsample_mask_bwd=1)
-    per_val = dict(conv3x3_bnact=4, head_chain=2, upsample_mask=1)
-    want = {k: DNET_TRAIN_STEPS * per_step.get(k, 0)
-            + n_val * per_val.get(k, 0) for k in WRAPPERS}
-    log(f"  launches over {DNET_TRAIN_STEPS} steps and {n_val} validation "
+    per_val = per_val or BN_DECODER
+    want = {k: n_steps * per_step.get(k, 0) + n_val * per_val.get(k, 0)
+            for k in WRAPPERS}
+    log(f"  launches over {n_steps} steps and {n_val} validation "
         f"frames: found {counts}, expected {want}")
     if counts != want:
         raise RuntimeError("the D-Net training path did not run its kernels "
                            "as expected")
     losses = out["losses"]
-    if len(losses) != DNET_TRAIN_STEPS or not np.isfinite(losses).all():
+    if len(losses) != n_steps or not np.isfinite(losses).all():
         raise RuntimeError(f"D-Net training losses {losses}")
     if not all(np.isfinite(v) for v in out["metrics"].values()):
         raise RuntimeError(f"non-finite validation metrics {out['metrics']}")
     saved = checkpoint.restore(out["ckpt"])
     current = out["state"].model.state_dict()
-    if saved["step"] != DNET_TRAIN_STEPS or any(
+    if saved["step"] != n_steps or any(
             not torch.equal(v, current[k].cpu())
             for k, v in saved["model"].items()):
         raise RuntimeError("the D-Net checkpoint does not restore the state")
     ev_ms = float(np.mean(out["step_event_ms"][1:]))
     log(f"  batch {b} (the flag file's {DNET_TRAIN_B}) at "
         f"{DNET_CROP[0]}x{DNET_CROP[1]}, bf16: losses {losses}; step "
-        f"{ev_ms:.3f} ms by CUDA events (steps 2-{DNET_TRAIN_STEPS}; first "
+        f"{ev_ms:.3f} ms by CUDA events (steps 2-{n_steps}; first "
         f"{out['step_event_ms'][0]:.3f}), host clock "
         f"{np.mean(out['step_ms'][1:]):.3f} ms; max_memory_allocated "
         f"{peak_gb:.3f} GiB; validation abs_rel "
@@ -2026,10 +2083,10 @@ class SlidingWindows:
     def __len__(self) -> int:
         return self.n - 4
 
-    def get(self, idx: int) -> dict:
-        from magnet_tpu_torch.data import synthetic
+    def get(self, idx: int, rng=None) -> dict:
+        from magnet_tpu_torch.data import scannet
         ids = list(range(idx, idx + 5))
-        return synthetic._pack_multiview(
+        return scannet._pack_multiview(
             [self.frames[i] for i in ids], [self.poses[i] for i in ids],
             self.depths[idx + 2], 2, self.intM, self.rays2d, "video",
             str(idx + 2), frame_ids=[str(i) for i in ids])
@@ -2121,7 +2178,7 @@ def run_streaming_path(exp_dir: str) -> dict:
     fusion_regime_(model)
     mono = test_magnet.make_forward(model, torch.bfloat16,
                                     torch.device("cuda"), ITERS)
-    windows = base.Loader(SlidingWindows(args, STREAM_FRAMES))
+    windows = base.Loader(SlidingWindows(args, STREAM_FRAMES), num_workers=1)
     res = {"stream": ([], []), "mono": ([], [])}
 
     def timed(fn, name):
@@ -2200,6 +2257,299 @@ def run_streaming_path(exp_dir: str) -> dict:
                 launches=counts, batch_dependence=dep,
                 abs_rel=dict(stream=m_stream["abs_rel"],
                              mono=m_mono["abs_rel"]))
+
+
+# ---- phase 15: the GroupNorm D-Net decoder (DenseDepth_GN) ------------------
+
+def gn_dnet_outputs(args, img: np.ndarray, dtype, device: str) -> torch.Tensor:
+    """One forward of the flags' D-Net (seeded weights, ``dtype``) on
+    ``device``; the output f32 on the CPU."""
+    model = cast_for_inference(build_dnet(args, "cpu"), dtype).to(device)
+    with torch.inference_mode():
+        return model(torch.from_numpy(img).to(device, dtype)).float().cpu()
+
+
+def dnet_splits() -> dict:
+    """``profile_dnet.stage_times`` (CUDA events around each stage of the
+    D-Net forward at 480x640, bf16, batch 1) of the BN and the GN D-Net,
+    side by side."""
+    x = torch.randn(1, H, W, 3, generator=torch.Generator().manual_seed(0))
+    x = x.to("cuda", torch.bfloat16)
+    out = {}
+    for name, use_bn in (("BN", True), ("GN", False)):
+        model = cast_for_inference(init_weights_(
+            DNet(use_bn=use_bn), 0).eval().cuda(), torch.bfloat16)
+        with torch.inference_mode():
+            out[name] = dnet_stage_times(model, x)
+    for (a, ms_bn), (b, ms_gn) in zip(out["BN"].items(), out["GN"].items()):
+        log(f"    {a:34s} BN {ms_bn:9.4f} ms | {b:34s} GN {ms_gn:9.4f} ms")
+    return out
+
+
+def check_gn_dnet(exp_dir: str) -> dict:
+    """The GN D-Net in f32 on the card against the CPU at GN_F32_HxGN_F32_W
+    (FORWARD_TOL * max|ref|, phase 5's limit), and the bf16 frame on the
+    card against the f32 one at 480x640 (``compare_bf16_maps``, phase 7's
+    limits for one map: 1 bf16 ulp of the map plus BF16_FORWARD_TOL of its
+    range, on all but MAGNET_FLIPS of the pixels)."""
+    args = dnet_args("cuda", "float32", 1, exp_dir,
+                     GN_FLAGS + ["--input_height", str(GN_F32_H),
+                                 "--input_width", str(GN_F32_W)])
+    img = SyntheticSingleView(args).get(0)["img"][None]
+    ref = gn_dnet_outputs(args, img, torch.float32, "cpu")
+    out = gn_dnet_outputs(args, img, torch.float32, "cuda")
+    err = (out - ref).abs().max().item()
+    lim = FORWARD_TOL * ref.abs().max().item()
+    log(f"  f32 GN D-Net card vs CPU at {GN_F32_H}x{GN_F32_W}: max_abs_err "
+        f"{err:.3e} (limit {lim:.3e})")
+    if not err <= lim:
+        raise RuntimeError("the f32 GN D-Net on the card disagrees with the "
+                           "CPU")
+    args = dnet_args("cuda", "float32", 1, exp_dir, GN_FLAGS)
+    img = SyntheticSingleView(args).get(0)["img"][None]
+    f32 = gn_dnet_outputs(args, img, torch.float32, "cuda")
+    bf = gn_dnet_outputs(args, img, torch.bfloat16, "cuda")
+    worst = compare_bf16_maps([bf], [f32], f"bf16 GN D-Net vs f32 at {H}x{W}",
+                              names=("mu", "var"))
+    return dict(f32_err=err, f32_limit=lim, **worst)
+
+
+# ---- phase 16: the on-disk datasets -----------------------------------------
+
+def _texture(rng, w: int, h: int):
+    """A smooth random RGB frame (a coarse random image resized)."""
+    from PIL import Image
+    small = rng.randint(0, 255, (max(2, h // 16), max(2, w // 16), 3),
+                        dtype=np.uint8)
+    return Image.fromarray(small).resize((w, h), Image.BILINEAR)
+
+
+def _depth_png(path: Path, d: np.ndarray) -> np.ndarray:
+    from PIL import Image
+    Image.fromarray(d.astype(np.uint16)).save(path, compress_level=1)
+    return d.astype(np.uint16)
+
+
+def _pose_txt(path: Path, i: int) -> None:
+    """cam2world: a slow yaw and a step forward a frame."""
+    a = 0.002 * i
+    m = np.eye(4)
+    m[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                 [-np.sin(a), 0, np.cos(a)]]
+    m[:3, 3] = [0.01 * i, 0.0, 0.02 * i]
+    np.savetxt(path, m)
+
+
+def _split(name: str, n: int) -> list:
+    return [ln.split() for ln in
+            (REPO / "data_split" / name).read_text().split("\n")[:n]]
+
+
+def write_ondisk_trees(root: Path) -> dict:
+    """Small trees at the datasets' raw sizes, named after the first entries
+    of the repository's split files: ScanNet scans_test (colour JPEG
+    1296x968, depth PNG 640x480, poses, intrinsic_color.txt), 7-Scenes
+    (colour and depth PNG 640x480 with 65535 holes, poses), KITTI
+    (colour PNG 1242x375, proj_depth/groundtruth PNGs, calibration files,
+    OXTS rows; the eigen_test windows and ONDISK_KITTI_TRAIN entries of
+    eigen_train). Returns the depth written for each ground-truth file."""
+    rng = np.random.RandomState(16)
+    written = {}
+    frames = range(0, 51, 5)   # every window frame and fallback of 0-30
+    scene = _split("scannet_long_test.txt", 1)[0][0]
+    sdir = root / "scannet" / "scans_test" / scene
+    for sub in ("color", "depth", "pose", "intrinsic"):
+        (sdir / sub).mkdir(parents=True, exist_ok=True)
+    K = np.eye(4)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = 1170.19, 1170.19, 647.75, 483.75
+    np.savetxt(sdir / "intrinsic" / "intrinsic_color.txt", K)
+    for i in frames:
+        _texture(rng, 1296, 968).save(sdir / "color" / f"{i}.jpg",
+                                      quality=90)
+        written["scannet", i] = _depth_png(
+            sdir / "depth" / f"{i}.png", rng.randint(300, 9000, (480, 640)))
+        _pose_txt(sdir / "pose" / f"{i}.txt", i)
+    chess, seq = _split("sevenscenes_long_test.txt", 1)[0][:2]
+    qdir = root / "7scenes" / chess / ("seq-%02d" % int(seq))
+    qdir.mkdir(parents=True, exist_ok=True)
+    for i in frames:
+        _texture(rng, 640, 480).save(qdir / ("frame-%06d.color.png" % i),
+                                     compress_level=1)
+        d = rng.randint(300, 5000, (480, 640))
+        d[rng.rand(480, 640) < 0.05] = 65535
+        written["7scenes", i] = _depth_png(
+            qdir / ("frame-%06d.depth.png" % i), d)
+        _pose_txt(qdir / ("frame-%06d.pose.txt" % i), i)
+    kroot = root / "kitti"
+    R9 = " ".join(map(str, np.eye(3).reshape(-1)))
+    P = [721.5377, 0, 609.5593, 44.85728, 0, 721.5377, 172.854, 0.2163791,
+         0, 0, 1, 0.002745884]
+    test = _split("kitti_eigen_test.txt", ONDISK_BATCHES)
+    train = _split("kitti_eigen_train.txt", ONDISK_KITTI_TRAIN)
+    for date in {e[0] for e in test + train}:
+        ddir = kroot / "rawdata" / date
+        ddir.mkdir(parents=True, exist_ok=True)
+        (ddir / "calib_imu_to_velo.txt").write_text(
+            f"R: {R9}\nT: -0.8086759 0.3195559 -0.7997231\n")
+        (ddir / "calib_velo_to_cam.txt").write_text(
+            f"R: {R9}\nT: -0.004069766 -0.07631618 -0.2717806\n")
+        (ddir / "calib_cam_to_cam.txt").write_text(
+            f"R_rect_00: {R9}\nP_rect_02: " + " ".join(map(str, P)) + "\n")
+    need = {}
+    for date, drive, tok, idx in test:
+        for j in range(int(idx) - 2, int(idx) + 3):    # window radius 2
+            need[date, drive, tok, j] = j == int(idx)
+    for date, drive, tok, idx in train:
+        need[date, drive, tok, int(idx)] = True
+    for (date, drive, tok, j), gt in need.items():
+        sc = f"{date}_drive_{drive}_sync"
+        raw = kroot / "rawdata" / date / sc
+        for sub in ("image_02/data", "oxts/data"):
+            (raw / sub).mkdir(parents=True, exist_ok=True)
+        _texture(rng, 1242, 375).save(
+            raw / "image_02" / "data" / ("%010d.png" % j), compress_level=1)
+        (raw / "oxts" / "data" / ("%010d.txt" % j)).write_text(" ".join(
+            map(str, [49.0 + 1e-5 * j, 8.43 + 2e-5 * j, 112.0, 0.01, 0.0,
+                      1.2 + 1e-3 * j] + [0.0] * 24)))
+        if gt:
+            gdir = kroot / tok / sc / "proj_depth" / "groundtruth" / \
+                "image_02"
+            gdir.mkdir(parents=True, exist_ok=True)
+            d = rng.randint(256, 80 * 256, (375, 1242))
+            d[rng.rand(375, 1242) < 0.9] = 0          # sparse, as LiDAR is
+            written["kitti", date, drive, j] = _depth_png(
+                gdir / ("%010d.png" % j), d)
+    return written
+
+
+def ondisk_args(name: str, root: Path, exp_dir: str, extra=()):
+    """The flags of test_scripts/magnet/<name>.txt on the tree under
+    ``root``, without checkpoints, bf16 on the card."""
+    sub = {"scannet": "scannet", "7scenes": "7scenes",
+           "kitti_eigen": "kitti"}[name]
+    args = config.parse_args(config.build_test_magnet_parser(), [
+        "@" + str(REPO / "test_scripts" / "magnet" / f"{name}.txt"),
+        "--exp_name", f"chip_smoke_{name}", "--exp_dir", exp_dir,
+        "--dataset_path", str(root / sub), "--DNET_ckpt", "", "--FNET_ckpt",
+        "", "--MAGNET_ckpt", "", "--device", "cuda", "--compute_dtype",
+        "bfloat16", *extra])
+    return config.setup_exp_dirs(args)
+
+
+def check_ondisk_batch(name: str, batch: dict, written: dict) -> None:
+    """The arrays of a batch against what was written: depth = uint16 /
+    1000 (ScanNet; 7-Scenes with 65535 as 0) or / 256 inside the kb-crop
+    (KITTI); finite R, t and intM; every view valid."""
+    idx = int(batch["img_idx"][0])
+    if name == "scannet":
+        want = written["scannet", idx] / np.float32(1000.0)
+    elif name == "7scenes":
+        d = written["7scenes", idx]
+        want = np.where(d == 65535, 0, d) / np.float32(1000.0)
+        if not (batch["depth"][0] == 0).any():
+            raise RuntimeError("7-Scenes: no hole read as 0")
+    else:
+        date, drive = batch["scene_name"][0].split("_drive_")
+        d = written["kitti", date, drive[:4], idx]
+        want = d[375 - 352:, (1242 - 1216) // 2:][:352, :1216] / \
+            np.float32(256.0)
+    if not np.array_equal(batch["depth"][0], want.astype(np.float32)):
+        raise RuntimeError(f"{name}: the depth read is not the depth "
+                           "written")
+    for k in ("R", "t", "intM"):
+        if not np.isfinite(batch[k]).all():
+            raise RuntimeError(f"{name}: {k} not finite")
+    if not batch["is_valid"].all():
+        raise RuntimeError(f"{name}: a view is not valid")
+
+
+def run_ondisk_path(exp_dir: str, dnet_step_ms: float) -> dict:
+    """Phase 16: the trees of ``write_ondisk_trees`` through the port's
+    dispatch (``data.make_multiview_loader`` at the entry point's split):
+    the first ONDISK_BATCHES batches of each dataset held to what was
+    written, host ms per sample; the MaGNet forward (test_magnet's, bf16,
+    seeded weights in a trained network's regime) on each batch at the
+    flag file's full shape, finite maps and the harness's metric line; the
+    KITTI eigen_train single-view loader with augmentation at batch
+    DNET_TRAIN_B and its 352x704 crop, host ms per batch at 1 and 4
+    workers, beside the stage-1 step's time."""
+    from magnet_tpu_torch.data import (TEST_MODES, make_multiview_loader,
+                                       make_singleview_loader)
+    from magnet_tpu_torch.eval import metrics as M
+    root = REPO / "build" / "chip_smoke_data"
+    t = time.perf_counter()
+    written = write_ondisk_trees(root)
+    log(f"  trees written under {root.relative_to(REPO)} in "
+        f"{time.perf_counter() - t:.2f} s")
+    out = {}
+    for name, extra in (("scannet", ()), ("7scenes", ()),
+                        ("kitti_eigen", ("--stream_blocks",))):
+        args = ondisk_args(name, root, exp_dir, extra)
+        loader = make_multiview_loader(args, TEST_MODES[name])
+        t, batches = time.perf_counter(), []
+        for b in loader:
+            batches.append(b)
+            if len(batches) == ONDISK_BATCHES:
+                break
+        host_ms = 1e3 * (time.perf_counter() - t) / ONDISK_BATCHES
+        for b in batches:
+            check_ondisk_batch(name, b, written)
+        model, forward = test_magnet.prepare(args)
+        realistic_depth_init_(model)
+        shape = (1, args.input_height, args.input_width, 2)
+
+        def checked(batch):
+            o = forward(batch)
+            if o.shape != shape or not np.isfinite(o).all() or \
+                    not (o[..., 1] > 0).all():
+                raise RuntimeError(f"{name}: bad MaGNet output {o.shape}")
+            return o
+        t = time.perf_counter()
+        m = harness.evaluate_magnet(checked, batches, args, progress=False)
+        fwd_ms = 1e3 * (time.perf_counter() - t) / len(batches)
+        if not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"{name}: non-finite metrics {m}")
+        M.log_metrics(args.test_acc_txt, m, f"dataset: {name} (phase 16 "
+                      f"tree, {len(batches)} samples, seeded weights)")
+        log(f"  {name}: {len(batches)} batches of {loader.__class__.__name__}"
+            f" over {type(loader.dataset).__name__}, "
+            f"{args.input_height}x{args.input_width}, "
+            f"{args.MAGNET_num_source_views} source views: host "
+            f"{host_ms:.3f} ms per sample to load; MaGNet forward incl. "
+            f"copies {fwd_ms:.3f} ms per sample; depth, poses and "
+            f"intrinsics as written")
+        out[name] = dict(load_ms_per_sample=host_ms, forward_ms=fwd_ms,
+                         metrics=m)
+        del model, forward
+        torch.cuda.empty_cache()
+    targs = config.parse_args(config.build_train_dnet_parser(), [
+        "@" + str(REPO / "train_scripts" / "dnet" / "kitti_eigen.txt"),
+        "--dataset_path", str(root / "kitti"), "--exp_name",
+        "chip_smoke_kitti_train", "--exp_dir", exp_dir, "--batch_size",
+        str(DNET_TRAIN_B)])
+    timing = {}
+    for workers in (1, 4):
+        targs.workers = workers
+        loader = make_singleview_loader(targs, "eigen_train")
+        # the first ONDISK_KITTI_TRAIN entries of the split: the files
+        # written
+        loader.dataset.entries = loader.dataset.entries[:ONDISK_KITTI_TRAIN]
+        t, n = time.perf_counter(), 0
+        for b in loader:
+            n += 1
+            if b["img"].shape != (DNET_TRAIN_B, 352, 704, 3) or \
+                    not np.isfinite(b["depth"]).all():
+                raise RuntimeError("bad KITTI training batch")
+        ms = 1e3 * (time.perf_counter() - t) / n
+        timing[workers] = ms
+        log(f"  KITTI eigen_train single-view, augmented (rotate, flip, "
+            f"crop 352x704, colour), batch {DNET_TRAIN_B}, --workers "
+            f"{workers}: {ms:.3f} ms per batch over {n} batches (host)")
+    log(f"  the stage-1 step at 416x544 (phase 12): {dnet_step_ms:.3f} ms; "
+        f"the loader keeps up at --workers 1: {timing[1] <= dnet_step_ms}, "
+        f"at --workers 4: {timing[4] <= dnet_step_ms}")
+    out["kitti_train_loader_ms_per_batch"] = timing
+    return out
 
 
 def main() -> int:
@@ -2323,6 +2673,28 @@ def main() -> int:
         f"a {STREAM_FRAMES}-frame sliding window, against the monolithic "
         f"forward")
     stream = run_streaming_path(exp_dir)
+    log(f"[15] the GroupNorm D-Net decoder (DenseDepth_GN): test_dnet at "
+        f"{H}x{W}, bf16, {DNET_FRAMES} frames; f32 card vs CPU; bf16 vs f32; "
+        f"MaGNet as in phase 6 on it; train_dnet {GN_TRAIN_STEPS} steps at "
+        f"{DNET_CROP[0]}x{DNET_CROP[1]}")
+    gn_dnet = run_dnet_path(DNET_FRAMES, exp_dir, GN_FLAGS,
+                            decoder=GN_DECODER)
+    gn_check = check_gn_dnet(exp_dir)
+    gn_check["splits_ms"] = dnet_splits()
+    gn_magnet = run_magnet_path(
+        MAGNET_FRAMES, exp_dir, magnet_args("cuda", "bfloat16", MAGNET_FRAMES,
+                                            exp_dir, GN_FLAGS),
+        decoder={}, stages=True)
+    gn_train = run_dnet_train_path(
+        exp_dir, GN_TRAIN_STEPS, GN_FLAGS + [
+            "--DNET_fix_encoder_weights", "None", "--exp_name",
+            "chip_smoke_dnet_gn"], per_val=GN_DECODER)
+    log(f"[16] on-disk datasets: ScanNet, 7-Scenes and KITTI trees at their "
+        f"raw sizes, {ONDISK_BATCHES} test batches each through the port's "
+        f"dispatch and the MaGNet forward; the KITTI training loader")
+    ondisk = run_ondisk_path(exp_dir, dnet_train["step_event_ms"])
+    log(f"  the GN stage-1 step at {DNET_CROP[0]}x{DNET_CROP[1]}: "
+        f"{gn_train['step_event_ms']:.3f} ms (batch {gn_train['batch']})")
 
     runs = {"magnet": (magnet_path, MAGNET_FRAMES),
             "dnet_trunk": (trunk_dnet, DNET_FRAMES),
@@ -2395,6 +2767,12 @@ def main() -> int:
               "magnet_tpu/kernels/sweepbwd_pallas.py:166", sweep_rows,
               "sweep_grad_src", path="fnet_train"),
     ]
+    # the GN D-Net runs rows 3 and 11 alone (its stages are plain PyTorch):
+    # their launches on its path (phase 15) beside the BN D-Net's
+    for row, key in ((kernels[2], "head_chain"),
+                     (kernels[5], "upsample_mask")):
+        row["launches_dnet_gn_path"] = gn_dnet["launches"][key]
+        row["launches_magnet_gn_path"] = gn_magnet["launches"][key]
     # row 5's library call is cuDNN's layer-0 conv alone; the whole update
     # in cuDNN beside it
     kernels[4]["cudnn_chain_ms"] = ITERS * sum(
@@ -2455,7 +2833,9 @@ def main() -> int:
                            trunk_f32=trunk_err, trunk_compare=trunk_cmp,
                            kitti_path=kitti_path, kitti_fnet=kitti_fnet,
                            dnet_train=dnet_train, magnet_train=magnet_train,
-                           streaming=stream),
+                           streaming=stream, gn_dnet_path=gn_dnet,
+                           gn_dnet_check=gn_check, gn_magnet_path=gn_magnet,
+                           gn_dnet_train=gn_train, ondisk=ondisk),
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -9,13 +9,18 @@ reference torch checkpoints.
     d_net.encoder.original_model.blocks.{stage}.{idx}.{conv_pw|bn1|...}.*
     d_net.encoder.original_model.blocks.{stage}.{idx}.se.conv_{reduce|expand}.*
     d_net.decoder.conv2.*
-    d_net.decoder.up{i}._net.{0|1|3|4}.*    conv_a, bn_a, conv_b, bn_b
+    d_net.decoder.up{i}._net.{0|1|3|4}.*    conv_a, bn_a|gn_a, conv_b,
+                                            bn_b|gn_b
     d_net.decoder.{depth|mask}_head.{0|2|4}.*
 
-Conv kernels go HWIO -> OIHW. The JAX decoder splits each stage's conv_a
-along its input channels (``conv_a_up`` over the upsampled map, with the
-bias, and ``conv_a_skip`` over the skip); they are joined back into the
-reference's single conv over the concat, upsampled channels first.
+Conv kernels go HWIO -> OIHW. The JAX BatchNorm decoder splits each stage's
+conv_a along its input channels (``conv_a_up`` over the upsampled map, with
+the bias, and ``conv_a_skip`` over the skip); they are joined back into the
+reference's single conv over the concat, upsampled channels first. The
+GroupNorm decoder's weight-standardised convs hold their ``kernel`` and
+``bias`` directly under ``conv_a`` / ``conv_b`` (no ``conv`` scope), its
+GroupNorms a scale and a bias under ``gn_a/gn`` / ``gn_b/gn`` (no running
+statistics).
 
 ``fnet_state_dict`` does the same for a JAX ``FNet`` (keys ``f_net.*`` in
 the PSM-Net layout of ``nn/psmnet.py``) and ``magnet_state_dict`` for a JAX
@@ -37,7 +42,9 @@ _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
             "var": "running_var"}
 _CONV_LEAF = {"kernel": "weight", "bias": "bias"}
 _HEAD_IDX = {"conv0": "0", "conv1": "2", "conv2": "4"}
-_UP_IDX = {"conv_a": "0", "bn_a": "1", "conv_b": "3", "bn_b": "4"}
+_UP_IDX = {"conv_a": "0", "bn_a": "1", "gn_a": "1", "conv_b": "3",
+           "bn_b": "4", "gn_b": "4"}
+_GN_LEAF = {"scale": "weight", "bias": "bias"}
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -85,8 +92,12 @@ def dnet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         if path[0] != "d_net":
             raise KeyError(f"not a D-Net path {path}")
         *mod, wrapper, leaf = path[1:]
+        if wrapper not in ("conv", "bn", "gn"):       # a WSConv's own leaf
+            mod.append(wrapper)
         key = "d_net." + _module_key(tuple(mod))
-        if wrapper == "bn":
+        if wrapper == "gn":
+            out[f"{key}.{_GN_LEAF[leaf]}"] = torch.from_numpy(value.copy())
+        elif wrapper == "bn":
             out[f"{key}.{_BN_LEAF[leaf]}"] = torch.from_numpy(value.copy())
             out[f"{key}.num_batches_tracked"] = torch.tensor(0)
         elif mod[-1] in ("conv_a_up", "conv_a_skip"):

@@ -30,6 +30,15 @@ def convert_arg_line_to_args(arg_line: str):
             yield str(arg)
 
 
+DNET_ARCH_HELP = ("DenseDepth_BN (BatchNorm decoder) or DenseDepth_GN "
+                  "(GroupNorm and weight-standardised convs)")
+DATASET_HELP = ("scannet, 7scenes, kitti_eigen or kitti_official (a tree "
+                "under --dataset_path), or synthetic (no data on disk)")
+COLOR_AUG_HELP = ("on-disk training samples get one gamma, brightness and "
+                  "colour jitter for all their frames with p = 0.5; always "
+                  "on, as in the reference")
+
+
 def build_test_dnet_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(fromfile_prefix_chars="@")
     p.convert_arg_line_to_args = convert_arg_line_to_args
@@ -41,10 +50,11 @@ def build_test_dnet_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_type", required=True, type=str, help="{R, G}")
     p.add_argument("--downsample_ratio", type=int, default=4)
     p.add_argument("--DNET_architecture", required=True, type=str,
-                   help="DenseDepth_BN (the port's only D-Net)")
+                   help=DNET_ARCH_HELP)
     p.add_argument("--DNET_fix_encoder_weights", type=str, default="None",
                    help="accepted for flag-file compatibility; unused")
-    p.add_argument("--dataset_name", required=True, type=str)
+    p.add_argument("--dataset_name", required=True, type=str,
+                   help=DATASET_HELP)
     p.add_argument("--dataset_path", required=True, type=str)
     p.add_argument("--input_height", type=int, default=480)
     p.add_argument("--input_width", type=int, default=640)
@@ -103,7 +113,7 @@ def build_test_magnet_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_type", default="G", type=str, help="{R, G}")
     p.add_argument("--downsample_ratio", type=int, default=4)
     p.add_argument("--DNET_architecture", type=str, default="DenseDepth_BN",
-                   help="DenseDepth_BN (the port's only D-Net)")
+                   help=DNET_ARCH_HELP)
     p.add_argument("--DNET_fix_encoder_weights", type=str, default="None",
                    help="accepted for flag-file compatibility; unused")
     p.add_argument("--DNET_ckpt", required=True, type=str,
@@ -120,8 +130,10 @@ def build_test_magnet_parser() -> argparse.ArgumentParser:
     p.add_argument("--MAGNET_window_radius", type=int, default=10)
     p.add_argument("--MAGNET_num_source_views", type=int, default=4)
     p.add_argument("--MAGNET_ckpt", default="", type=str,
-                   help="reference torch .pt laid over the whole model")
-    p.add_argument("--dataset_name", required=True, type=str)
+                   help="reference torch .pt or the port's train_magnet "
+                        "checkpoint, laid over the whole model")
+    p.add_argument("--dataset_name", required=True, type=str,
+                   help=DATASET_HELP)
     p.add_argument("--dataset_path", required=True, type=str)
     p.add_argument("--input_height", type=int, default=480)
     p.add_argument("--input_width", type=int, default=640)
@@ -167,7 +179,8 @@ def _add_train_flags(p: argparse.ArgumentParser, default_batch: int) -> None:
                    help="accepted; the port does not visualise (no "
                         "matplotlib on the card's machine)")
     p.add_argument("--workers", default=4, type=int,
-                   help="accepted; the port's loader runs in the caller")
+                   help="threads that load the training batches ahead of "
+                        "the step (evaluation loads on one)")
     p.add_argument("--remat", default=False, action="store_true",
                    help="recompute the backbone's blocks in the backward "
                         "(torch.utils.checkpoint): less memory, the same "
@@ -177,7 +190,8 @@ def _add_train_flags(p: argparse.ArgumentParser, default_batch: int) -> None:
     p.add_argument("--grad_clip", default=1.0, type=float)
     p.add_argument("--div_factor", default=25, type=float)
     p.add_argument("--final_div_factor", default=10000, type=float)
-    p.add_argument("--dataset_name", required=True, type=str)
+    p.add_argument("--dataset_name", required=True, type=str,
+                   help=DATASET_HELP)
     p.add_argument("--dataset_path", required=True, type=str)
     p.add_argument("--input_height", type=int, default=480)
     p.add_argument("--input_width", type=int, default=640)
@@ -217,9 +231,12 @@ def build_train_fnet_parser() -> argparse.ArgumentParser:
     p.add_argument("--FNET_architecture", type=str, default="PSM-Net")
     p.add_argument("--FNET_feature_dim", type=int, default=64)
     p.add_argument("--MAGNET_window_radius", type=int, default=20,
-                   help="accepted for flag-file compatibility; unused")
+                   help="source views within this many frames of the "
+                        "reference (on-disk datasets)")
     p.add_argument("--MAGNET_num_source_views", type=int, default=4)
     p.add_argument("--loss_fn", default="l1", type=str)
+    p.add_argument("--data_augmentation_color", default=True,
+                   action="store_true", help=COLOR_AUG_HELP)
     p.add_argument("--dpv_height", type=int, default=120)
     p.add_argument("--dpv_width", type=int, default=160)
     p.add_argument("--FNET_num_depth_bins", type=int, default=80,
@@ -240,28 +257,34 @@ def _add_dnet_train_flags(p: argparse.ArgumentParser) -> None:
 def build_train_dnet_parser() -> argparse.ArgumentParser:
     """The flags of the reference train_DNet.py:215-272 (the JAX package's
     ``build_train_dnet_parser``) that the port reads or that the reference
-    flag files set. The synthetic training items are drawn at
-    ``--crop_height`` x ``--crop_width``, validation at the input size;
-    the augmentation flags are accepted and the synthetic items are not
-    augmented, as in the JAX package."""
+    flag files set. The on-disk training items are augmented as the
+    ``--data_augmentation_*`` flags say (all on by default; the crop is
+    ``--crop_height`` x ``--crop_width``); the synthetic items are drawn at
+    the input size and not augmented, as in the JAX package."""
     p = _new_parser()
     _add_train_flags(p, default_batch=16)
     p.add_argument("--output_dim", required=True, type=int, help="{1, 2}")
     p.add_argument("--output_type", required=True, type=str, help="{R, G}")
     p.add_argument("--downsample_ratio", type=int, default=4)
     p.add_argument("--DNET_architecture", required=True, type=str,
-                   help="DenseDepth_BN (the port's only D-Net)")
+                   help=DNET_ARCH_HELP)
     _add_dnet_train_flags(p)
     p.add_argument("--loss_fn", default="gaussian", type=str)
     p.add_argument("--same_lr", default=False, action="store_true",
                    help="the encoder at the full learning rate")
     p.add_argument("--crop_height", type=int, default=416)
     p.add_argument("--crop_width", type=int, default=544)
-    for flag in ("flip", "crop", "color", "rotate"):
+    for flag, what in (("flip", "a horizontal flip with p = 0.5"),
+                       ("crop", "a random --crop_height x --crop_width "
+                                "crop"),
+                       ("color", "gamma, brightness and colour jitter with "
+                                 "p = 0.5"),
+                       ("rotate", "a random rotation (+-2.5 deg, KITTI "
+                                  "+-1 deg)")):
         p.add_argument(f"--data_augmentation_{flag}", default=True,
                        action="store_true",
-                       help="accepted; the synthetic items are not "
-                            "augmented")
+                       help=f"on-disk training items get {what}; always on, "
+                            "as in the reference")
     return p
 
 
@@ -275,7 +298,7 @@ def build_train_magnet_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_type", default="G", type=str, help="{R, G}")
     p.add_argument("--downsample_ratio", type=int, default=4)
     p.add_argument("--DNET_architecture", type=str, default="DenseDepth_BN",
-                   help="DenseDepth_BN (the port's only D-Net)")
+                   help=DNET_ARCH_HELP)
     p.add_argument("--DNET_fix_encoder_weights", type=str, default="None",
                    help="accepted for flag-file compatibility; unused")
     p.add_argument("--DNET_ckpt", required=True, type=str,
@@ -292,15 +315,15 @@ def build_train_magnet_parser() -> argparse.ArgumentParser:
     p.add_argument("--MAGNET_num_train_iter", type=int, default=3)
     p.add_argument("--MAGNET_num_test_iter", type=int, default=3)
     p.add_argument("--MAGNET_window_radius", type=int, default=10,
-                   help="accepted for flag-file compatibility; unused")
+                   help="source views within this many frames of the "
+                        "reference (on-disk datasets)")
     p.add_argument("--MAGNET_num_source_views", type=int, default=4)
     p.add_argument("--loss_fn", default="gaussian", type=str)
     p.add_argument("--loss_gamma", default=0.8, type=float)
     p.add_argument("--dpv_height", type=int, default=120)
     p.add_argument("--dpv_width", type=int, default=160)
     p.add_argument("--data_augmentation_color", default=True,
-                   action="store_true",
-                   help="accepted; the synthetic items are not augmented")
+                   action="store_true", help=COLOR_AUG_HELP)
     return p
 
 
@@ -309,14 +332,15 @@ ADABINS_ENCODER = "./ckpts/AdaBins_kitti_encoder.pt"
 
 
 def check_train_flags(args: argparse.Namespace, loss_fn: str = "l1") -> None:
-    """Raise on a training flag whose feature the port does not have;
-    ``loss_fn`` is the loss of the calling stage."""
+    """Raise on a training flag whose feature the port does not have, and
+    on 7-Scenes, which has no training split; ``loss_fn`` is the loss of
+    the calling stage."""
+    if args.dataset_name == "7scenes":
+        raise ValueError("--dataset_name 7scenes is test only: it has no "
+                         "training split")
     unsupported = []
     if args.mesh_shape not in ("auto", "1"):
         unsupported.append(f"--mesh_shape {args.mesh_shape} (one device)")
-    if args.dataset_name != "synthetic":
-        unsupported.append(f"--dataset_name {args.dataset_name} (the port "
-                           "has 'synthetic')")
     arch = getattr(args, "FNET_architecture", "PSM-Net")
     if arch != "PSM-Net":
         unsupported.append(f"--FNET_architecture {arch}")

@@ -2,7 +2,9 @@
 (multi-view) small random camera motion with consistent intrinsics and ray
 arrays, so the evaluation and training paths run end to end without data
 on disk. The port's copy of ``magnet_tpu/data/synthetic.py``: the same seed
-gives the same frames in both packages.
+gives the same frames in both packages. Each item draws from its own index;
+the ``rng`` that ``base.Loader`` passes is taken and ignored, as it is
+there.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from typing import Dict
 import numpy as np
 
 from magnet_tpu_torch.data import base
-from magnet_tpu_torch.geometry import poses as poses_lib
+from magnet_tpu_torch.data.scannet import _pack_multiview
 from magnet_tpu_torch.geometry import rays as rays_lib
 
 
@@ -46,34 +48,6 @@ def _small_pose(rng, rot_scale=0.02, t_scale=0.05):
     return T
 
 
-def _pack_multiview(imgs, extMs, depth, center, intM, rays2d, scene,
-                    img_idx, frame_ids=None) -> Dict:
-    """Split reference and sources; relative poses and their validity.
-    ``frame_ids``, one token a frame of ``imgs``, become ``view_ids`` =
-    ["scene/ref", "scene/src0", ...], the keys of the streaming cache
-    (``eval/streaming.py``): the same frame must get the same id."""
-    ref_ext = np.asarray(extMs[center])[None]
-    src_ext = np.asarray([extMs[i] for i in range(len(extMs))
-                          if i != center])[None]
-    rel, valid = poses_lib.relative_poses(ref_ext, src_ext)
-    R, t = poses_lib.split_rt(rel)
-    src_imgs = np.stack([imgs[i] for i in range(len(imgs)) if i != center])
-    out = {
-        "ref_img": imgs[center].astype(np.float32),
-        "src_imgs": src_imgs.astype(np.float32),
-        "depth": depth.astype(np.float32),
-        "R": R[0], "t": t[0], "is_valid": valid[0],
-        "intM": intM.astype(np.float32),
-        "rays2d": rays2d.astype(np.float32),
-        "scene_name": scene, "img_idx": img_idx,
-    }
-    if frame_ids is not None:
-        out["view_ids"] = [f"{scene}/{frame_ids[center]}"] + [
-            f"{scene}/{frame_ids[i]}" for i in range(len(frame_ids))
-            if i != center]
-    return out
-
-
 class SyntheticMultiView:
     def __init__(self, args):
         self.length = args.synthetic_length
@@ -85,7 +59,7 @@ class SyntheticMultiView:
     def __len__(self):
         return self.length
 
-    def get(self, idx: int) -> Dict:
+    def get(self, idx: int, rng=None) -> Dict:
         rng = np.random.RandomState(idx)
         H, W = self.img_h, self.img_w
         fx = 0.9 * W
@@ -109,17 +83,18 @@ class SyntheticMultiView:
 
 
 class SyntheticSingleView:
-    """Single-view items at the input size, or at ``size`` (H, W): the
-    D-Net's training crop."""
+    """Single-view items at the input size, in training as in evaluation:
+    the synthetic items are not augmented (no crop), as in the JAX
+    package."""
 
-    def __init__(self, args, size=None):
+    def __init__(self, args):
         self.length = args.synthetic_length
-        self.img_h, self.img_w = size or (args.input_height, args.input_width)
+        self.img_w, self.img_h = args.input_width, args.input_height
 
     def __len__(self):
         return self.length
 
-    def get(self, idx: int) -> Dict:
+    def get(self, idx: int, rng=None) -> Dict:
         rng = np.random.RandomState(idx)
         H, W = self.img_h, self.img_w
         depth = np.clip(2.5 + _smooth_noise(rng, H, W), 0.5, 9.5)
@@ -128,34 +103,3 @@ class SyntheticSingleView:
         return {"img": base.normalize_image(img).astype(np.float32),
                 "depth": depth.astype(np.float32),
                 "scene_name": "synthetic", "img_idx": str(idx)}
-
-
-def make_multiview_loader(args, mode: str = "test") -> base.Loader:
-    """Dataset dispatch for the multi-view paths: a mode containing "train"
-    gives the shuffled training loader at ``--batch_size``, any other mode
-    the evaluation loader at batch 1. The on-disk datasets are not ported
-    yet."""
-    if args.dataset_name == "synthetic":
-        train = "train" in mode
-        return base.Loader(SyntheticMultiView(args),
-                           batch_size=args.batch_size if train else 1,
-                           train=train, seed=getattr(args, "seed", 0))
-    raise ValueError(f"dataset {args.dataset_name!r} is not ported; "
-                     "the port has 'synthetic'")
-
-
-def make_singleview_loader(args, mode: str = "test") -> base.Loader:
-    """Dataset dispatch for the D-Net: a mode containing "train" gives the
-    shuffled training loader at ``--batch_size``, its items drawn at
-    ``--crop_height`` x ``--crop_width`` (the size of the reference's random
-    crop), any other mode the evaluation loader at batch 1 and the input
-    size. The on-disk datasets are not ported yet."""
-    if args.dataset_name == "synthetic":
-        if "train" in mode:
-            return base.Loader(
-                SyntheticSingleView(args, (args.crop_height, args.crop_width)),
-                batch_size=args.batch_size, train=True,
-                seed=getattr(args, "seed", 0))
-        return base.Loader(SyntheticSingleView(args))
-    raise ValueError(f"dataset {args.dataset_name!r} is not ported; "
-                     "the port has 'synthetic'")

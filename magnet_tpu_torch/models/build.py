@@ -29,19 +29,22 @@ from magnet_tpu_torch.models.dnet import DNet
 from magnet_tpu_torch.models.fnet import FNet
 from magnet_tpu_torch.models.magnet import Magnet, MagnetF
 from magnet_tpu_torch.nn.efficientnet import SqueezeExcite
+from magnet_tpu_torch.nn.layers import WSConv2d
 from magnet_tpu_torch.train import checkpoint
 
 
-def _check_arch(args) -> None:
+def _use_bn(args) -> bool:
+    """``--DNET_architecture``: DenseDepth_BN (True) or DenseDepth_GN."""
     arch = getattr(args, "DNET_architecture", "DenseDepth_BN")
-    if arch != "DenseDepth_BN":
-        raise ValueError(f"D-Net architecture {arch!r} is not ported; "
-                         "the port has DenseDepth_BN")
+    if not arch.startswith("DenseDepth"):
+        raise ValueError(f"unknown D-Net architecture {arch!r}")
+    return arch.split("_")[1] == "BN"
 
 
 def init_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights: fan-in scaled normal convs (activations stay
-    O(1) through the deep trunk), random positive BatchNorm statistics."""
+    O(1) through the deep trunk), random positive BatchNorm statistics,
+    random GroupNorm scales and biases."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -55,14 +58,18 @@ def init_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
                 m.bias.normal_(0.0, 0.1, generator=g)
                 m.running_mean.normal_(0.0, 0.5, generator=g)
                 m.running_var.uniform_(0.5, 2.0, generator=g)
+            elif isinstance(m, nn.GroupNorm):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
     return model
 
 
 def init_train_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
     """The initialisation a training run starts from, as the JAX package's
     PSM-Net has it (F_psmnet.py:71-85): every conv weight normal with std
-    sqrt(2 / (k * k * out_channels)) (Kaiming, fan-out), BatchNorm scale 1,
-    bias 0, running mean 0 and variance 1; seeded from ``seed``."""
+    sqrt(2 / (k * k * out_channels)) (Kaiming, fan-out), BatchNorm and
+    GroupNorm scale 1, bias 0, running mean 0 and variance 1; seeded from
+    ``seed``."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -72,7 +79,7 @@ def init_train_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
                 m.weight.normal_(0.0, std, generator=g)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
                 m.reset_parameters()
     return model
 
@@ -81,8 +88,8 @@ def init_flax_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
     """flax's default initialisation, the JAX package's D-Net at the start
     of training: every conv weight normal with std fan_in ** -0.5 (LeCun;
     flax truncates it at two standard deviations, here it is not), biases
-    0, BatchNorm scale 1, bias 0, running mean 0 and variance 1; seeded from
-    ``seed``."""
+    0, BatchNorm and GroupNorm scale 1, bias 0, running mean 0 and variance
+    1; seeded from ``seed``."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -91,7 +98,7 @@ def init_flax_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
                                  generator=g)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
                 m.reset_parameters()
     return model
 
@@ -111,10 +118,9 @@ def build_dnet_train(args, device: str = None) -> DNet:
     """The D-Net of stage 1 from the flags (``--remat`` included),
     initialised as flax initialises it from ``--seed``, in train mode on
     ``device`` (default ``--device``), f32."""
-    _check_arch(args)
     model = DNet(output_dim=args.output_dim, output_type=args.output_type,
                  downsample_ratio=args.downsample_ratio,
-                 remat=getattr(args, "remat", False))
+                 remat=getattr(args, "remat", False), use_bn=_use_bn(args))
     init_flax_weights_(model, getattr(args, "seed", 0))
     return model.train().to(device or args.device)
 
@@ -130,10 +136,9 @@ def trunk_switches(args) -> dict:
 def build_dnet(args, device: str = None) -> DNet:
     """DNet from the parsed flags, seeded from ``--seed``, in eval mode on
     ``device`` (default ``--device``)."""
-    _check_arch(args)
     model = DNet(output_dim=args.output_dim, output_type=args.output_type,
                  downsample_ratio=args.downsample_ratio,
-                 **trunk_switches(args))
+                 use_bn=_use_bn(args), **trunk_switches(args))
     init_weights_(model, getattr(args, "seed", 0))
     return model.eval().to(device or args.device)
 
@@ -174,7 +179,6 @@ def build_fnet(args, device: str = None) -> FNet:
 def build_magnet(args, device: str = None) -> Magnet:
     """Magnet from the parsed flags, seeded from ``--seed``, in eval mode on
     ``device`` (default ``--device``)."""
-    _check_arch(args)
     if args.FNET_architecture != "PSM-Net":
         raise ValueError(f"unknown F-Net arch {args.FNET_architecture!r}")
     model = Magnet(output_dim=getattr(args, "output_dim", 2),
@@ -185,7 +189,7 @@ def build_magnet(args, device: str = None) -> Magnet:
                    mvs_weighting=args.MAGNET_mvs_weighting,
                    n_iters=args.MAGNET_num_test_iter,
                    stream_blocks=getattr(args, "stream_blocks", False),
-                   **trunk_switches(args))
+                   use_bn=_use_bn(args), **trunk_switches(args))
     init_weights_(model, getattr(args, "seed", 0))
     return model.eval().to(device or args.device)
 
@@ -199,22 +203,22 @@ def build_magnet_train(args, device: str = None) -> Magnet:
 
 
 def load_magnet_checkpoints(model: Magnet, args) -> Magnet:
-    """Stage composition, as the reference does it: the D-Net checkpoint
-    (keys ``d_net.*``) and the F-Net checkpoint (``f_net.*``) into the
-    frozen backbones, then the MAGNET checkpoint over the whole model
-    (``g_net``, ``mask_head`` and the same backbones). Empty paths are
-    skipped. The D-Net and F-Net checkpoints may also be the port's training
-    checkpoints (``stage_state_dict``): a ``train_fnet`` state holds
-    ``MagnetF``'s keys, whose ``f_net.`` prefix is stripped. The MAGNET file
-    may lack the D-Net decoder's own mask head, which MaGNet does not use;
-    nothing else may be missing."""
+    """Stage composition, as the reference does it: the D-Net checkpoint (keys
+    ``d_net.*``) and the F-Net checkpoint (``f_net.*``) into the frozen
+    backbones, then the MAGNET checkpoint over the whole model (``g_net``,
+    ``mask_head`` and the same backbones). Empty paths are skipped. Each
+    checkpoint may also be one of the port's training checkpoints
+    (``stage_state_dict``): a ``train_fnet`` state holds ``MagnetF``'s keys,
+    whose ``f_net.`` prefix is stripped; a ``train_magnet`` state the whole
+    model's. The MAGNET file may lack the D-Net decoder's own mask head, which
+    MaGNet does not use; nothing else may be missing."""
     if getattr(args, "DNET_ckpt", ""):
         model.d_net.load_state_dict(stage_state_dict(args.DNET_ckpt))
     if getattr(args, "FNET_ckpt", ""):
         model.f_net.load_state_dict(stage_state_dict(args.FNET_ckpt,
                                                      "f_net."))
     if getattr(args, "MAGNET_ckpt", ""):
-        res = model.load_state_dict(load_state_dict(args.MAGNET_ckpt),
+        res = model.load_state_dict(stage_state_dict(args.MAGNET_ckpt),
                                     strict=False)
         missing = [k for k in res.missing_keys
                    if not k.startswith("d_net.d_net.decoder.mask_head.")]
@@ -246,12 +250,15 @@ def realistic_depth_init_(model: Magnet) -> Magnet:
 
 def cast_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """The compute-dtype policy: conv weights and biases in ``dtype``;
-    BatchNorm parameters and statistics stay f32 (the folded scale and shift
-    are f32); the squeeze-excitation convs stay f32, as their pooled input
-    is f32."""
+    BatchNorm and GroupNorm parameters and statistics stay f32 (the folded
+    scale and shift are f32); the squeeze-excitation convs stay f32, as
+    their pooled input is f32; a weight-standardised conv keeps its f32
+    weight and bias (standardised in f32 at every call, then cast, as the
+    JAX package does: bf16 weights standardised would differ)."""
     skip = {id(c) for m in model.modules() if isinstance(m, SqueezeExcite)
             for c in m.modules()}
     for m in model.modules():
-        if isinstance(m, nn.Conv2d) and id(m) not in skip:
+        if (isinstance(m, nn.Conv2d) and not isinstance(m, WSConv2d)
+                and id(m) not in skip):
             m.to(dtype)
     return model

@@ -34,21 +34,24 @@ def activation_gaussian_stdev(out: torch.Tensor) -> torch.Tensor:
 
 class DNet(nn.Module):
     """Standalone D-Net: (B, H, W, 3) -> (B, H, W, output_dim).
+    ``use_bn`` chooses the BatchNorm or the GroupNorm decoder;
     ``mbconv_chain`` and ``dw_kernel`` switch the trunk's kernels,
-    ``remat`` recomputes its blocks in the backward (``nn.efficientnet``).
-    Train mode (stage 1) draws the trunk's drop-path masks from
-    ``generator``."""
+    ``remat`` recomputes its blocks and stages in the backward
+    (``nn.densedepth``). Train mode (stage 1) draws the trunk's drop-path
+    masks from ``generator``."""
 
     def __init__(self, output_dim: int = 2, output_type: str = "G",
                  downsample_ratio: int = 4, mbconv_chain=None,
-                 dw_kernel: bool = False, remat: bool = False):
+                 dw_kernel: bool = False, remat: bool = False,
+                 use_bn: bool = True):
         super().__init__()
         self.output_type = output_type
         self.d_net = DenseDepth(num_classes=output_dim,
                                 downsample_ratio=downsample_ratio,
                                 learned_upsampling=True, as_dnet=True,
                                 mbconv_chain=mbconv_chain,
-                                dw_kernel=dw_kernel, remat=remat)
+                                dw_kernel=dw_kernel, remat=remat,
+                                use_bn=use_bn)
 
     def forward(self, img: torch.Tensor,
                 generator: torch.Generator = None) -> torch.Tensor:
@@ -62,13 +65,14 @@ class DNetCoarse(nn.Module):
     """MaGNet-internal D-Net: coarse (mu, sigma) + decoder feature."""
 
     def __init__(self, output_dim: int = 2, downsample_ratio: int = 4,
-                 mbconv_chain=None, dw_kernel: bool = False):
+                 mbconv_chain=None, dw_kernel: bool = False,
+                 use_bn: bool = True):
         super().__init__()
         self.d_net = DenseDepth(num_classes=output_dim,
                                 downsample_ratio=downsample_ratio,
                                 learned_upsampling=True, as_dnet=False,
                                 mbconv_chain=mbconv_chain,
-                                dw_kernel=dw_kernel)
+                                dw_kernel=dw_kernel, use_bn=use_bn)
 
     def forward(self, img: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

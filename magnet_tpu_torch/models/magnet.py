@@ -81,6 +81,7 @@ def magnet_mask_head(in_ch: int, out_ch: int, hidden: int = 128
 
 class Magnet(nn.Module):
     """Inputs NHWC; poses and intrinsics as in ``kernels.cost_volume_cw``.
+    ``use_bn`` chooses the D-Net's BatchNorm or GroupNorm decoder;
     ``mbconv_chain`` and ``dw_kernel`` switch the D-Net trunk's kernels
     (``nn.efficientnet``), ``stream_blocks`` the F-Net's one-launch
     BasicBlocks (``nn.psmnet``)."""
@@ -90,13 +91,13 @@ class Magnet(nn.Module):
                  n_samples: int = 5, mvs_weighting: str = "CW5",
                  n_iters: int = 3, dnet_feature_dim: int = 256,
                  mbconv_chain=None, dw_kernel: bool = False,
-                 stream_blocks: bool = False):
+                 stream_blocks: bool = False, use_bn: bool = True):
         super().__init__()
         self.downsample_ratio = downsample_ratio
         self.n_iters = n_iters
         self.kappa = parse_weighting(mvs_weighting)
         self.d_net = DNetCoarse(output_dim, downsample_ratio, mbconv_chain,
-                                dw_kernel)
+                                dw_kernel, use_bn)
         self.f_net = FNet(feature_dim=fnet_feature_dim,
                           stream_blocks=stream_blocks)
         self.g_net = GNet(n_samples, dnet_feature_dim)

@@ -12,6 +12,9 @@ add the semantics the JAX package gives them:
 * ``leaky_relu`` with torch's default slope 0.01;
 * stochastic depth (``drop_path``), its per-sample masks drawn from an
   explicit generator;
+* the weight-standardised conv (``WSConv2d``, its kernel standardised in
+  f32 at every call) and GroupNorm (``group_norm``: 8 groups, f32) of the
+  GroupNorm decoder;
 * ``remat``: a block under ``torch.utils.checkpoint`` (the JAX package's
   ``nn.remat``), whose recomputation updates no BatchNorm buffer.
 
@@ -181,6 +184,53 @@ def drop_path(x: torch.Tensor, mask: torch.Tensor,
     rounded to x's dtype first, as a Python scalar is there)."""
     keep = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
     return x * mask.to(x.dtype) / keep
+
+
+class WSConv2d(nn.Conv2d):
+    """Weight-standardised conv (reference Conv2d, D_dense_depth.py:63-77;
+    the JAX package's ``WSConv``): a plain ``nn.Conv2d`` for its parameters
+    and state-dict keys, run through ``ws_conv2d``.
+    ``models/build.py::cast_for_inference`` leaves its weight in f32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ws_conv2d(x, self)
+
+
+def standardized_weight(conv: nn.Conv2d) -> torch.Tensor:
+    """The conv's OIHW weight standardised in f32: minus its mean per output
+    channel, over the unbiased std of each filter plus 1e-5."""
+    w = conv.weight.float()
+    k = w - w.mean((1, 2, 3), keepdim=True)
+    n = w[0].numel()
+    var = (k * k).sum((1, 2, 3), keepdim=True) / max(n - 1, 1)
+    return k / (torch.sqrt(var) + 1e-5)
+
+
+def ws_conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """``conv`` with its weight standardised in f32 at every call
+    (``standardized_weight``), cast to x's dtype; the bias added after the
+    convolution, in x's dtype, as the JAX package adds it. NCHW."""
+    dt = x.dtype
+    y = F.conv2d(x, standardized_weight(conv).to(dt), None, conv.stride,
+                 conv.padding)
+    return y + conv.bias.to(dt)[:, None, None]
+
+
+GN_GROUPS = 8
+
+
+def group_norm(x: torch.Tensor, gn: nn.GroupNorm,
+               train: bool = False) -> torch.Tensor:
+    """GroupNorm over NCHW computed in f32 and returned in x's dtype, as the
+    JAX package's ``GroupNorm`` (8 groups, eps 1e-5). Where ``train``, the
+    scale and bias are rounded to x's dtype first (the compute-dtype cast of
+    every parameter in a training step), as ``batch_norm_train`` does."""
+    dt = x.dtype
+    w, b = gn.weight, gn.bias
+    if train:
+        w, b = w.to(dt), b.to(dt)
+    return F.group_norm(x.float(), gn.num_groups, w.float(), b.float(),
+                        gn.eps).to(dt)
 
 
 def fold_bn(bn: nn.BatchNorm2d,

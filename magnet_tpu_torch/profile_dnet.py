@@ -26,7 +26,7 @@ import torch
 
 from magnet_tpu_torch.models.build import cast_for_inference, init_weights_
 from magnet_tpu_torch.models.dnet import DNet, activation_gaussian
-from magnet_tpu_torch.nn.densedepth import run_head
+from magnet_tpu_torch.nn.densedepth import UpSampleBN, run_head
 from magnet_tpu_torch.nn.efficientnet import (InvertedResidual, b5_stage_config,
                                               chain_stages)
 from magnet_tpu_torch.nn.layers import conv2d, nchw, nhwc
@@ -116,12 +116,16 @@ def stage_times(model: DNet, x: torch.Tensor) -> dict:
     depth = run_head(dec.depth_head, y3)
     mask = run_head(dec.mask_head, y3)
     k = dd.downsample_ratio
+    # the BN decoder's up2 and up3 run the conv kernel; the GN decoder's
+    # stages are plain PyTorch (WSConv in cuDNN, GroupNorm in f32)
+    how = ("conv kernel x2" if isinstance(dec.up2, UpSampleBN)
+           else "plain GN")
     stages = {
         "trunk (EfficientNet-B5)": lambda: dd.encoder(xc),
         "conv2 + up1 (cuDNN)": lambda: dec.up1(nhwc(conv2d(f11, dec.conv2)),
                                                s8),
-        "up2 (conv kernel x2)": lambda: dec.up2(y1, s6),
-        "up3 (conv kernel x2)": lambda: dec.up3(y2, s5),
+        f"up2 ({how})": lambda: dec.up2(y1, s6),
+        f"up3 ({how})": lambda: dec.up3(y2, s5),
         "depth head (head kernel)": lambda: run_head(dec.depth_head, y3),
         "mask head (head kernel)": lambda: run_head(dec.mask_head, y3),
         "convex upsampling + activation": lambda: activation_gaussian(

@@ -5,8 +5,10 @@
 Mirrors ``test_DNet.py``: build the model, load the checkpoint (a reference
 torch ``.pt``; an empty ``--ckpt_path`` keeps seeded random weights),
 evaluate every frame of the loader, and log the 12-metric table to
-``exp/<name>/log/test_acc.txt``. With ``--dataset_name synthetic`` it runs
-end to end without data on disk. The model runs on ``--device`` (default
+``exp/<name>/log/test_acc.txt``. ``--dataset_name`` scannet, 7scenes,
+kitti_eigen or kitti_official reads the test split's tree under
+``--dataset_path`` (``data/``); synthetic runs end to end without data on
+disk. The model runs on ``--device`` (default
 ``cuda``) in ``--compute_dtype`` (default bfloat16).
 """
 
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from magnet_tpu_torch.core import config
-from magnet_tpu_torch.data.synthetic import make_singleview_loader
+from magnet_tpu_torch.data import TEST_MODES, make_singleview_loader
 from magnet_tpu_torch.eval import harness, metrics
 from magnet_tpu_torch.models import build
 
@@ -50,7 +52,7 @@ def prepare(args):
 def evaluate(args, forward) -> Dict[str, float]:
     """Every frame of the flags' loader through ``forward``; the 12-metric
     table is printed and appended to ``args.test_acc_txt``."""
-    loader = make_singleview_loader(args)
+    loader = make_singleview_loader(args, TEST_MODES[args.dataset_name])
     m = harness.evaluate_dnet(forward, loader, args)
     first_line = ("dataset: %s / d_min: %s / d_max: %s / ckpt_path: %s"
                   % (args.dataset_name, args.min_depth, args.max_depth,

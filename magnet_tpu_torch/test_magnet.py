@@ -9,7 +9,9 @@ the 12-metric table to ``exp/<name>/log/test_acc.txt``. With
 ``--cache_features`` each distinct frame is encoded once
 (``eval/streaming.py``, an LRU of ``--cache_max_frames`` encodings keyed by
 the samples' ``view_ids``) and the cache's hits and misses are printed.
-With ``--dataset_name synthetic`` it runs end to end without data on disk.
+``--dataset_name`` scannet, 7scenes, kitti_eigen or kitti_official reads
+the test split's tree under ``--dataset_path`` (``data/``); synthetic runs
+end to end without data on disk.
 The model runs on ``--device`` (default ``cuda``) in ``--compute_dtype``
 (default bfloat16); poses, intrinsics and rays stay f32.
 """
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from magnet_tpu_torch.core import config
-from magnet_tpu_torch.data.synthetic import make_multiview_loader
+from magnet_tpu_torch.data import TEST_MODES, make_multiview_loader
 from magnet_tpu_torch.eval import harness, metrics, streaming
 from magnet_tpu_torch.models import build
 
@@ -81,7 +83,7 @@ def prepare(args):
 def evaluate(args, forward) -> Dict[str, float]:
     """Every sample of the flags' loader through ``forward``; the 12-metric
     table is printed and appended to ``args.test_acc_txt``."""
-    loader = make_multiview_loader(args)
+    loader = make_multiview_loader(args, TEST_MODES[args.dataset_name])
     m = harness.evaluate_magnet(forward, loader, args)
     first_line = ("dataset: %s / d_min: %s / d_max: %s / ckpt_path: %s"
                   % (args.dataset_name, args.min_depth, args.max_depth,

@@ -2,26 +2,31 @@
 
     python -m magnet_tpu_torch.train_dnet train_scripts/dnet/<dataset>.txt [--device cpu]
 
-Mirrors ``train_DNet.py``: the D-Net (EfficientNet-B5 encoder, BatchNorm
-decoder, convex upsampling) is trained with the Gaussian NLL on its
-(mu, var) at ``--crop_height`` x ``--crop_width``, AdamW with one-cycle
-schedules, the encoder at a tenth of the learning rate (``--same_lr``: the
-same). ``--encoder_ckpt`` starts the encoder from a ``tf_efficientnet_b5_ap``
-ImageNet state dict; ``--DNET_fix_encoder_weights AdaBins_fix`` loads the
-AdaBins encoder (``core/config.py::ADABINS_ENCODER``) and freezes it
-(``compat/encoder.py``). It logs a loss line every ``--log_every`` steps,
-validates at the input size into ``exp/<name>/log/eval_acc.txt`` and writes
-a checkpoint (model, optimizer, schedule, step, generator) under
-``exp/<name>/models/`` at each validation and at the end, which
-``--DNET_ckpt`` of ``test_dnet``, ``test_magnet`` and ``train_magnet``
-loads; ``--resume_ckpt`` continues from one. The step runs on ``--device``
-(default ``cuda``; no card is an error) in ``--compute_dtype`` (default
-bfloat16) with f32 master weights, train-mode BatchNorm and drop path (the
-masks from the training state's generator), plain convs with autograd and
+Mirrors ``train_DNet.py``: the D-Net (EfficientNet-B5 encoder, BatchNorm or,
+with ``--DNET_architecture DenseDepth_GN``, GroupNorm decoder, convex
+upsampling) is trained with the Gaussian NLL on its (mu, var) over the training
+items (on disk, the random ``--crop_height`` x ``--crop_width`` crop), AdamW
+with one-cycle schedules, the encoder at a tenth of the learning rate
+(``--same_lr``: the same). ``--encoder_ckpt`` starts the encoder from a
+``tf_efficientnet_b5_ap`` ImageNet state dict; ``--DNET_fix_encoder_weights
+AdaBins_fix`` loads the AdaBins encoder (``core/config.py::ADABINS_ENCODER``)
+and freezes it (``compat/encoder.py``). It logs a loss line every
+``--log_every`` steps, validates at the input size into
+``exp/<name>/log/eval_acc.txt`` and writes a checkpoint (model, optimizer,
+schedule, step, generator) under ``exp/<name>/models/`` at each validation and
+at the end, which ``--DNET_ckpt`` of ``test_dnet``, ``test_magnet`` and
+``train_magnet`` loads; ``--resume_ckpt`` continues from one. The step runs on
+``--device`` (default ``cuda``; no card is an error) in ``--compute_dtype``
+(default bfloat16) with f32 master weights, train-mode BatchNorm and drop path
+(the masks from the training state's generator), plain convs with autograd and
 the convex upsampling's backward kernel; ``--remat`` recomputes the trunk's
-blocks in the backward. The validation forward runs the f32 weights in
-eval mode, through the D-Net's inference kernels. With ``--dataset_name
-synthetic`` it runs without data on disk.
+blocks and the decoder's stages in the backward. The validation forward runs
+the f32 weights in eval mode, through the D-Net's inference kernels.
+``--dataset_name`` scannet, kitti_eigen or kitti_official reads the tree under
+``--dataset_path`` (``data/``, with the rotate, flip, crop and colour
+augmentations of the ``--data_augmentation_*`` flags, on ``--workers``
+threads); synthetic runs without data on disk, at the input size and not
+augmented.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ import torch
 
 from magnet_tpu_torch.compat import encoder
 from magnet_tpu_torch.core import config
-from magnet_tpu_torch.data.synthetic import make_singleview_loader
+from magnet_tpu_torch.data import (TRAIN_MODES, VAL_MODES,
+                                   make_singleview_loader)
 from magnet_tpu_torch.eval import harness
 from magnet_tpu_torch.models.build import build_dnet_train
 from magnet_tpu_torch.train import checkpoint, loop, optim, steps
@@ -56,8 +62,9 @@ def train(args) -> Dict:
         raise ValueError(f"--DNET_fix_encoder_weights {fix}: None or "
                          "AdaBins_fix")
     device = loop.device_of(args)
-    train_loader = make_singleview_loader(args, "train")
-    val_loader = make_singleview_loader(args, "test")
+    train_loader = make_singleview_loader(args,
+                                          TRAIN_MODES[args.dataset_name])
+    val_loader = make_singleview_loader(args, VAL_MODES[args.dataset_name])
 
     model = build_dnet_train(args, device)
     if fix == "AdaBins_fix":

@@ -12,9 +12,10 @@ end; ``--resume_ckpt`` continues from one. The step runs on ``--device``
 (default ``cuda``; no card is an error) in ``--compute_dtype`` (default
 bfloat16) with f32 master weights; the validation forward runs the f32
 weights in eval mode, through the F-Net's inference kernels. ``--remat``
-recomputes the F-Net's blocks in the backward. With ``--dataset_name
-synthetic`` it runs without data on disk; the on-disk datasets and the
-visualisation are not ported.
+recomputes the F-Net's blocks in the backward. ``--dataset_name`` scannet,
+kitti_eigen or kitti_official reads the tree under ``--dataset_path``
+(``data/``, with the colour augmentation); synthetic runs without data on
+disk. The visualisation is not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import numpy as np
 import torch
 
 from magnet_tpu_torch.core import config
-from magnet_tpu_torch.data.synthetic import make_multiview_loader
+from magnet_tpu_torch.data import (TRAIN_MODES, VAL_MODES,
+                                   make_multiview_loader)
 from magnet_tpu_torch.eval import harness
 from magnet_tpu_torch.models.build import build_magnet_f
 from magnet_tpu_torch.models.magnet import sid_depth_centers
@@ -72,8 +74,9 @@ def train(args) -> Dict:
     and the last checkpoint's directory."""
     config.check_train_flags(args)
     device = loop.device_of(args)
-    train_loader = make_multiview_loader(args, "train")
-    val_loader = make_multiview_loader(args, "test")
+    train_loader = make_multiview_loader(args,
+                                         TRAIN_MODES[args.dataset_name])
+    val_loader = make_multiview_loader(args, VAL_MODES[args.dataset_name])
     d_center = torch.from_numpy(sid_depth_centers(
         args.min_depth, args.max_depth, args.FNET_num_depth_bins)).to(device)
 

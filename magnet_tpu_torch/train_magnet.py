@@ -17,7 +17,9 @@ weights in eval mode at ``--MAGNET_num_test_iter`` iterations) into
 ``exp/<name>/models/`` at each validation and at the end; ``--resume_ckpt``
 continues from one. The step runs on ``--device`` (default ``cuda``; no card
 is an error) in ``--compute_dtype`` (default bfloat16) with f32 master
-weights. With ``--dataset_name synthetic`` it runs without data on disk.
+weights. ``--dataset_name`` scannet, kitti_eigen or kitti_official reads
+the tree under ``--dataset_path`` (``data/``); synthetic runs without data
+on disk.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import numpy as np
 import torch
 
 from magnet_tpu_torch.core import config
-from magnet_tpu_torch.data.synthetic import make_multiview_loader
+from magnet_tpu_torch.data import (TRAIN_MODES, VAL_MODES,
+                                   make_multiview_loader)
 from magnet_tpu_torch.eval import harness
 from magnet_tpu_torch.models.build import build_magnet_train
 from magnet_tpu_torch.train import checkpoint, loop, optim, steps
@@ -49,8 +52,9 @@ def train(args) -> Dict:
     and the last checkpoint's directory."""
     config.check_train_flags(args, loss_fn="gaussian")
     device = loop.device_of(args)
-    train_loader = make_multiview_loader(args, "train")
-    val_loader = make_multiview_loader(args, "test")
+    train_loader = make_multiview_loader(args,
+                                         TRAIN_MODES[args.dataset_name])
+    val_loader = make_multiview_loader(args, VAL_MODES[args.dataset_name])
 
     print(f"loading DNET... {args.DNET_ckpt}")
     print(f"loading FNET... {args.FNET_ckpt}")

@@ -80,7 +80,7 @@ def xla_decoder(monkeypatch):
 
 def test_dnet_matches_jax(case, xla_decoder):
     x, variables, sd = case
-    ref = np.asarray(JDNet().apply(variables, x))
+    ref = np.asarray(jax.jit(JDNet().apply)(variables, x))
     model = DNet().eval()
     model.load_state_dict(sd)
     with torch.no_grad():
@@ -92,7 +92,7 @@ def test_dnet_matches_jax(case, xla_decoder):
 def test_dnet_coarse_matches_jax(case, xla_decoder):
     """(mu, sigma) at 1/4 resolution and the 256-channel decoder feature."""
     x, variables, sd = case
-    ref_g, ref_f = JDNetCoarse().apply(variables, x)
+    ref_g, ref_f = jax.jit(JDNetCoarse().apply)(variables, x)
     model = DNetCoarse().eval()
     model.load_state_dict(sd)
     with torch.no_grad():

@@ -154,7 +154,7 @@ def monolithic(port_model, magnet_case):
 
 def test_magnet_forward_matches_jax(magnet_case, monolithic):
     jm, variables, inputs = magnet_case
-    refs = [np.asarray(r) for r in jm.apply(variables, *inputs)]
+    refs = [np.asarray(r) for r in jax.jit(jm.apply)(variables, *inputs)]
     outs = monolithic
     assert len(outs) == len(refs) == 3
     moved = np.abs(refs[-1] - refs[0]).max()
@@ -354,11 +354,11 @@ def test_synthetic_view_ids_match_jax():
     same flags, carries them through ``collate``, and the entry point's
     ``batch_to_device`` leaves them out."""
     from magnet_tpu.data import make_multiview_loader as jax_loader
-    from magnet_tpu_torch.data.synthetic import make_multiview_loader
+    from magnet_tpu_torch.data import make_multiview_loader
 
     args = _args(["--synthetic_length", "2", "--MAGNET_num_source_views",
                   "4"])
-    mine = [b["view_ids"] for b in make_multiview_loader(args)]
+    mine = [b["view_ids"] for b in make_multiview_loader(args, "test")]
     theirs = [b["view_ids"] for b in jax_loader(args, "test")]
     assert mine == theirs == [[["synthetic/0_2", "synthetic/0_0",
                                 "synthetic/0_1", "synthetic/0_3",
@@ -366,7 +366,7 @@ def test_synthetic_view_ids_match_jax():
                               [["synthetic/1_2", "synthetic/1_0",
                                 "synthetic/1_1", "synthetic/1_3",
                                 "synthetic/1_4"]]]
-    batch = next(iter(make_multiview_loader(args)))
+    batch = next(iter(make_multiview_loader(args, "test")))
     assert len(test_magnet.batch_to_device(batch, torch.float32,
                                            torch.device("cpu"))) == 7
 
