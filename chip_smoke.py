@@ -137,7 +137,40 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      352x1216 with 2 views and --stream_blocks) with finite maps and the
      harness's metric line; the KITTI eigen_train single-view loader with
      its augmentations at batch 16 and the 352x704 crop, host ms per batch
-     at --workers 1 and 4, beside phase 12's step.
+     at --workers 1 and 4, beside phase 12's step;
+ 17. the kernels as PyTorch operators (kernels/ops.py): torch.library.opcheck
+     (schema, autograd registration, fake tensor, AOT dispatch with dynamic
+     shapes) of each of the twelve operators on the arguments of its first
+     phase-3 call; one small operator's host time a call through the
+     operator and as a plain function; phase 6's frame by CUDA events and
+     on the host clock, through the operators and with the CUDA
+     implementations called directly, in turns, as the process stands and
+     with the garbage collector's objects frozen: the dispatcher's cost per
+     frame;
+ 18. training across processes: train_fnet at the protocol of phase 8 for
+     2 steps from the seeded initialisation, undistributed twice (the
+     sweep's backward and cuDNN's sum in any order: the spread between the
+     two) and in a process group of one over NCCL (its first loss equal bit
+     for bit; one step's update from the same gradients through the
+     group's path equal to the undistributed update bit for bit), and in
+     two processes over gloo, both on this card with the kernels on (the
+     ranks equal bit for bit, every parameter moved, the losses within
+     phase 9's bf16 loss limit of the undistributed run);
+     one f32 step at phase 9's reduced shape over two processes against
+     one process on the card at phase 9's f32 limits; dryrun_multichip(1)
+     over NCCL;
+ 19. --profile_dir on a 4-step train_fnet run: the Chrome trace of its
+     window exists and names the sweep's operators and kernels
+     (cost_volume_cw, sweep_grad_src);
+ 20. serving export (serve/export.py) at the ScanNet eval shape in bf16:
+     the monolithic forward and the encode/fuse pair exported with the f32
+     state dict as an argument, saved to bytes, loaded and run; each graph
+     holds each operator as often as phase 6 launches its kernel per frame,
+     the loaded program launches them so, and its output (and encode +
+     fuse's) equals the eager bf16 forward bit for bit, else at phase 7's
+     bf16 limits; ms per frame of the loaded program against eager;
+ 21. one stream per card (serve/streams.py) over every card: each stream's
+     map equal bit for bit to the single-stream forward; ms per frame.
 Phase 3 also holds rows 12 and 13 at their path-A sites (N = 1 and 5),
 row 14 at the four KITTI layer shapes (3 frames; row 6's chain over the
 same blocks timed beside it), rows 1 and 2 at the KITTI decoder's four
@@ -155,12 +188,15 @@ upsampling's backward), the nvidia-smi line, and as the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import gc
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -168,9 +204,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from magnet_tpu_torch import (profile_conv, test_dnet, test_magnet,
+from magnet_tpu_torch import (dryrun, profile_conv, test_dnet, test_magnet,
                               train_dnet, train_fnet, train_magnet)
-from magnet_tpu_torch.core import config
+from magnet_tpu_torch.core import config, distributed, mesh
 from magnet_tpu_torch.data import base
 from magnet_tpu_torch.data.synthetic import (SyntheticMultiView,
                                              SyntheticSingleView)
@@ -182,6 +218,7 @@ from magnet_tpu_torch.kernels import dw_conv as dwk
 from magnet_tpu_torch.kernels import gnet_update as gk
 from magnet_tpu_torch.kernels import head_chain as hc
 from magnet_tpu_torch.kernels import mbconv_chain as mbk
+from magnet_tpu_torch.kernels import ops
 from magnet_tpu_torch.kernels import psm_blocks as pb
 from magnet_tpu_torch.kernels import res_block as rbk
 from magnet_tpu_torch.kernels import spp_tail as st
@@ -210,7 +247,10 @@ from magnet_tpu_torch.profile_fnet_train import (protocol_args, step_account,
                                                  sweep_case, sweep_grids,
                                                  sweep_samples)
 from magnet_tpu_torch.profile_magnet import cv_case, eval_args, stage_times
+from magnet_tpu_torch.serve import export as serve_export
+from magnet_tpu_torch.serve import streams
 from magnet_tpu_torch.train import checkpoint, optim, steps
+from magnet_tpu_torch.train import losses as train_losses
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside the
 # tensor cores, HBM3.
@@ -297,6 +337,9 @@ GN_FLAGS = ["--DNET_architecture", "DenseDepth_GN"]
 # the GN D-Net card vs CPU in f32 (the BN D-Net's limit, phase 5), at a
 # reduced shape: the CPU side is slow
 GN_F32_H, GN_F32_W = 128, 160
+# phase 17: frames a turn of the operators' A/B; phases 18-19: train_fnet
+# steps across processes and under --profile_dir
+OP_AB_FRAMES, DIST_STEPS, PROFILE_STEPS = 20, 2, 4
 # GN D-Net training: steps through train_dnet at DNET_CROP
 GN_TRAIN_STEPS = 2
 # phase 16: batches taken of each dataset's test split; entries of KITTI
@@ -2552,6 +2595,546 @@ def run_ondisk_path(exp_dir: str, dnet_step_ms: float) -> dict:
     return out
 
 
+# ---- phase 17: the kernels as PyTorch operators -----------------------------
+
+def _clone(a):
+    if torch.is_tensor(a):
+        return a.detach().clone()
+    if isinstance(a, (list, tuple)):
+        return type(a)(_clone(x) for x in a)
+    return a
+
+
+@contextlib.contextmanager
+def patched_ops(make):
+    """Every ``kernels.ops`` operator, as the wrappers find it
+    (``ops.OPS.<name>``), replaced by ``make(name, operator)`` until the
+    block ends."""
+    saved = {n: getattr(ops.OPS, n) for n in ops.op_names()}
+    for n, op in saved.items():
+        setattr(ops.OPS, n, make(n, op))
+    try:
+        yield
+    finally:
+        for n, op in saved.items():
+            setattr(ops.OPS, n, op)
+
+
+def first_calls(calls: dict):
+    """``patched_ops`` that keeps a copy of each operator's first arguments
+    outside a CUDA-graph capture in ``calls``."""
+    def make(name, op):
+        def call(*args):
+            if (name not in calls
+                    and not torch.cuda.is_current_stream_capturing()):
+                calls[name] = _clone(args)
+            return op(*args)
+        return call
+    return patched_ops(make)
+
+
+def direct_impls():
+    """The wrappers calling the CUDA implementations as plain functions,
+    past the dispatcher: the launch path before the kernels were
+    operators."""
+    return patched_ops(lambda name, op: ops.IMPLS[name])
+
+
+def check_operators(calls: dict) -> dict:
+    """``torch.library.opcheck`` (schema, autograd registration, fake
+    tensor, AOT dispatch with dynamic shapes) of each operator on its first
+    phase-3 site's arguments."""
+    out = {}
+    for name in ops.op_names():
+        if name not in calls:
+            raise RuntimeError(f"operator {name} was not called in phase 3")
+        t = time.perf_counter()
+        res = torch.library.opcheck(getattr(ops.OPS, name), calls[name])
+        shapes = [tuple(a.shape) for a in calls[name] if torch.is_tensor(a)]
+        log(f"  opcheck {name} at {shapes[0]}: {res} "
+            f"({time.perf_counter() - t:.1f} s)")
+        if any(v != "SUCCESS" for v in res.values()):
+            raise RuntimeError(f"opcheck failed for {name}: {res}")
+        out[name] = res
+    return out
+
+
+def main_path_model(exp_dir: str):
+    """Phase 6's model (the ScanNet eval flags, bf16, after
+    ``realistic_depth_init_``) and its inputs for one synthetic sample: the
+    images in bf16 and in f32."""
+    args = config.setup_exp_dirs(magnet_args("cuda", "bfloat16", 1,
+                                             exp_dir))
+    model, _ = test_magnet.prepare(args)
+    realistic_depth_init_(model)
+    batch = {k: v[None] for k, v in SyntheticMultiView(args).get(0).items()
+             if isinstance(v, np.ndarray)}
+    dev = torch.device("cuda")
+    return (model, test_magnet.batch_to_device(batch, torch.bfloat16, dev),
+            test_magnet.batch_to_device(batch, torch.float32, dev))
+
+
+def frame_ms(fn, frames: int = OP_AB_FRAMES) -> tuple:
+    """(ms per frame by CUDA events over back-to-back forwards, ms per
+    frame on the host clock to the end of the last)."""
+    with torch.inference_mode():
+        ev = cuda_ms(fn, iters=frames, warmup=2)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+    return ev, 1e3 * (time.perf_counter() - t) / frames
+
+
+def ab_turns(model, inputs) -> dict:
+    """Phase 6's frame through the operators and with the implementations
+    called directly, in turns (ops, direct, direct, ops, twice): the
+    medians of each, by events and on the host clock."""
+    res = {"ops": [], "direct": []}
+    for mode in ("ops", "direct", "direct", "ops") * 2:
+        with (direct_impls() if mode == "direct"
+              else contextlib.nullcontext()):
+            res[mode].append(frame_ms(lambda: model(*inputs)))
+    return dict(
+        events_ms={m: float(np.median([r[0] for r in v]))
+                   for m, v in res.items()},
+        host_ms={m: float(np.median([r[1] for r in v]))
+                 for m, v in res.items()}, turns=res)
+
+
+def call_us(fn, calls: int = 2000) -> float:
+    """Host microseconds a call of ``fn``, the card synchronised at the
+    end."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t) / calls
+
+
+def operator_cost(model, inputs) -> dict:
+    """The dispatcher's cost: one small operator's host time a call
+    through the operator and as a plain function; phase 6's frame through
+    the operators and past them (``ab_turns``), as the process stands and
+    again with the garbage collector's objects frozen (a collection then
+    skips the objects the earlier phases left alive); the Python threads
+    alive."""
+    x = torch.randn(1, 8, 8, 16, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(3, 3, 16, device="cuda", dtype=torch.bfloat16)
+    with torch.inference_mode():
+        op_us = call_us(lambda: ops.OPS.dw_conv(x, w))
+        impl_us = call_us(lambda: ops.IMPLS["dw_conv"](x, w))
+    res = dict(dw_conv_call_us=dict(op=op_us, impl=impl_us),
+               threads=[t.name for t in threading.enumerate()],
+               gc_objects=len(gc.get_objects()))
+    log(f"  one dw_conv call at (1, 8, 8, 16): {op_us:.2f} us through the "
+        f"operator, {impl_us:.2f} us as a plain function; Python threads "
+        f"{res['threads']}; {res['gc_objects']} objects tracked by the "
+        f"garbage collector")
+    res["as_is"] = ab_turns(model, inputs)
+    gc.collect()
+    gc.freeze()
+    try:
+        res["gc_frozen"] = ab_turns(model, inputs)
+    finally:
+        gc.unfreeze()
+    for key, what in (("as_is", "as the process stands"),
+                      ("gc_frozen", "the collector's objects frozen")):
+        ev, host = res[key]["events_ms"], res[key]["host_ms"]
+        log(f"  MaGNet frame ({what}), kernels as operators: "
+            f"{ev['ops']:.3f} ms by events, {host['ops']:.3f} ms host "
+            f"clock; the implementations called directly: "
+            f"{ev['direct']:.3f} / {host['direct']:.3f} ms (medians of 4 "
+            f"turns of {OP_AB_FRAMES} frames); the operators cost "
+            f"{ev['ops'] - ev['direct']:+.3f} ms per frame by events, "
+            f"{host['ops'] - host['direct']:+.3f} ms host")
+    return res
+
+
+# ---- phase 18: training across processes -----------------------------------
+
+@contextlib.contextmanager
+def environ(**kw):
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dist_train_argv(exp_dir: str, name: str, steps_: int,
+                    extra=()) -> list:
+    """train_fnet's flags at the protocol of train_scripts/fnet/scannet.txt
+    on ``steps_`` synthetic steps and a validation pass."""
+    return ["@" + str(REPO / "train_scripts" / "fnet" / "scannet.txt"),
+            "--dataset_name", "synthetic", "--dataset_path", "none",
+            "--device", "cuda", "--exp_dir", exp_dir, "--exp_name", name,
+            "--synthetic_length", str(steps_ * TRAIN_B), "--n_epochs", "1",
+            "--validate_every", "1000000", "--log_every", "1", *extra]
+
+
+def run_fnet(argv: list) -> dict:
+    args = config.setup_exp_dirs(config.parse_args(
+        config.build_train_fnet_parser(), argv), kind="train")
+    reset_counts()
+    out = train_fnet.train(args)
+    out["launches"] = read_counts()
+    out["state_cpu"] = {k: v.detach().cpu() for k, v in
+                        out["state"].model.state_dict().items()}
+    return out
+
+
+def state_differences(a: dict, b: dict) -> dict:
+    """Tensor name -> max |difference| of two runs' states, where not
+    equal."""
+    return {k: (v.double() - b["state_cpu"][k].double()).abs().max().item()
+            for k, v in a["state_cpu"].items()
+            if not torch.equal(v, b["state_cpu"][k])}
+
+
+def check_distributed_training(exp_dir: str) -> dict:
+    """Stage 2 through ``train_fnet`` at the protocol, DIST_STEPS steps from
+    the seeded initialisation: undistributed twice (the sweep's backward,
+    row 10, and cuDNN's backward sum in any order, so the runs' later
+    steps need not repeat each other), then in a process group of one over
+    NCCL: its first loss equal bit for bit, and one step's update from the
+    same gradients through the group's path (the gradient all-reduce, the
+    loss's mean over the ranks) equal to the undistributed update bit for
+    bit; two processes over gloo, both on this card with the kernels on
+    (the ranks equal bit for bit, every parameter moved, the losses within
+    phase 9's bf16 loss limit of the undistributed run); one f32 step at
+    phase 9's reduced shape over two processes against one process on the
+    card at phase 9's f32 limits; ``dryrun_multichip`` over NCCL at one
+    process."""
+    one = run_fnet(dist_train_argv(exp_dir, "fnet_w0", DIST_STEPS))
+    again = run_fnet(dist_train_argv(exp_dir, "fnet_w0b", DIST_STEPS))
+    coordinator = dict(MAGNET_TPU_DIST="1", MAGNET_TPU_NUM_PROCESSES="1",
+                       MAGNET_TPU_PROCESS_ID="0",
+                       MAGNET_TPU_COORDINATOR=distributed.free_port())
+    with environ(**coordinator):
+        nccl = run_fnet(dist_train_argv(exp_dir, "fnet_w1", DIST_STEPS))
+    if torch.distributed.is_initialized():
+        raise RuntimeError("train_fnet left its process group")
+    spread, differ = state_differences(one, again), state_differences(
+        one, nccl)
+    log(f"  undistributed twice: losses {one['losses']}, {again['losses']};"
+        f" {len(spread)} of {len(one['state_cpu'])} tensors differ, by at "
+        f"most {max(spread.values(), default=0.0):.3e}")
+    log(f"  W = 1 over NCCL: losses {nccl['losses']}; {len(differ)} tensors "
+        f"differ from the first run, by at most "
+        f"{max(differ.values(), default=0.0):.3e}; the same launches "
+        f"{nccl['launches'] == one['launches']}")
+    update = check_w1_update(exp_dir, coordinator)
+    if (nccl["losses"][0] != one["losses"][0]
+            or nccl["launches"] != one["launches"]
+            or not np.isfinite(nccl["losses"]).all()):
+        raise RuntimeError("the W = 1 NCCL run's first step is not the "
+                           "undistributed one")
+
+    out = str(Path(exp_dir) / "fnet_w2_rank{rank}.pt")
+    t = time.perf_counter()
+    distributed.spawn(dryrun.entry_worker, 2, (
+        "train_fnet", dist_train_argv(exp_dir, "fnet_w2", DIST_STEPS), out),
+        backend="gloo")
+    spawn_s = time.perf_counter() - t
+    ranks = [torch.load(out.format(rank=r), weights_only=False)
+             for r in range(2)]
+    diff = [k for k, v in ranks[0]["state"].items()
+            if not torch.equal(v, ranks[1]["state"][k])]
+    init = build_magnet_f(config.parse_args(
+        config.build_train_fnet_parser(),
+        dist_train_argv(exp_dir, "init", 1)), "cpu").state_dict()
+    unmoved = [k for k, v in ranks[0]["state"].items()
+               if "num_batches" not in k and torch.equal(v, init[k])]
+    rel = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                              one["losses"])]
+    per_rank = {k: v for k, v in ranks[0]["launches"].items() if v}
+    log(f"  W = 2 over gloo on one card: losses {ranks[0]['losses']} "
+        f"(rank 1 {ranks[1]['losses']}) against {one['losses']}: relative "
+        f"{max(rel):.2e} (limit {BF16_TRAIN_TOL['loss']}); ranks differ in "
+        f"{len(diff)} tensors, {len(unmoved)} unmoved; rank 0's launches "
+        f"{per_rank}; step "
+        f"{np.mean(ranks[0]['step_event_ms'][1:]):.3f} ms by events "
+        f"(undistributed {np.mean(one['step_event_ms'][1:]):.3f}); "
+        f"{spawn_s:.1f} s with the processes' start")
+    if (diff or unmoved or not max(rel) <= BF16_TRAIN_TOL["loss"]
+            or ranks[0]["losses"] != ranks[1]["losses"]
+            or per_rank.get("sweep_grad_src") != DIST_STEPS):
+        raise RuntimeError("the two-process F-Net run disagrees")
+
+    step = check_two_process_step(exp_dir)
+    t = time.perf_counter()
+    dry = dryrun.dryrun_multichip(1, device="cuda")
+    log(f"  dryrun_multichip(1) over NCCL on the card: rel "
+        f"{dry['rel']:.3e} ({time.perf_counter() - t:.1f} s)")
+    return dict(
+        w1_nccl=dict(losses=nccl["losses"],
+                     step_event_ms=nccl["step_event_ms"],
+                     max_state_diff=max(differ.values(), default=0.0),
+                     update=update),
+        undistributed=dict(losses=[one["losses"], again["losses"]],
+                           step_event_ms=one["step_event_ms"],
+                           max_state_diff=max(spread.values(), default=0.0)),
+        w2_gloo=dict(losses=[r["losses"] for r in ranks],
+                     step_event_ms=[r["step_event_ms"] for r in ranks],
+                     launches=per_rank, loss_rel=max(rel), spawn_s=spawn_s),
+        f32_step=step, dryrun=dry)
+
+
+def check_w1_update(exp_dir: str, coordinator: dict) -> dict:
+    """One protocol step's gradients (one forward and backward), applied by
+    the undistributed update and by the same update in a process group of
+    one over NCCL (``mesh.average_gradients`` then the clip and AdamW; the
+    loss through ``mesh.mean_over_ranks``): every tensor and the loss equal
+    bit for bit."""
+    args = config.parse_args(config.build_train_fnet_parser(),
+                             dist_train_argv(exp_dir, "fnet_w1_step", 1))
+    dev = torch.device("cuda")
+    d_center = torch.from_numpy(sid_depth_centers(
+        args.min_depth, args.max_depth, TRAIN_D)).to(dev)
+    batch = train_fnet.batch_to_device(
+        base.collate([SyntheticMultiView(args).get(i)
+                      for i in range(TRAIN_B)]), (HC, WC), dev)
+    models = [build_magnet_f(args, "cuda") for _ in range(2)]
+    opts = [optim.make_fnet_optimizer(m.parameters(), args.lr, 10)
+            for m in models]
+    gt, mask = steps._clamped_gt(batch["depth_dpv"], args.max_depth,
+                                 args.min_depth)
+    cv = models[0](*[batch[k].to(torch.bfloat16) if "img" in k
+                     else batch[k] for k in steps.MAGNET_INPUTS],
+                   d_center)
+    loss = train_losses.fnet_l1_loss(
+        train_losses.soft_argmax_depth(cv, d_center), gt, mask)
+    loss.backward()
+    with torch.no_grad():
+        for a, b in zip(models[0].parameters(), models[1].parameters()):
+            b.grad = a.grad.clone()
+        models[1].load_state_dict(models[0].state_dict())
+    opts[0].step()
+    with environ(**coordinator), distributed.session("cuda"):
+        if torch.distributed.get_backend() != "nccl":
+            raise RuntimeError("the group is not NCCL's")
+        mesh.average_gradients(models[1].parameters())
+        loss_w1 = mesh.mean_over_ranks(loss.detach())
+        opts[1].step()
+    differ = [k for k, v in models[0].state_dict().items()
+              if not torch.equal(v, models[1].state_dict()[k])]
+    log(f"  one step's update, undistributed and through the W = 1 NCCL "
+        f"group: loss {loss.item():.9f} / {loss_w1.item():.9f}; "
+        f"{len(differ)} tensors differ")
+    if differ or not torch.equal(loss.detach(), loss_w1):
+        raise RuntimeError(f"the W = 1 NCCL update is not the "
+                           f"undistributed one bit for bit: {differ[:5]}")
+    return dict(loss=loss.item(), tensors=len(models[0].state_dict()))
+
+
+def check_two_process_step(exp_dir: str) -> dict:
+    """One f32 F-Net step at SMALL_TRAIN from phase 9's conditioned weights
+    and batch over two gloo processes on this card, against the same step
+    in one process on the card: loss, clipped gradients and running
+    buffers at phase 9's f32 limits."""
+    c = SMALL_TRAIN
+    args = protocol_args([
+        "--exp_dir", exp_dir, "--input_height", str(c["H"]),
+        "--input_width", str(c["W"]), "--dpv_height", str(c["H"] // 4),
+        "--dpv_width", str(c["W"] // 4), "--FNET_num_depth_bins",
+        str(c["D"]), "--MAGNET_num_source_views", str(c["V"]),
+        "--batch_size", str(c["B"]), "--compute_dtype", "float32"])
+    raw = base.collate([SyntheticMultiView(args).get(i)
+                        for i in range(c["B"])])
+    rng = np.random.RandomState(9)
+    for k, n in (("ref_img", (c["B"],)), ("src_imgs", (c["B"], c["V"]))):
+        raw[k] = raw[k] + (0.5 * rng.randn(*n, 1, 1, 3)).astype(np.float32)
+    d_np = sid_depth_centers(args.min_depth, args.max_depth, c["D"])
+    model = condition_(build_magnet_f(args, "cpu"))
+    ref = train_step_outputs(model, raw, args, d_np, "cuda", torch.float32)
+    case = Path(exp_dir) / "fnet_step_case.pt"
+    batch = train_fnet.batch_to_device(raw, (args.dpv_height,
+                                             args.dpv_width),
+                                       torch.device("cpu"))
+    torch.save(dict(state=model.state_dict(), feat=args.FNET_feature_dim,
+                    batch={k: v.numpy() for k, v in batch.items()},
+                    d_center=d_np, device="cuda", dtype=torch.float32,
+                    lr=args.lr), case)
+    out = str(Path(exp_dir) / "fnet_step_rank{rank}.pt")
+    distributed.spawn(dryrun.fnet_step_worker, 2, (str(case), out),
+                      backend="gloo")
+    r = [torch.load(out.format(rank=i), weights_only=False)
+         for i in range(2)]
+    err = step_errors((r[0]["loss"], r[0]["grads"],
+                       {k: v for k, v in r[0]["state"].items()
+                        if "running" in k}), ref)
+    equal = all(torch.equal(v, r[1]["state"][k])
+                for k, v in r[0]["state"].items())
+    log(f"  f32 step at {c['H']}x{c['W']} over two processes against one "
+        f"on the card: loss {err['loss']:.2e} (limit {TRAIN_LOSS_TOL}), "
+        f"gradients {err['grad']:.2e} (limit {TRAIN_GRAD_TOL}), running "
+        f"statistics {err['stats']:.2e} (limit {TRAIN_STATS_TOL}); ranks "
+        f"equal {equal}")
+    if not (err["loss"] <= TRAIN_LOSS_TOL and err["grad"] <= TRAIN_GRAD_TOL
+            and err["stats"] <= TRAIN_STATS_TOL and equal):
+        raise RuntimeError("the two-process f32 step disagrees with one "
+                           "process")
+    return err
+
+
+# ---- phase 19: --profile_dir ------------------------------------------------
+
+def check_profile_dir(exp_dir: str) -> dict:
+    """train_fnet at the protocol for PROFILE_STEPS steps with
+    ``--profile_dir``: the Chrome trace of its window exists and names the
+    sweep's operators and kernels."""
+    trace_dir = Path(exp_dir) / "profile"
+    out = run_fnet(dist_train_argv(exp_dir, "fnet_profile", PROFILE_STEPS,
+                                   ["--profile_dir", str(trace_dir)]))
+    path = out["profile_trace"]
+    if not path or not os.path.exists(path):
+        raise RuntimeError(f"no trace in {trace_dir}")
+    # the profiler writes control characters into some names
+    events = json.loads(open(path).read(), strict=False)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    want = ["magnet_tpu_torch::cost_volume_cw", "cost_volume_cw_kernel",
+            "magnet_tpu_torch::sweep_grad_src", "sweep_grad_src_kernel"]
+    found = {w: any(w in n for n in names) for w in want}
+    log(f"  trace {path} ({os.path.getsize(path) / 1e6:.1f} MB, "
+        f"{len(names)} names): {found}")
+    if not all(found.values()):
+        raise RuntimeError("the trace does not name the sweep's kernels")
+    return dict(path=path, mb=os.path.getsize(path) / 1e6, found=found)
+
+
+# ---- phase 20: serving export ----------------------------------------------
+
+# per MaGNet frame, the operators of each program at the ScanNet eval shape:
+# phase 6's launches (the psm_conv operator serves the chains and both
+# transition blocks)
+FRAME_OPS = dict(conv3x3_bnact=4, head_chain=3, cost_volume_cw=ITERS,
+                 gnet_update=ITERS, upsample_mask=1,
+                 psm_conv=sum(FNET_LAUNCHES[k] for k in (
+                     "fused_residual_stage", "downsample_block",
+                     "expand_block")), spp_tail=1)
+ENCODE_OPS = dict(conv3x3_bnact=4, head_chain=1,
+                  psm_conv=FRAME_OPS["psm_conv"], spp_tail=1)
+FUSE_OPS = dict(head_chain=2, cost_volume_cw=ITERS, gnet_update=ITERS,
+                upsample_mask=1)
+
+
+def check_export(model, inputs16, inputs32) -> dict:
+    """``export_monolithic``, ``export_encode`` and ``export_fuse`` of phase
+    6's model at the ScanNet eval shape in bf16: each saved to bytes,
+    loaded and run on the card. Each graph holds each operator as often as
+    phase 6 launches it per frame; the loaded monolithic program launches
+    them so; its output and encode + fuse's match the eager forward bit for
+    bit, or else at phase 7's bf16 limits; ms per frame of the loaded
+    program against eager."""
+    state = serve_export.f32_state(model)
+    with torch.inference_mode():
+        eager = model(*inputs16)
+    res, programs = {}, {}
+    for name, make, want in (
+            ("monolithic", lambda: serve_export.export_monolithic(
+                model, H, W, VIEWS, n_iters=ITERS,
+                compute_dtype=torch.bfloat16), FRAME_OPS),
+            ("encode", lambda: serve_export.export_encode(
+                model, H, W, batch=VIEWS + 1,
+                compute_dtype=torch.bfloat16), ENCODE_OPS),
+            ("fuse", lambda: serve_export.export_fuse(
+                model, H, W, VIEWS, n_iters=ITERS,
+                compute_dtype=torch.bfloat16), FUSE_OPS)):
+        t = time.perf_counter()
+        blob = make()
+        t_export = time.perf_counter() - t
+        t = time.perf_counter()
+        program = serve_export.load_exported(blob)
+        t_load = time.perf_counter() - t
+        counts = serve_export.op_counts(program)
+        log(f"  {name}: {len(blob) / 1e6:.2f} MB, exported in "
+            f"{t_export:.1f} s, loaded in {t_load:.1f} s; operators "
+            f"{counts} (expected {want})")
+        if counts != want:
+            raise RuntimeError(f"the {name} program does not hold the "
+                               "kernels as predicted")
+        programs[name] = program
+        res[name] = dict(mb=len(blob) / 1e6, export_s=t_export,
+                         load_s=t_load, ops=counts)
+    mono = programs["monolithic"]
+    reset_counts()
+    with torch.inference_mode():
+        out = mono(state, *inputs32)
+        torch.cuda.synchronize()
+    launched = {k: v for k, v in read_counts().items() if v}
+    want = dict(FNET_LAUNCHES, conv3x3_bnact=4, head_chain=3,
+                cost_volume_cw=ITERS, gnet_update=ITERS, upsample_mask=1)
+    log(f"  the loaded program launched {launched}")
+    if launched != want:
+        raise RuntimeError("the loaded program did not launch the kernels "
+                           "as predicted")
+    ref_img, src_imgs, *geometry = inputs32
+    with torch.inference_mode():
+        gauss, feat_d, feat_m = programs["encode"](state, torch.cat(
+            [ref_img, src_imgs.reshape(VIEWS, H, W, 3)]))
+        split = programs["fuse"](
+            state, gauss[:1], feat_d[:1].contiguous(), feat_m[:1],
+            gauss[1:][None], feat_m[1:][None], *geometry)
+    for what, got in (("monolithic", out), ("encode + fuse", split)):
+        exact = torch.equal(got, eager[-1])
+        log(f"  {what} against the eager bf16 forward: equal bit for bit "
+            f"{exact}")
+        if not exact:
+            res[what + "_err"] = compare_bf16_maps(
+                [got.float().cpu()], [eager[-1].float().cpu()],
+                f"exported {what}")
+        res[what + "_exact"] = exact
+    ev_prog, host_prog = frame_ms(lambda: mono(state, *inputs32))
+    ev_eager, host_eager = frame_ms(lambda: model(*inputs16))
+    log(f"  ms per frame: the loaded program {ev_prog:.3f} by events "
+        f"({host_prog:.3f} host), eager {ev_eager:.3f} ({host_eager:.3f})")
+    res.update(program_ms=ev_prog, program_host_ms=host_prog,
+               eager_ms=ev_eager, eager_host_ms=host_eager)
+    return res
+
+
+# ---- phase 21: one stream per card ------------------------------------------
+
+def check_multistream(model, inputs16) -> dict:
+    """``make_multistream_forward`` over every card (S of them), one window
+    a stream (the sample, then copies with moved translations), against
+    the single-stream forward of each: bit for bit; ms per frame."""
+    s = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(s)]
+    windows = []
+    for i in range(s):
+        w = [a.clone() for a in inputs16]
+        w[3] = w[3] * (1.0 + 0.5 * i)
+        windows.append(w)
+    batch = {k: torch.cat([w[j] for w in windows])
+             for j, k in enumerate(streams.INPUTS)}
+    forward = streams.make_multistream_forward(model, devices, ITERS,
+                                               torch.bfloat16)
+    with torch.inference_mode():
+        out = forward(batch)
+        singles = [model(*w)[-1] for w in windows]
+    exact = all(torch.equal(out[i:i + 1], singles[i]) for i in range(s))
+    ev, host = frame_ms(lambda: forward(batch))
+    log(f"  {s} stream(s) on {s} card(s): equal to the single-stream "
+        f"forwards bit for bit {exact}; {ev:.3f} ms per call by events "
+        f"({ev / s:.3f} ms per frame), {host:.3f} ms host")
+    if not exact:
+        raise RuntimeError("the multi-stream forward disagrees with the "
+                           "single-stream one")
+    return dict(streams=s, exact=exact, call_ms=ev, frame_ms=ev / s,
+                host_ms=host)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default="", help="also write the results here")
@@ -2575,18 +3158,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log("[3] kernels against their plain versions (main-path shapes)")
-    conv_rows = check_conv_kernel(dev)
-    head_rows = check_head_kernel(dev)
-    cv_rows = check_cost_volume_kernel(dev)
-    gnet_rows = check_gnet_kernel(dev)
-    up_rows = check_upsample_kernel(dev)
-    upbwd_rows = check_upsample_bwd_kernel(dev)
-    psm_rows = check_psm_kernels(dev)
-    sweep_fwd_rows = check_sweep_forward(dev)
-    sweep_rows = check_sweep_kernel(dev)
-    mb_rows = check_mbchain_kernel(dev)
-    dw_rows = check_dw_kernel(dev)
-    rb_rows = check_resblock_kernel(dev)
+    op_calls = {}    # each operator's first arguments, for phase 17
+    with first_calls(op_calls):
+        conv_rows = check_conv_kernel(dev)
+        head_rows = check_head_kernel(dev)
+        cv_rows = check_cost_volume_kernel(dev)
+        gnet_rows = check_gnet_kernel(dev)
+        up_rows = check_upsample_kernel(dev)
+        upbwd_rows = check_upsample_bwd_kernel(dev)
+        psm_rows = check_psm_kernels(dev)
+        sweep_fwd_rows = check_sweep_forward(dev)
+        sweep_rows = check_sweep_kernel(dev)
+        mb_rows = check_mbchain_kernel(dev)
+        dw_rows = check_dw_kernel(dev)
+        rb_rows = check_resblock_kernel(dev)
     sites = (conv_rows + head_rows + cv_rows + sweep_fwd_rows + gnet_rows
              + up_rows + upbwd_rows + psm_rows + sweep_rows + mb_rows
              + dw_rows + rb_rows)
@@ -2695,6 +3280,29 @@ def main() -> int:
     ondisk = run_ondisk_path(exp_dir, dnet_train["step_event_ms"])
     log(f"  the GN stage-1 step at {DNET_CROP[0]}x{DNET_CROP[1]}: "
         f"{gn_train['step_event_ms']:.3f} ms (batch {gn_train['batch']})")
+    log("[17] the kernels as PyTorch operators: opcheck of each at its "
+        "first phase-3 site; phase 6's frame through the operators and "
+        "past them")
+    opcheck = check_operators(op_calls)
+    del op_calls
+    model, inputs16, inputs32 = main_path_model(exp_dir)
+    op_cost = operator_cost(model, inputs16)
+    op_cost["phase6_events_ms"] = magnet_path["events_ms"]
+    log(f"[18] training across processes: train_fnet at the protocol, "
+        f"{DIST_STEPS} steps, undistributed, W = 1 over NCCL, W = 2 over "
+        f"gloo on this card; an f32 step over two processes; "
+        f"dryrun_multichip(1) over NCCL")
+    dist_train = check_distributed_training(exp_dir)
+    log(f"[19] --profile_dir: train_fnet at the protocol, {PROFILE_STEPS} "
+        f"steps")
+    profile_dir = check_profile_dir(exp_dir)
+    log(f"[20] serving export at {H}x{W}, {VIEWS} source views, bf16: "
+        f"monolithic, encode and fuse, saved, loaded and run")
+    export = check_export(model, inputs16, inputs32)
+    log(f"[21] one stream per card: make_multistream_forward over "
+        f"{torch.cuda.device_count()} card(s)")
+    multistream = check_multistream(model, inputs16)
+    del model
 
     runs = {"magnet": (magnet_path, MAGNET_FRAMES),
             "dnet_trunk": (trunk_dnet, DNET_FRAMES),
@@ -2835,7 +3443,11 @@ def main() -> int:
                            dnet_train=dnet_train, magnet_train=magnet_train,
                            streaming=stream, gn_dnet_path=gn_dnet,
                            gn_dnet_check=gn_check, gn_magnet_path=gn_magnet,
-                           gn_dnet_train=gn_train, ondisk=ondisk),
+                           gn_dnet_train=gn_train, ondisk=ondisk,
+                           opcheck=opcheck, operator_cost=op_cost,
+                           distributed_training=dist_train,
+                           profile_dir=profile_dir, export=export,
+                           multistream=multistream),
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -201,7 +201,18 @@ def _add_train_flags(p: argparse.ArgumentParser, default_batch: int) -> None:
     p.add_argument("--eigen_crop", default=False, action="store_true")
     p.add_argument("--garg_crop", default=False, action="store_true")
     p.add_argument("--mesh_shape", type=str, default="auto",
-                   help="'auto' or '1': the port trains on --device")
+                   help="'auto' (the world size) or the number of training "
+                        "processes, which it must equal (core/mesh.py)")
+    p.add_argument("--distributed", default=True, action="store_true",
+                   help="train on every process of the group the "
+                        "environment names (default; core/distributed.py)")
+    p.add_argument("--no_distributed", dest="distributed",
+                   action="store_false",
+                   help="one process: a group of several raises")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="if set, a Chrome trace (torch.profiler, CPU and "
+                        "CUDA) of a window of training steps is written "
+                        "into this directory, by rank 0")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    help="{bfloat16, float32}")
     p.add_argument("--resume_ckpt", type=str, default="",
@@ -224,8 +235,8 @@ def _new_parser() -> argparse.ArgumentParser:
 
 def build_train_fnet_parser() -> argparse.ArgumentParser:
     """The flags of the reference train_FNet.py:236-295 that the port reads
-    or that the reference flag files set, and ``--mesh_shape``, which
-    raises unless one device (``check_train_flags``)."""
+    or that the reference flag files set, and the JAX package's
+    ``--mesh_shape``, ``--no_distributed`` and ``--profile_dir``."""
     p = _new_parser()
     _add_train_flags(p, default_batch=4)
     p.add_argument("--FNET_architecture", type=str, default="PSM-Net")
@@ -339,8 +350,6 @@ def check_train_flags(args: argparse.Namespace, loss_fn: str = "l1") -> None:
         raise ValueError("--dataset_name 7scenes is test only: it has no "
                          "training split")
     unsupported = []
-    if args.mesh_shape not in ("auto", "1"):
-        unsupported.append(f"--mesh_shape {args.mesh_shape} (one device)")
     arch = getattr(args, "FNET_architecture", "PSM-Net")
     if arch != "PSM-Net":
         unsupported.append(f"--FNET_architecture {arch}")

@@ -155,12 +155,22 @@ class Loader:
     it, so the batches do not depend on ``num_workers``. With more than one
     worker, up to ``num_workers * prefetch`` batches load ahead of the
     caller, and they are yielded in order.
+
+    Rank ``shard_index`` of ``shard_count`` training processes (the port's
+    data parallelism, ``core/mesh.py``) loads only its contiguous
+    ``batch_size / shard_count`` items of each global batch, each with the
+    random state above (j its place in the global batch): the ranks'
+    batches, put together, are the one-process batch.
     """
 
     def __init__(self, dataset, batch_size: int = 1, train: bool = False,
                  seed: int = 0, num_workers: int = 4,
                  host_index: int = 0, host_count: int = 1,
-                 prefetch: int = 2):
+                 prefetch: int = 2, shard_index: int = 0,
+                 shard_count: int = 1):
+        if batch_size % shard_count:
+            raise ValueError(f"a batch of {batch_size} does not divide over "
+                             f"{shard_count} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.train = train
@@ -169,6 +179,8 @@ class Loader:
         self.host_index = host_index
         self.host_count = host_count
         self.prefetch = prefetch
+        self.shard_index = shard_index
+        self.shard_count = shard_count
         self.epoch = 0
 
     def _indices(self) -> np.ndarray:
@@ -193,11 +205,15 @@ class Loader:
         batches = [idx[i:i + bs] for i in range(0, len(idx), bs)]
         base_seed = hash((self.seed, self.epoch)) & 0x7FFFFFFF
         self.epoch += 1
+        share = bs // self.shard_count
+        first = self.shard_index * share
 
         def load_batch(bi_batch):
             bi, batch_idx = bi_batch
             items = []
             for j, di in enumerate(batch_idx):
+                if self.shard_count > 1 and not first <= j < first + share:
+                    continue
                 rng = np.random.RandomState(
                     (base_seed + bi * bs + j) & 0x7FFFFFFF)
                 items.append(self.dataset.get(int(di), rng))

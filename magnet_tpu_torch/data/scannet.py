@@ -27,6 +27,7 @@ from typing import Dict
 
 import numpy as np
 
+from magnet_tpu_torch.core.distributed import rank_world
 from magnet_tpu_torch.data import base
 from magnet_tpu_torch.geometry import poses as poses_lib
 from magnet_tpu_torch.geometry import rays as rays_lib
@@ -195,15 +196,18 @@ def _train_augs(rng, args, img, depth, rotate_deg, crop_h, crop_w,
 
 def _make_loader(dataset, args, mode: str) -> base.Loader:
     """The loader of a dataset for ``mode``: a mode containing "train"
-    shuffles at ``--batch_size`` on ``--workers`` threads; any other is the
-    evaluation loader, batch 1 on one thread. One host: (0, 1)."""
+    shuffles at ``--batch_size`` (the global batch) on ``--workers``
+    threads, this rank's share of each batch under a process group
+    (``core/distributed.rank_world``); any other is the evaluation loader,
+    batch 1 on one thread (run by rank 0). One host: (0, 1)."""
     train = "train" in mode
+    rank, world = rank_world() if train else (0, 1)
     return base.Loader(
         dataset,
         batch_size=args.batch_size if train else 1,
         train=train, seed=getattr(args, "seed", 0),
         num_workers=getattr(args, "workers", 4) if train else 1,
-        host_index=0, host_count=1)
+        host_index=0, host_count=1, shard_index=rank, shard_count=world)
 
 
 def ScanNetMultiViewLoader(args, mode):

@@ -6,7 +6,8 @@ Each ``.cu`` file compiles in its own ``nvcc`` process, all started
 together, and the objects are linked once. The library lives under
 ``build/magnet_tpu_torch/`` in the checkout, named by a hash of the sources
 and flags, so a changed source rebuilds and an unchanged one loads at once.
-A failed build raises.
+A failed build raises. Each entry point of ``_SIGNATURES`` is called by one
+PyTorch operator of ``kernels/ops.py``, and by nothing else.
 """
 
 from __future__ import annotations

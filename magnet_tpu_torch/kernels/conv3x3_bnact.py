@@ -31,12 +31,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from magnet_tpu_torch.kernels import build
+from magnet_tpu_torch.kernels.ops import OPS
 from magnet_tpu_torch.kernels.psm_blocks import swizzle_rows
 from magnet_tpu_torch.ops.resample import resize_bilinear_align_corners
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_LEAKY = 2
 KC = 64    # input channels per K block of the bf16 kernel
 NPAD = 256   # its output channels are padded to a multiple of this
 
@@ -109,16 +107,6 @@ def conv3x3_bnact_ref(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
-def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {tuple(shape)}")
-    if t.dtype != dtype or t.device != device:
-        raise ValueError(f"{name}: {t.dtype} on {t.device}, "
-                         f"want {dtype} on {device}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
-
-
 def conv3x3_bnact(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                   shift: torch.Tensor, skip: Optional[torch.Tensor] = None,
                   w_skip: Optional[torch.Tensor] = None,
@@ -127,56 +115,18 @@ def conv3x3_bnact(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     """LeakyReLU((conv3x3(up(x)) + conv3x3(skip)) * scale + shift), with the
     arguments of ``conv3x3_bnact_ref``. CPU tensors take the plain version;
     CUDA tensors (f32 or bf16, channels a multiple of 16 bytes) launch the
-    kernel on the current stream. ``packed``: ``pack_weights(w, w_skip)``,
-    made once by the caller (bf16 on a CUDA device only; packed here when
-    None)."""
+    kernel on the current stream through ``ops.conv3x3_bnact``. ``packed``:
+    ``pack_weights(w, w_skip)``, made once by the caller (bf16 on a CUDA
+    device only; packed here when None)."""
     if x.device.type == "cpu":
         return conv3x3_bnact_ref(x, w, scale, shift, skip, w_skip, upsample,
                                  act)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_bnact: unsupported device {x.device}")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"conv3x3_bnact: unsupported dtype {x.dtype}")
-    if upsample and skip is None:
-        raise ValueError("conv3x3_bnact: upsample takes its size from skip")
-    N, Hs, Ws, Cx = x.shape
-    Cout = w.shape[-1]
-    H, W = (skip.shape[1], skip.shape[2]) if skip is not None else (Hs, Ws)
-    if not upsample and (H, W) != (Hs, Ws):
-        raise ValueError("conv3x3_bnact: skip and x differ in size")
-    vec = 16 // x.element_size()
-    Cs = skip.shape[-1] if skip is not None else 0
-    if Cx % vec or Cs % vec or Cout % vec:
-        raise ValueError(f"conv3x3_bnact: channels ({Cx}, {Cs}, {Cout}) must "
-                         f"be multiples of {vec}")
-    dev, dt = x.device, x.dtype
-    _check(x, "x", (N, Hs, Ws, Cx), dt, dev)
-    _check(w, "w", (3, 3, Cx, Cout), dt, dev)
-    if skip is not None:
-        _check(skip, "skip", (N, H, W, Cs), dt, dev)
-        _check(w_skip, "w_skip", (3, 3, Cs, Cout), dt, dev)
-    _check(scale, "scale", (Cout,), torch.float32, dev)
-    _check(shift, "shift", (Cout,), torch.float32, dev)
     wx, ws = w, w_skip
-    if dt == torch.bfloat16:
-        if packed is None:
-            packed = pack_weights(w, w_skip)
-        _check(packed, "packed", packed_shape(Cx, Cs, Cout), dt, dev)
-        wx, ws = packed, None
-
-    out = torch.empty((N, H, W, Cout), dtype=dt, device=dev)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.mt_conv3x3_bnact(
-            _DTYPES[dt], x.data_ptr(),
-            skip.data_ptr() if skip is not None else None, wx.data_ptr(),
-            ws.data_ptr() if ws is not None else None,
-            scale.data_ptr(), shift.data_ptr(), out.data_ptr(), N, H, W, Hs,
-            Ws, Cx, Cs, Cout, int(upsample), _LEAKY if act else 0,
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "conv3x3_bnact")
-    conv3x3_bnact.launches += 1
-    return out
+    if x.dtype == torch.bfloat16:
+        wx, ws = (pack_weights(w, w_skip) if packed is None else packed), None
+    return OPS.conv3x3_bnact(x, skip, wx, ws, scale, shift, upsample, act)
 
 
 conv3x3_bnact.launches = 0

@@ -39,7 +39,7 @@ from typing import Tuple
 
 import torch
 
-from magnet_tpu_torch.kernels import build
+from magnet_tpu_torch.kernels.ops import OPS
 from magnet_tpu_torch.ops.resample import bilinear_gather
 
 EPS_DIV = 1e-10
@@ -305,7 +305,8 @@ def cost_volume_cw(d_volume: torch.Tensor, ref_feat: torch.Tensor,
     most 128, D at most 256 (and V x D within the block's shared memory,
     else the launch raises). The geometry and the depths are passed in f32;
     ``ops``, the (mu, sigma) pairs of ``cv_operands``, is made here when it
-    is not given."""
+    is not given. The launch goes through the operator
+    ``kernels.ops.cost_volume_cw``."""
     if d_volume.device.type == "cpu":
         return cost_volume_cw_ref(d_volume, ref_feat, src_feat, src_mu,
                                   src_sigma, R, t, is_valid, intM, rays2d,
@@ -341,17 +342,8 @@ def cost_volume_cw(d_volume: torch.Tensor, ref_feat: torch.Tensor,
     valid = _need(is_valid, "is_valid", (B, V), f32, dev)
     K = _need(intM, "intM", (B, 3, 3), f32, dev)
     rays = _need(rays2d, "rays2d", (B, 3, H * W), f32, dev)
-    out = torch.empty((B, H, W, D), dtype=f32, device=dev)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.mt_cost_volume_cw(
-            _DTYPES[mdt], d.data_ptr(), ref.data_ptr(), src.data_ptr(),
-            ms.data_ptr(), Rc.data_ptr(), tc.data_ptr(), valid.data_ptr(),
-            K.data_ptr(), rays.data_ptr(), out.data_ptr(), B, V, H, W, C, D,
-            float(kappa), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "cost_volume_cw")
-    cost_volume_cw.launches += 1
-    return out
+    return OPS.cost_volume_cw(d, ref, src, ms, Rc, tc, valid, K, rays,
+                              float(kappa))
 
 
 cost_volume_cw.launches = 0

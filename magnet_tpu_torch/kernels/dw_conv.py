@@ -23,9 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from magnet_tpu_torch.kernels import build
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+from magnet_tpu_torch.kernels.ops import OPS
 
 
 def dw_conv_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -41,35 +39,13 @@ def dw_conv_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def dw_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The depthwise conv with the arguments of ``dw_conv_ref``. CUDA
     tensors (f32 or bf16, x and w of one dtype, contiguous, C a multiple of
-    16 bytes, K 3 or 5) launch the kernel on the current stream."""
+    16 bytes, K 3 or 5) launch the kernel on the current stream through
+    ``ops.dw_conv``."""
     if x.device.type == "cpu":
         return dw_conv_ref(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"dw_conv: unsupported device {x.device}")
-    dt, dev = x.dtype, x.device
-    if dt not in _DTYPES:
-        raise ValueError(f"dw_conv: unsupported dtype {dt}")
-    if x.dim() != 4 or not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("dw_conv: x must be a contiguous, 16-byte aligned "
-                         "(N, H, W, C) tensor")
-    N, H, W, C = x.shape
-    K = w.shape[0]
-    if K not in (3, 5) or C % (16 // x.element_size()):
-        raise ValueError(f"dw_conv: window {K}, channels {C}")
-    if (tuple(w.shape) != (K, K, C) or w.dtype != dt or w.device != dev
-            or not w.is_contiguous() or w.data_ptr() % 16):
-        raise ValueError(f"dw_conv: w must be contiguous {(K, K, C)} {dt} "
-                         f"on {dev}")
-    out = torch.empty_like(x)
-    pt = (K - 1) // 2
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.mt_dw_conv(_DTYPES[dt], x.data_ptr(), w.data_ptr(),
-                             out.data_ptr(), N, H, W, C, K, pt, pt,
-                             torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "dw_conv")
-    dw_conv.launches += 1
-    return out
+    return OPS.dw_conv(x, w)
 
 
 dw_conv.launches = 0

@@ -24,7 +24,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from magnet_tpu_torch.kernels import build
+from magnet_tpu_torch.kernels.ops import OPS
 from magnet_tpu_torch.kernels.psm_blocks import pack_weights, packed_shape
 
 HIDDEN = 128
@@ -124,9 +124,9 @@ def gnet_update(cv: torch.Tensor, feat_contrib: torch.Tensor,
                 operands: Optional[Operands] = None) -> torch.Tensor:
     """The update with the arguments of ``gnet_update_ref``. CPU tensors take
     the plain version; CUDA tensors (f32 or bf16, D <= 16, hidden 128, 2
-    outputs) launch the kernel on the current stream. ``operands``:
-    ``gnet_operands(convs)``, made once by the caller (made here when
-    None)."""
+    outputs) launch the kernel on the current stream through
+    ``ops.gnet_update``. ``operands``: ``gnet_operands(convs)``, made once
+    by the caller (made here when None)."""
     B, H, W, D = cv.shape
     hidden = convs[0][0].shape[-1]
     if D > MAX_D or hidden != HIDDEN:
@@ -141,14 +141,6 @@ def gnet_update(cv: torch.Tensor, feat_contrib: torch.Tensor,
         raise ValueError(f"gnet_update: unsupported dtype {dt}")
     if len(convs) != 4:
         raise ValueError(f"gnet_update: {len(convs)} convs, want 4")
-    for (t, name, shape, align) in (
-            (cv, "cv", (B, H, W, D), 2),
-            (feat_contrib, "feat_contrib", (B, H, W, HIDDEN), 16),
-            (prev, "prev", (B, H, W, 2), 4)):
-        if (tuple(t.shape) != shape or t.dtype != dt or t.device != dev
-                or not t.is_contiguous() or t.data_ptr() % align):
-            raise ValueError(f"gnet_update: {name} must be contiguous "
-                             f"{shape} {dt} on {dev}")
     for i, ((k, b), shape) in enumerate(zip(convs, _shapes(D))):
         if tuple(k.shape) != shape or k.dtype != dt or k.device != dev:
             raise ValueError(f"gnet_update: conv {i} must be {shape} {dt} "
@@ -158,28 +150,7 @@ def gnet_update(cv: torch.Tensor, feat_contrib: torch.Tensor,
             raise ValueError(f"gnet_update: bias {i} must be {shape[-1:]} "
                              f"on {dev}")
     ws, bs = gnet_operands(convs) if operands is None else operands
-    wdt = [dt, dt, dt, torch.float32 if dt == torch.bfloat16 else dt]
-    for w, shape, t in zip(ws, operand_shapes(D, dt), wdt):
-        if (tuple(w.shape) != tuple(shape) or w.dtype != t or w.device != dev
-                or not w.is_contiguous() or w.data_ptr() % 16):
-            raise ValueError(f"gnet_update: operand {tuple(w.shape)} "
-                             f"{w.dtype}, want {tuple(shape)} {t}")
-    for b, n in zip(bs, (HIDDEN, HIDDEN, 2)):
-        if (tuple(b.shape) != (n,) or b.dtype != torch.float32
-                or b.device != dev or not b.is_contiguous()):
-            raise ValueError(f"gnet_update: bias operand {tuple(b.shape)} "
-                             f"{b.dtype}, want ({n},) f32")
-    out = torch.empty((B, H, W, 2), dtype=dt, device=dev)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.mt_gnet_update(
-            _DTYPES[dt], cv.data_ptr(), feat_contrib.data_ptr(),
-            prev.data_ptr(), *[w.data_ptr() for w in ws],
-            *[b.data_ptr() for b in bs], out.data_ptr(), B, H, W, D,
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "gnet_update")
-    gnet_update.launches += 1
-    return out
+    return OPS.gnet_update(cv, feat_contrib, prev, ws, bs)
 
 
 gnet_update.launches = 0

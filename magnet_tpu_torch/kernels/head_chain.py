@@ -27,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from magnet_tpu_torch.kernels import build
+from magnet_tpu_torch.kernels.ops import OPS
 from magnet_tpu_torch.kernels.psm_blocks import (pack_weights,
                                                  packed_shape)
 
@@ -115,8 +115,9 @@ def head_chain(x: torch.Tensor, convs: Sequence[Layer],
                operands: Optional[Tuple[list, list]] = None) -> torch.Tensor:
     """The head chain with the arguments of ``head_chain_ref``. CPU tensors
     take the plain version; CUDA tensors (f32 or bf16) launch the kernel on
-    the current stream. The kernel takes 1 to 4 convs: 3x3 C0 -> 128, then
-    1x1 128 -> 128, the last 1x1 128 -> c_out <= 256. ``operands``:
+    the current stream through ``ops.head_chain``. The kernel takes 1 to 4
+    convs: 3x3 C0 -> 128, then 1x1 128 -> 128, the last 1x1 128 -> c_out <=
+    256. ``operands``:
     ``head_operands(convs)``, made once by the caller (made here when
     None)."""
     if x.device.type == "cpu":
@@ -126,13 +127,12 @@ def head_chain(x: torch.Tensor, convs: Sequence[Layer],
     dt, dev = x.dtype, x.device
     if dt not in _DTYPES:
         raise ValueError(f"head_chain: unsupported dtype {dt}")
-    if x.dim() != 4 or not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("head_chain: x must be contiguous (N, H, W, C)")
+    if x.dim() != 4:
+        raise ValueError("head_chain: x must be (N, H, W, C)")
     N, H, W, C0 = x.shape
     if C0 % (16 // x.element_size()):
         raise ValueError(f"head_chain: C0={C0} not a multiple of 16 bytes")
     _check_convs(convs, C0, dt, dev)
-    n = len(convs)
     ws, bs = head_operands(convs) if operands is None else operands
     for (k, _, _), w, bias in zip(convs, ws, bs):
         want = (packed_shape(k.shape[0], k.shape[2], k.shape[3], 64,
@@ -146,18 +146,7 @@ def head_chain(x: torch.Tensor, convs: Sequence[Layer],
             raise ValueError(f"head_chain: operands {tuple(w.shape)} "
                              f"{w.dtype}, want {want} {dt}")
     relu_mask = sum(int(bool(r)) << i for i, (_, _, r) in enumerate(convs))
-    c_out = convs[-1][0].shape[-1]
-    out = torch.empty((N, H, W, c_out), dtype=dt, device=dev)
-    wp = [w.data_ptr() for w in ws] + [None] * (4 - n)
-    bp = [b.data_ptr() for b in bs] + [None] * (4 - n)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.mt_head_chain(
-            _DTYPES[dt], x.data_ptr(), *wp, *bp, out.data_ptr(), N, H, W, C0,
-            n, c_out, relu_mask, torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "head_chain")
-    head_chain.launches += 1
-    return out
+    return OPS.head_chain(x, ws, bs, convs[-1][0].shape[-1], relu_mask)
 
 
 head_chain.launches = 0

@@ -30,8 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from magnet_tpu_torch.kernels import build
-from magnet_tpu_torch.kernels.psm_blocks import _DTYPES, _check
+from magnet_tpu_torch.kernels.ops import OPS
 
 LAUNCHES_PER_BLOCK = 2
 # H100 SXM: streaming multiprocessors, shared memory a block may use and an
@@ -159,61 +158,15 @@ def mbconv_chain(x: torch.Tensor, wpw, s1, wdw, s2, wse1, bse1, wse2, bse2,
                  wpwl, s3, kernel_size: int) -> torch.Tensor:
     """The chain with the arguments of ``mbconv_chain_ref``. CUDA tensors
     (f32 or bf16, C and M multiples of 16 bytes, K 3 or 5) launch two
-    kernels per block on the current stream."""
+    kernels per block on the current stream, the blocks in one call of
+    ``ops.mbconv_block``."""
     if x.device.type == "cpu":
         return mbconv_chain_ref(x, wpw, s1, wdw, s2, wse1, bse1, wse2, bse2,
                                 wpwl, s3, kernel_size)
     if x.device.type != "cuda":
         raise ValueError(f"mbconv_chain: unsupported device {x.device}")
-    dt, dev, f32 = x.dtype, x.device, torch.float32
-    if dt not in _DTYPES:
-        raise ValueError(f"mbconv_chain: unsupported dtype {dt}")
-    if x.dim() != 4:
-        raise ValueError("mbconv_chain: x must be (N, H, W, C)")
-    N, H, W, C = x.shape
-    nb, _, M = wpw.shape
-    R = wse1.shape[-1]
-    K = kernel_size
-    vec = 16 // x.element_size()
-    if K not in (3, 5) or C % vec or M % vec:
-        raise ValueError(f"mbconv_chain: window {K}, channels ({C}, {M})")
-    for t, name, shape, tdt in (
-            (x, "x", (N, H, W, C), dt), (wpw, "wpw", (nb, C, M), dt),
-            (s1, "s1", (nb, M), f32), (wdw, "wdw", (nb, K * K, M), dt),
-            (s2, "s2", (nb, M), f32), (wse1, "wse1", (nb, M, R), f32),
-            (bse1, "bse1", (nb, R), f32), (wse2, "wse2", (nb, R, M), f32),
-            (bse2, "bse2", (nb, M), f32), (wpwl, "wpwl", (nb, M, C), dt),
-            (s3, "s3", (nb, C), f32)):
-        _check(t, name, shape, tdt, dev)
-    p = plan(N, H, W, C, M, R, K, x.element_size(),
-             torch.cuda.get_device_properties(dev).multi_processor_count)
-    tiles = N * p["tpf"] * p["ctiles"]
-    d = torch.empty((N, H, W, M), dtype=dt, device=dev)
-    pool = torch.empty((N, p["tiles"], M), dtype=f32, device=dev)
-    separt = torch.empty((N, p["slices"], R), dtype=f32, device=dev)
-    ws = torch.empty((tiles * p["splits"] if p["splits"] > 1 else 1, TM * PN),
-                     dtype=f32, device=dev)
-    counters = torch.zeros(N * p["slices"] + tiles, dtype=torch.int32,
-                           device=dev)
-    bufs = [torch.empty_like(x), torch.empty_like(x)]
-    lib = build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for b in range(nb):
-            out = bufs[b % 2]
-            err = lib.mt_mbconv_block(
-                _DTYPES[dt], x.data_ptr(), wpw[b].data_ptr(),
-                s1[b].data_ptr(), wdw[b].data_ptr(), s2[b].data_ptr(),
-                wse1[b].data_ptr(), bse1[b].data_ptr(), wse2[b].data_ptr(),
-                bse2[b].data_ptr(), wpwl[b].data_ptr(), s3[b].data_ptr(),
-                d.data_ptr(), pool.data_ptr(), separt.data_ptr(),
-                ws.data_ptr(), counters.data_ptr(), out.data_ptr(), N, H, W,
-                C, M, R, K, p["th"], p["tw"], p["kc"], *p["ex_layout"],
-                *p["pr_layout"], stream)
-            build.check(err, "mbconv_chain")
-            mbconv_chain.launches += LAUNCHES_PER_BLOCK
-            x = out
-    return x
+    return OPS.mbconv_block(x, wpw, s1, wdw, s2, wse1, bse1, wse2, bse2,
+                            wpwl, s3, kernel_size)
 
 
 mbconv_chain.launches = 0

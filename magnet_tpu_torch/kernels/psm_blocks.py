@@ -40,9 +40,8 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from magnet_tpu_torch.kernels import build
+from magnet_tpu_torch.kernels.ops import OPS
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 N_BLOCKS = (32, 64, 128)   # the bf16 kernel's output widths (wgmma N)
 
 
@@ -114,77 +113,36 @@ def _conv_ref(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     k = 3 (padding = dil) or 1; scale, shift: (Co,) f32; res: (N, Ho, Wo,
     Co) or None. Computes in f32 and returns x.dtype. ``counter`` and
     ``packed`` are the kernel's."""
-    f32 = torch.float32
+    def f32(t):
+        # no cast where there is none to make: a traced program
+        # (serve/export.py) would record one
+        return t if t.dtype == torch.float32 else t.float()
     k = w.shape[0]
-    acc = F.conv2d(x.permute(0, 3, 1, 2).to(f32),
-                   w.permute(3, 2, 0, 1).to(f32), stride=stride,
-                   padding=dil if k == 3 else 0, dilation=dil)
-    y = acc * scale.to(f32)[:, None, None] + shift.to(f32)[:, None, None]
+    acc = F.conv2d(f32(x.permute(0, 3, 1, 2)), f32(w.permute(3, 2, 0, 1)),
+                   stride=stride, padding=dil if k == 3 else 0, dilation=dil)
+    y = acc * f32(scale)[:, None, None] + f32(shift)[:, None, None]
     if res is not None:
-        y = y + res.permute(0, 3, 1, 2).to(f32)
+        y = y + f32(res.permute(0, 3, 1, 2))
     if relu:
         y = F.relu(y)
-    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
-
-
-def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, want "
-                         f"{tuple(shape)}")
-    if t.dtype != dtype or t.device != device:
-        raise ValueError(f"{name}: {t.dtype} on {t.device}, "
-                         f"want {dtype} on {device}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+    y = y.permute(0, 2, 3, 1)
+    return (y if x.dtype == torch.float32 else y.to(x.dtype)).contiguous()
 
 
 def _conv_cuda(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                shift: torch.Tensor, stride: int, dil: int, relu: bool,
-               res: Optional[torch.Tensor], counter,
+               res: Optional[torch.Tensor], counter: str,
                packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of the conv kernel with the arguments of ``_conv_ref``;
-    adds one to ``counter.launches``. bf16 reads ``packed``
-    (``pack_weights(w)``; packed here when None)."""
-    dt, dev = x.dtype, x.device
-    if dt not in _DTYPES:
-        raise ValueError(f"psm conv: unsupported dtype {dt}")
-    N, H, W, Ci = x.shape
-    k, Co = w.shape[0], w.shape[-1]
-    vec = 16 // x.element_size()
-    if k not in (1, 3) or stride not in (1, 2) or dil < 1:
-        raise ValueError(f"psm conv: window {k}, stride {stride}, "
-                         f"dilation {dil}")
-    if Ci % vec or Co % vec:
-        raise ValueError(f"psm conv: channels ({Ci}, {Co}) must be multiples "
-                         f"of {vec}")
-    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    _check(x, "x", (N, H, W, Ci), dt, dev)
-    _check(w, "w", (k, k, Ci, Co), dt, dev)
-    _check(scale, "scale", (Co,), torch.float32, dev)
-    _check(shift, "shift", (Co,), torch.float32, dev)
-    if res is not None:
-        _check(res, "res", (N, Ho, Wo, Co), dt, dev)
-    wk, kb = w, 0
-    if dt == torch.bfloat16:
-        if stride == 2 and k == 3 and dil != 1:
-            raise ValueError("psm conv: a stride of 2 takes a dilation of 1")
-        kb = k_block(Ci)
-        if packed is None:
-            packed = pack_weights(w)
-        _check(packed, "packed", packed_shape(k, Ci, Co), dt, dev)
-        wk = packed
-    out = torch.empty((N, Ho, Wo, Co), dtype=dt, device=dev)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.mt_psm_conv(
-            _DTYPES[dt], x.data_ptr(), None, None, wk.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(),
-            res.data_ptr() if res is not None else None, out.data_ptr(),
-            N, H, W, Ci, 0, 0, Co, k * k, stride, dil, int(relu), kb,
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "psm conv")
-    counter.launches += 1
-    return out
+    """One launch of the conv kernel (``ops.psm_conv``) with the arguments
+    of ``_conv_ref``; adds one to the ``launches`` of the wrapper named
+    ``counter`` (``fused_residual_stage``, ``downsample_block`` or
+    ``expand_block``). bf16 reads ``packed`` (``pack_weights(w)``; packed
+    here when None)."""
+    wk = w
+    if x.dtype == torch.bfloat16:
+        wk = pack_weights(w) if packed is None else packed
+    return OPS.psm_conv(x, wk, scale, shift, res, w.shape[0], stride, dil,
+                        relu, counter)
 
 
 def _conv_for(x: torch.Tensor, what: str) -> Callable:
@@ -249,8 +207,9 @@ def fused_residual_stage(x: torch.Tensor, weights: torch.Tensor,
     kernel launch per conv on a CUDA tensor (f32 or bf16, C a multiple of
     16 bytes). ``packed``: ``pack_chain(weights)``, made once by the caller
     (read in bf16 on a CUDA device; packed here when None)."""
-    return _stage(_conv_for(x, "fused_residual_stage"), fused_residual_stage,
-                  x, weights, scales, shifts, dilation, residual, packed)
+    return _stage(_conv_for(x, "fused_residual_stage"),
+                  "fused_residual_stage", x, weights, scales, shifts,
+                  dilation, residual, packed)
 
 
 def downsample_block_ref(x, w1, s1, t1, w2, s2, t2, wp, sp, tp):
@@ -266,8 +225,8 @@ def downsample_block(x, w1, s1, t1, w2, s2, t2, wp, sp, tp, packed=None):
     """The stride-2 transition block with the arguments of
     ``downsample_block_ref``: three kernel launches on a CUDA tensor.
     ``packed``: ``pack_chain((w1, w2, wp))`` or None."""
-    return _transition(_conv_for(x, "downsample_block"), downsample_block, 2,
-                       x, w1, s1, t1, w2, s2, t2, wp, sp, tp, packed)
+    return _transition(_conv_for(x, "downsample_block"), "downsample_block",
+                       2, x, w1, s1, t1, w2, s2, t2, wp, sp, tp, packed)
 
 
 def expand_block_ref(x, w1, s1, t1, w2, s2, t2, wp, sp, tp):
@@ -280,7 +239,7 @@ def expand_block(x, w1, s1, t1, w2, s2, t2, wp, sp, tp, packed=None):
     """The stride-1 transition block with the arguments of
     ``expand_block_ref``: three kernel launches on a CUDA tensor.
     ``packed``: ``pack_chain((w1, w2, wp))`` or None."""
-    return _transition(_conv_for(x, "expand_block"), expand_block, 1, x, w1,
+    return _transition(_conv_for(x, "expand_block"), "expand_block", 1, x, w1,
                        s1, t1, w2, s2, t2, wp, sp, tp, packed)
 
 

@@ -26,9 +26,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from magnet_tpu_torch.kernels import build
-from magnet_tpu_torch.kernels.psm_blocks import (_DTYPES, _check, _conv_ref,
-                                                 pack_chain, packed_shape)
+from magnet_tpu_torch.kernels.ops import OPS
+from magnet_tpu_torch.kernels.psm_blocks import _conv_ref, pack_chain
 
 DILATIONS = (1, 2)   # the bf16 kernel's
 
@@ -49,49 +48,21 @@ def res_block(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
               ) -> torch.Tensor:
     """The block with the arguments of ``res_block_ref``. CUDA tensors (f32
     or bf16, C a multiple of 16 bytes and at most 128; in bf16 a dilation of
-    1 or 2) launch the kernel on the current stream. ``packed``:
-    ``pack_chain((w1, w2))``, made once by the caller (read in bf16 on a
-    CUDA device; packed here when None)."""
+    1 or 2) launch the kernel on the current stream through
+    ``ops.res_block``. ``packed``: ``pack_chain((w1, w2))``, made once by
+    the caller (read in bf16 on a CUDA device; packed here when None)."""
     if x.device.type == "cpu":
         return res_block_ref(x, w1, s1, t1, w2, s2, t2, dilation)
     if x.device.type != "cuda":
         raise ValueError(f"res_block: unsupported device {x.device}")
-    dt, dev = x.dtype, x.device
-    if dt not in _DTYPES:
-        raise ValueError(f"res_block: unsupported dtype {dt}")
-    if x.dim() != 4:
-        raise ValueError("res_block: x must be (N, H, W, C)")
-    N, H, W, C = x.shape
-    if C % (16 // x.element_size()) or C > 128 or dilation < 1:
-        raise ValueError(f"res_block: channels {C}, dilation {dilation}")
-    _check(x, "x", (N, H, W, C), dt, dev)
-    for name, w, s, t in (("1", w1, s1, t1), ("2", w2, s2, t2)):
-        _check(w, "w" + name, (3, 3, C, C), dt, dev)
-        _check(s, "s" + name, (C,), torch.float32, dev)
-        _check(t, "t" + name, (C,), torch.float32, dev)
     wk1, wk2 = w1, w2
-    if dt == torch.bfloat16:
-        if dilation not in DILATIONS:
-            raise ValueError(f"res_block: dilation {dilation}, the bf16 "
-                             f"kernel takes {DILATIONS}")
+    if x.dtype == torch.bfloat16:
         if packed is None:
             packed = pack_chain((w1, w2))
         if len(packed) != 2:
             raise ValueError("res_block: packed holds both convs' weights")
-        for name, p in zip(("packed w1", "packed w2"), packed):
-            _check(p, name, packed_shape(3, C, C), dt, dev)
         wk1, wk2 = packed
-    out = torch.empty_like(x)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.mt_res_block(
-            _DTYPES[dt], x.data_ptr(), wk1.data_ptr(), s1.data_ptr(),
-            t1.data_ptr(), wk2.data_ptr(), s2.data_ptr(), t2.data_ptr(),
-            out.data_ptr(), N, H, W, C, dilation,
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "res_block")
-    res_block.launches += 1
-    return out
+    return OPS.res_block(x, wk1, s1, t1, wk2, s2, t2, dilation)
 
 
 res_block.launches = 0

@@ -25,9 +25,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from magnet_tpu_torch.kernels import build
-from magnet_tpu_torch.kernels.psm_blocks import (_ceil, _check,
-                                                 pack_weights)
+from magnet_tpu_torch.kernels.ops import OPS
+from magnet_tpu_torch.kernels.psm_blocks import _ceil, pack_weights
 
 HIDDEN = 128
 KBLOCK = 64        # input channels of a K block of the bf16 kernel
@@ -80,9 +79,9 @@ def spp_tail(raw: torch.Tensor, skip: torch.Tensor, br: torch.Tensor,
     """The tail with the arguments of ``spp_tail_ref``. CPU tensors take the
     plain version; CUDA tensors (f32 or bf16, every channel count a multiple
     of 16 bytes, Cout a multiple of 16 and at most 256) launch the kernel on
-    the current stream. ``packed``: ``tail_operands(w0, w1, (C0, C1,
-    C2))``, made once by the caller (read in bf16 on a CUDA device; packed
-    here when None)."""
+    the current stream through ``ops.spp_tail``. ``packed``:
+    ``tail_operands(w0, w1, (C0, C1, C2))``, made once by the caller (read
+    in bf16 on a CUDA device; packed here when None)."""
     if raw.device.type == "cpu":
         return spp_tail_ref(raw, skip, br, w0, scale0, shift0, w1)
     if raw.device.type != "cuda":
@@ -100,45 +99,11 @@ def spp_tail(raw: torch.Tensor, skip: torch.Tensor, br: torch.Tensor,
     if cout % 16 or cout > MAX_OUT:
         raise ValueError(f"spp_tail: Cout={cout} must be a multiple of 16, "
                          f"at most {MAX_OUT}")
-    for t, name, shape, want in (
-            (raw, "raw", (N, H, W, C0), dt), (skip, "skip", (N, H, W, C1), dt),
-            (br, "br", (N, H, W, C2), dt),
-            (w0, "w0", (3, 3, C0 + C1 + C2, HIDDEN), dt),
-            (scale0, "scale0", (HIDDEN,), torch.float32),
-            (shift0, "shift0", (HIDDEN,), torch.float32),
-            (w1, "w1", (HIDDEN, cout), dt)):
-        if tuple(t.shape) != shape or t.dtype != want or t.device != dev:
-            raise ValueError(f"spp_tail: {name} is {tuple(t.shape)} {t.dtype} "
-                             f"on {t.device}, want {shape} {want} on {dev}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"spp_tail: {name} must be contiguous and "
-                             "16-byte aligned")
-    zero, wk0, wk1 = None, w0, w1
+    wk0, wk1 = w0, w1
     if dt == torch.bfloat16:
-        nkb = sum(_ceil(c, KBLOCK) // KBLOCK for c in (C0, C1, C2))
-        if nkb > MAX_KBLOCKS:
-            raise ValueError(f"spp_tail: {nkb} K blocks of {KBLOCK} channels, "
-                             f"the kernel takes {MAX_KBLOCKS}")
-        if packed is None:
-            packed = tail_operands(w0, w1, (C0, C1, C2))
-        wk0, wk1 = packed
-        _check(wk0, "spp_tail: packed w0", (nkb, 9, HIDDEN, KBLOCK), dt, dev)
-        _check(wk1, "spp_tail: packed w1", (2, 1, _ceil(cout, HIDDEN), KBLOCK),
-               dt, dev)
-    else:
-        zero = torch.zeros(cout, dtype=torch.float32, device=dev)
-    out = torch.empty((N, H, W, cout), dtype=dt, device=dev)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.mt_spp_tail(
-            _DTYPES[dt], raw.data_ptr(), skip.data_ptr(), br.data_ptr(),
-            wk0.data_ptr(), scale0.data_ptr(), shift0.data_ptr(),
-            wk1.data_ptr(), None if zero is None else zero.data_ptr(),
-            out.data_ptr(), N, H, W, C0, C1, C2, cout,
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "spp_tail")
-    spp_tail.launches += 1
-    return out
+        wk0, wk1 = (tail_operands(w0, w1, (C0, C1, C2)) if packed is None
+                    else packed)
+    return OPS.spp_tail(raw, skip, br, wk0, scale0, shift0, wk1, cout)
 
 
 spp_tail.launches = 0

@@ -29,8 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from magnet_tpu_torch.kernels import build
 from magnet_tpu_torch.kernels import cost_volume_cw as cvk
+from magnet_tpu_torch.kernels.ops import OPS
 
 MAX_C = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -159,8 +159,9 @@ def sweep_grad_src(d_center: torch.Tensor, ref_feat: torch.Tensor,
                    rays2d: torch.Tensor) -> torch.Tensor:
     """The gradient with the arguments of ``sweep_grad_src_ref``. CPU tensors
     take the plain version; CUDA tensors launch the kernel on the current
-    stream: ``ref_feat`` f32 or bf16 with at most 128 channels; the depths,
-    the cotangent and the geometry are passed in f32."""
+    stream through ``ops.sweep_grad_src``: ``ref_feat`` f32 or bf16 with
+    at most 128 channels; the depths, the cotangent and the geometry are
+    passed in f32."""
     if ref_feat.device.type == "cpu":
         return sweep_grad_src_ref(d_center, ref_feat, gbar, R, t, is_valid,
                                   intM, rays2d)
@@ -189,17 +190,7 @@ def sweep_grad_src(d_center: torch.Tensor, ref_feat: torch.Tensor,
     valid = need(is_valid, "is_valid", (B, V))
     K = need(intM, "intM", (B, 3, 3))
     rays = need(rays2d, "rays2d", (B, 3, H * W))
-    out = torch.empty((B, V, H, W, C), dtype=f32, device=dev)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.mt_sweep_grad_src(
-            _DTYPES[mdt], depth.data_ptr(), ref.data_ptr(), g.data_ptr(),
-            Rc.data_ptr(), tc.data_ptr(), valid.data_ptr(), K.data_ptr(),
-            rays.data_ptr(), out.data_ptr(), B, V, H, W, C, D,
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "sweep_grad_src")
-    sweep_grad_src.launches += 1
-    return out
+    return OPS.sweep_grad_src(depth, ref, g, Rc, tc, valid, K, rays)
 
 
 sweep_grad_src.launches = 0

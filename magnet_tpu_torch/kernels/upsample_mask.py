@@ -32,10 +32,9 @@ from typing import Sequence, Union
 import torch
 import torch.nn.functional as F
 
-from magnet_tpu_torch.kernels import build
+from magnet_tpu_torch.kernels.ops import MAX_MAPS, OPS
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_MAPS = 4          # maps a launch (csrc/upsample_mask.cu: UP_MAX_MAPS)
+_DTYPES = (torch.float32, torch.bfloat16)
 Maps = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
@@ -142,24 +141,10 @@ def _check(maps, up_mask, k, what):
 
 def _launch(maps, up_mask, k):
     """The forward kernel on checked CUDA tensors, once for every
-    ``MAX_MAPS`` maps."""
-    B, H, W, C = maps[0].shape
-    dt, dev = maps[0].dtype, maps[0].device
-    outs = [torch.empty((B, H * k, W * k, C), dtype=dt, device=dev)
-            for _ in maps]
-    lib = build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    ``MAX_MAPS`` maps (``ops.upsample_mask``)."""
+    outs = []
     for i in range(0, len(maps), MAX_MAPS):
-        ins = [d.data_ptr() for d in maps[i:i + MAX_MAPS]]
-        res = [o.data_ptr() for o in outs[i:i + MAX_MAPS]]
-        n = len(ins)
-        with torch.cuda.device(dev):
-            err = lib.mt_upsample_mask(
-                _DTYPES[dt], n, *(ins + [None] * (MAX_MAPS - n)),
-                up_mask.data_ptr(), *(res + [None] * (MAX_MAPS - n)),
-                B, H, W, C, k, stream)
-        build.check(err, "upsample_mask")
-        upsample_mask.launches += 1
+        outs += OPS.upsample_mask(maps[i:i + MAX_MAPS], up_mask, k)
     return outs
 
 
@@ -169,7 +154,8 @@ def upsample_mask_bwd(grads: Sequence[torch.Tensor],
     """The backward kernel, arguments as ``upsample_mask_bwd_ref``: CPU
     tensors take the plain version; CUDA tensors (up to ``MAX_MAPS`` maps
     of one shape and dtype with the mask, f32 or bf16; the gradients are
-    cast to that dtype) launch it once on the current stream."""
+    cast to that dtype) launch it once on the current stream
+    (``ops.upsample_mask_bwd``)."""
     maps = list(depth)
     if not maps:
         raise ValueError("upsample_mask_bwd: no map")
@@ -179,28 +165,9 @@ def upsample_mask_bwd(grads: Sequence[torch.Tensor],
     if len(maps) > MAX_MAPS or len(grads) != len(maps):
         raise ValueError(f"upsample_mask_bwd: one gradient a map, at most "
                          f"{MAX_MAPS} maps")
-    B, H, W, C = maps[0].shape
-    dt, dev = maps[0].dtype, maps[0].device
-    gouts = [g.to(dt).contiguous() for g in grads]
-    if any(tuple(g.shape) != (B, H * k, W * k, C) or g.device != dev
-           for g in gouts):
-        raise ValueError(f"upsample_mask_bwd: the gradients must be "
-                         f"{(B, H * k, W * k, C)} on {dev}")
-    gmaps = [torch.empty_like(d) for d in maps]
-    gmask = torch.empty_like(up_mask)
-    n = len(maps)
-    pad = [None] * (MAX_MAPS - n)
-    lib = build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.mt_upsample_mask_bwd(
-            _DTYPES[dt], n, *([g.data_ptr() for g in gouts] + pad),
-            *([d.data_ptr() for d in maps] + pad), up_mask.data_ptr(),
-            *([g.data_ptr() for g in gmaps] + pad), gmask.data_ptr(),
-            B, H, W, C, k, stream)
-    build.check(err, "upsample_mask_bwd")
-    upsample_mask_bwd.launches += 1
-    return gmaps, gmask
+    gmaps, gmask = OPS.upsample_mask_bwd([g.to(maps[0].dtype).contiguous()
+                                         for g in grads], maps, up_mask, k)
+    return list(gmaps), gmask
 
 
 upsample_mask.launches = 0

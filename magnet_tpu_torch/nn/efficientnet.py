@@ -19,7 +19,8 @@ bn2). The trunk runs as plain PyTorch convolutions, as the JAX package runs
 it in XLA. Train mode (D-Net training) has train-mode BatchNorm (eps 1e-3)
 and stochastic depth on the residual branches at the JAX package's rates
 (``drop_connect_rate`` 0.2 * block index / 39, the masks drawn from the
-caller's generator); with ``remat`` each block runs under
+caller's generator; under W ranks each draws the global batch's mask and
+takes its rows); with ``remat`` each block runs under
 ``layers.remat``. In eval mode one of the two switches of the JAX
 package's opt-in TPU kernels may be on (both act in eval mode only, as
 there):
@@ -46,6 +47,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from magnet_tpu_torch.core.distributed import rank_world
+from magnet_tpu_torch.core.mesh import rank_rows
 from magnet_tpu_torch.kernels.mbconv_chain import mbconv_chain
 from magnet_tpu_torch.nn.layers import (batch_norm_train, cached_fold, conv2d,
                                         conv2d_same, drop_path,
@@ -287,6 +290,7 @@ class EfficientNetB5Features(nn.Module):
             # (a size-1 batch with stride 0) gives an NCHW stem output.
             y = y.contiguous(memory_format=torch.channels_last)
         taps = []
+        world = rank_world()[1]
         for si, stage in enumerate(self.blocks):
             if si in self.chain_stages and not t:
                 y = stage[0](y)
@@ -300,7 +304,10 @@ class EfficientNetB5Features(nn.Module):
                     if generator is None:
                         raise ValueError("train mode draws the drop-path "
                                          "masks from a generator")
-                    mask = drop_path_mask(y.shape[0], b.drop_rate, generator)
+                    # the global batch's mask, this rank's rows: W ranks
+                    # drop what one process drops
+                    mask = rank_rows(drop_path_mask(
+                        y.shape[0] * world, b.drop_rate, generator))
                 y = remat(b, y, mask) if self.remat and t else b(y, mask)
             taps.append(y)
         head = conv2d(y, self.conv_head)

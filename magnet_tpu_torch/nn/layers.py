@@ -31,9 +31,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from magnet_tpu_torch.core import mesh
 from magnet_tpu_torch.kernels.dw_conv import dw_conv
 
 LEAKY_SLOPE = 0.01
+
+
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``: ``t`` itself where it is of that dtype already,
+    which a traced program (``serve/export.py``) then records no cast for."""
+    return t if t.dtype == dtype else t.to(dtype)
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -59,7 +66,12 @@ def cached_fold(owner: nn.Module, name: str, dtype: torch.dtype,
                 sources: Sequence[torch.Tensor], fold: Callable):
     """``fold()`` (a module's weights prepared for a kernel), kept on
     ``owner`` under ``name`` and recomputed when ``dtype`` or a tensor of
-    ``sources`` has changed (storage or version)."""
+    ``sources`` has changed (storage or version). While a program is traced
+    (``torch.export``, ``torch.compile``) the tensors have no storage to key
+    on: ``fold()`` is called as it is, so that the packing is traced from
+    the weights the program is given."""
+    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        return fold()
     key = (dtype,) + tuple((t.data_ptr(), t._version) for t in sources)
     cache = owner.__dict__.setdefault("_folded", {})
     hit = cache.get(name)
@@ -86,8 +98,8 @@ def conv2d_same(x: torch.Tensor, conv: nn.Conv2d,
     sh, sw = conv.stride
     pt, pb = same_pads(x.shape[-2], kh, sh)
     pl, pr = same_pads(x.shape[-1], kw, sw)
-    w = conv.weight.to(x.dtype)
-    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    w = cast(conv.weight, x.dtype)
+    b = None if conv.bias is None else cast(conv.bias, x.dtype)
     if pt == pb and pl == pr:
         return F.conv2d(x, w, b, conv.stride, (pt, pl), 1, conv.groups)
     x = F.pad(x, (pl, pr, pt, pb))
@@ -96,8 +108,8 @@ def conv2d_same(x: torch.Tensor, conv: nn.Conv2d,
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     """``conv`` with its own (symmetric) padding, in x's dtype."""
-    w = conv.weight.to(x.dtype)
-    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    w = cast(conv.weight, x.dtype)
+    b = None if conv.bias is None else cast(conv.bias, x.dtype)
     return F.conv2d(x, w, b, conv.stride, conv.padding, 1, conv.groups)
 
 
@@ -145,12 +157,15 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     wider; scale and bias rounded to x's dtype first (the compute-dtype cast
     of every parameter) and applied in that type; the running buffers
     updated in place from the biased variance (``nn.BatchNorm2d`` would use
-    the unbiased one), except in ``remat``'s recomputation. Returns x's
-    dtype."""
+    the unbiased one), except in ``remat``'s recomputation. Under a process
+    group of several ranks the mean and E[x^2] are those of the global batch
+    (``core/mesh.batch_statistics``: SyncBN, as the JAX package's BatchNorm
+    under a sharded batch), equal on every rank. Returns x's dtype."""
     dt = x.dtype
     xf = x.to(torch.promote_types(dt, torch.float32))
-    mean = xf.mean((0, 2, 3))
-    var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    mean, sq = mesh.batch_statistics(xf.mean((0, 2, 3)),
+                                     (xf * xf).mean((0, 2, 3)))
+    var = torch.clamp(sq - mean * mean, min=0.0)
     if not _RECOMPUTING[0]:
         with torch.no_grad():
             for buf, stat in ((bn.running_mean, mean),
@@ -238,10 +253,11 @@ def fold_bn(bn: nn.BatchNorm2d,
     """Eval BatchNorm as an f32 per-channel (scale, shift); a preceding conv
     bias is folded into the shift: bn(acc + b) = acc * s + (t + s * b)."""
     f32 = torch.float32
-    scale = bn.weight.to(f32) * torch.rsqrt(bn.running_var.to(f32) + bn.eps)
-    shift = bn.bias.to(f32) - bn.running_mean.to(f32) * scale
+    scale = cast(bn.weight, f32) * torch.rsqrt(cast(bn.running_var, f32)
+                                               + bn.eps)
+    shift = cast(bn.bias, f32) - cast(bn.running_mean, f32) * scale
     if bias is not None:
-        shift = shift + scale * bias.to(f32)
+        shift = shift + scale * cast(bias, f32)
     return scale.contiguous(), shift.contiguous()
 
 

@@ -62,8 +62,8 @@ from magnet_tpu_torch.kernels.psm_blocks import (downsample_block,
 from magnet_tpu_torch.kernels.res_block import res_block
 from magnet_tpu_torch.kernels.spp_tail import spp_tail, tail_operands
 from magnet_tpu_torch.nn.layers import (batch_norm, batch_norm_train,
-                                        cached_fold, fold_bn, hwio, nchw,
-                                        nhwc, remat)
+                                        cached_fold, cast, fold_bn, hwio,
+                                        nchw, nhwc, remat)
 from magnet_tpu_torch.ops.resample import (avg_pool,
                                            resize_bilinear_align_corners)
 
@@ -84,16 +84,16 @@ def convbn(cin: int, cout: int, k: int, stride: int, pad: int,
 def run_convbn(x: torch.Tensor, cb: nn.Sequential) -> torch.Tensor:
     """conv in x's dtype, then eval BatchNorm with f32 statistics. NCHW."""
     conv, bn = cb
-    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding,
-                 conv.dilation)
+    y = F.conv2d(x, cast(conv.weight, x.dtype), None, conv.stride,
+                 conv.padding, conv.dilation)
     return batch_norm(y, bn)
 
 
 def train_convbn(x: torch.Tensor, cb: nn.Sequential) -> torch.Tensor:
     """conv in x's dtype, then train-mode BatchNorm. NCHW."""
     conv, bn = cb
-    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding,
-                 conv.dilation)
+    y = F.conv2d(x, cast(conv.weight, x.dtype), None, conv.stride,
+                 conv.padding, conv.dilation)
     return batch_norm_train(y, bn)
 
 

@@ -297,7 +297,7 @@ def conv_case(spec, g):
     res = _r(g, n, ho, wo, co).to(bf) if epi == "res" else None
     args = (x, wt, scale, shift, stride, dil, epi == "relu", res)
     packed = pb.pack_weights(wt)
-    counter = pb.fused_residual_stage
+    counter = "fused_residual_stage"
     xin = x.permute(0, 3, 1, 2)
     wl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     pad = dil if k == 3 else 0

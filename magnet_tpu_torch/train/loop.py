@@ -4,7 +4,10 @@
 loss and validation; the loop around their step is the JAX package's: a
 loss line every ``--log_every`` steps, a validation (metrics appended to
 ``exp/<name>/log/eval_acc.txt``) and a checkpoint (``train/checkpoint.py``)
-every ``--validate_every`` samples and at the end.
+every ``--validate_every`` samples and at the end. Under a process group
+(``core/distributed.py``) every rank steps on its share of the batch and
+rank 0 alone logs, validates and saves, the others waiting at a barrier.
+``--profile_dir`` traces a window of steps (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -13,17 +16,27 @@ import time
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 
+from magnet_tpu_torch.core import distributed
 from magnet_tpu_torch.eval import metrics
 from magnet_tpu_torch.train import checkpoint
-from magnet_tpu_torch.utils.profiling import StepTimer
+from magnet_tpu_torch.utils.profiling import ProfileWindow, StepTimer
+
+# --profile_dir traces steps [start, start + num), start at most
+# PROFILE_START: a short run is traced from its middle
+PROFILE_START, PROFILE_STEPS = 10, 3
 
 
 def device_of(args) -> torch.device:
-    """``--device``; a card asked for and missing is an error."""
+    """``--device``; a card asked for and missing is an error. Under a
+    process group ``cuda`` is this process's card."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
+    if device == torch.device("cuda") and dist.is_available() and \
+            dist.is_initialized():
+        return torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -33,18 +46,31 @@ def run(args, state, step_fn: Callable, loader, to_device: Callable,
     through ``to_device``, then ``step_fn``). Returns the final state, the
     loss and time of every step (host clock with the loss read, and CUDA
     events around the step on a card), the last validation's metrics and
-    the last checkpoint's directory."""
+    the last checkpoint's directory (None and "" on ranks other than 0),
+    and the ``--profile_dir`` trace's path."""
     on_card = torch.device(args.device).type == "cuda"
+    lead = distributed.rank_world()[0] == 0
     out = dict(losses=[], step_ms=[], step_event_ms=[])
     total_iter, t0, timer, mts, ckpt = 0, time.time(), StepTimer(), None, ""
+    window = ProfileWindow(getattr(args, "profile_dir", ""),
+                           min(PROFILE_START,
+                               len(loader) * args.n_epochs // 2),
+                           PROFILE_STEPS)
 
     def validate_and_save():
-        m = validate()
-        metrics.log_metrics(args.eval_acc_txt, m, f"total_iter: {total_iter}")
-        return m, checkpoint.save(args.exp_model_dir, state, total_iter)
+        m, path = None, ""
+        if lead:
+            m = validate()
+            metrics.log_metrics(args.eval_acc_txt, m,
+                                f"total_iter: {total_iter}")
+            path = checkpoint.save(args.exp_model_dir, state, total_iter)
+        if dist.is_available() and dist.is_initialized():
+            dist.barrier()
+        return m, path
 
     for epoch in range(args.n_epochs):
         for raw in loader:
+            window.tick()
             batch = to_device(raw)
             t_step = time.perf_counter()
             if on_card:
@@ -60,12 +86,14 @@ def run(args, state, step_fn: Callable, loader, to_device: Callable,
             out["losses"].append(loss)
             sps = timer.tick()
             total_iter += args.batch_size
-            if total_iter % (args.log_every * args.batch_size) < \
+            if lead and total_iter % (args.log_every * args.batch_size) < \
                     args.batch_size:
                 print(f"epoch {epoch + 1}/{args.n_epochs} iter {total_iter} "
                       f"loss {loss:.5f} ({time.time() - t0:.1f}s, "
                       f"{sps:.2f} steps/s)", flush=True)
             if total_iter % args.validate_every < args.batch_size:
                 mts, ckpt = validate_and_save()
+    window.close()
     mts, ckpt = validate_and_save()
-    return dict(out, state=state, metrics=mts, ckpt=ckpt)
+    return dict(out, state=state, metrics=mts, ckpt=ckpt,
+                profile_trace=window.path)

@@ -14,12 +14,23 @@ from typing import Sequence
 
 import torch
 
+from magnet_tpu_torch.core import mesh
+from magnet_tpu_torch.core.distributed import rank_world
+
 _VAR_FLOOR = 1e-10
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The mean of x over the mask. Under W ranks (``core/mesh.py``) the
+    sum of this rank's share over the global batch's count, times W: the
+    ranks' mean of these, and of their gradients, is the global batch's
+    masked mean, as the JAX step takes it over the sharded batch."""
     m = mask.to(torch.float32)
-    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+    world = rank_world()[1]
+    if world == 1:
+        return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+    count = torch.clamp(mesh.batch_total(torch.sum(m)), min=1.0)
+    return torch.sum(x * m) * world / count
 
 
 def gaussian_nll(mu: torch.Tensor, var: torch.Tensor,

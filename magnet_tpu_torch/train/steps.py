@@ -10,6 +10,13 @@ forward, as the JAX step takes its new ``batch_stats`` from the same
 forward; stage 3 updates none (its backbones run in eval mode). Geometry
 and the sweep depths stay f32.
 
+Under a process group of W ranks (``core/distributed.py``) each rank runs
+the step on its share of the global batch: BatchNorm takes the global
+batch's statistics, the gradients are averaged over the ranks before the
+clip and the reported loss is the ranks' mean, as the JAX step on a sharded
+batch (``core/mesh.py``). The steps are not wrapped in DDP: ``Magnet``'s
+step calls ``encode`` and ``fuse``, which would bypass its hooks.
+
 Dtype policy: f32 master weights, compute in ``--compute_dtype``. The JAX
 step casts the images and every floating parameter (BatchNorm's scale and
 bias included) with ``core/dtypes.py::cast_floating``; BatchNorm then
@@ -27,6 +34,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from magnet_tpu_torch.core import mesh
 from magnet_tpu_torch.train import losses
 from magnet_tpu_torch.train.optim import ScheduledAdamW
 from magnet_tpu_torch.utils.profiling import stage
@@ -56,14 +64,20 @@ def _clamped_gt(depth: torch.Tensor, max_depth: float, min_depth: float):
     return gt, gt > min_depth
 
 
-def _update(state: TrainState, loss: torch.Tensor) -> None:
-    """Backward, clip and AdamW, one step further."""
+def _update(state: TrainState, loss: torch.Tensor) -> Dict:
+    """Backward, the gradients averaged over the ranks (``core/mesh.py``:
+    the frozen encoder's too, which count in the clip norm), clip and AdamW,
+    one step further. Returns the step's metrics: the loss, averaged over
+    the ranks."""
     state.optimizer.zero_grad()
     with stage("backward"):
         loss.backward()
+    with stage("gradient all-reduce"):
+        mesh.average_gradients(state.model.parameters())
     with stage("clip + AdamW"):
         state.optimizer.step()
     state.step += 1
+    return {"loss": mesh.mean_over_ranks(loss.detach())}
 
 
 def make_dnet_train_step(max_depth: float, min_depth: float,
@@ -82,8 +96,7 @@ def make_dnet_train_step(max_depth: float, min_depth: float,
             out = model(batch["img"].to(compute_dtype), state.generator)
         with stage("loss"):
             loss = losses.dnet_loss(out, gt, mask)
-        _update(state, loss)
-        return state, {"loss": loss.detach()}
+        return state, _update(state, loss)
 
     return step
 
@@ -109,8 +122,7 @@ def make_fnet_train_step(d_center: torch.Tensor, max_depth: float,
         with stage("soft-argmax + L1"):
             pred = losses.soft_argmax_depth(cv, d_center)
             loss = losses.fnet_l1_loss(pred, gt, mask)
-        _update(state, loss)
-        return state, {"loss": loss.detach()}
+        return state, _update(state, loss)
 
     return step
 
@@ -156,8 +168,7 @@ def make_magnet_train_step(gamma: float, max_depth: float, min_depth: float,
         model = state.model.train()
         loss = magnet_batch_loss(model, batch, gamma, max_depth, min_depth,
                                  n_iters, compute_dtype)
-        _update(state, loss)
-        return state, {"loss": loss.detach()}
+        return state, _update(state, loss)
 
     return step
 

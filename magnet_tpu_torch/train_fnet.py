@@ -25,7 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from magnet_tpu_torch.core import config
+from magnet_tpu_torch.core import config, distributed, mesh
 from magnet_tpu_torch.data import (TRAIN_MODES, VAL_MODES,
                                    make_multiview_loader)
 from magnet_tpu_torch.eval import harness
@@ -71,8 +71,17 @@ def make_val_forward(model: torch.nn.Module, d_center: torch.Tensor,
 def train(args) -> Dict:
     """The training run of parsed flags (``train/loop.py::run``): the final
     state, the loss and time of every step, the last validation's metrics
-    and the last checkpoint's directory."""
+    and the last checkpoint's directory. Under the process group that the
+    environment names (``core/distributed.py``; joined before anything is
+    built, left at the end) each rank trains on its share of every batch
+    (``core/mesh.py``) and rank 0 validates and saves."""
+    with distributed.session(args.device):
+        return _train(args)
+
+
+def _train(args) -> Dict:
     config.check_train_flags(args)
+    mesh.world_from_args(args)
     device = loop.device_of(args)
     train_loader = make_multiview_loader(args,
                                          TRAIN_MODES[args.dataset_name])
@@ -92,6 +101,7 @@ def train(args) -> Dict:
     if args.resume_ckpt:
         state = checkpoint.restore(args.resume_ckpt, state)
         print(f"resumed from step {state.step}")
+    mesh.replicate(model)
     step_fn = steps.make_fnet_train_step(
         d_center, args.max_depth, args.min_depth,
         compute_dtype=config.compute_dtype(args.compute_dtype))

@@ -29,7 +29,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from magnet_tpu_torch.core import config
+from magnet_tpu_torch.core import config, distributed, mesh
 from magnet_tpu_torch.data import (TRAIN_MODES, VAL_MODES,
                                    make_multiview_loader)
 from magnet_tpu_torch.eval import harness
@@ -49,8 +49,17 @@ def batch_to_device(batch: Dict[str, np.ndarray],
 def train(args) -> Dict:
     """The training run of parsed flags (``train/loop.py::run``): the final
     state, the loss and time of every step, the last validation's metrics
-    and the last checkpoint's directory."""
+    and the last checkpoint's directory. Under the process group that the
+    environment names (``core/distributed.py``; joined before anything is
+    built, left at the end) each rank trains on its share of every batch
+    (``core/mesh.py``) and rank 0 validates and saves."""
+    with distributed.session(args.device):
+        return _train(args)
+
+
+def _train(args) -> Dict:
     config.check_train_flags(args, loss_fn="gaussian")
+    mesh.world_from_args(args)
     device = loop.device_of(args)
     train_loader = make_multiview_loader(args,
                                          TRAIN_MODES[args.dataset_name])
@@ -69,6 +78,7 @@ def train(args) -> Dict:
     if args.resume_ckpt:
         state = checkpoint.restore(args.resume_ckpt, state)
         print(f"resumed from step {state.step}")
+    mesh.replicate(model)
     step_fn = steps.make_magnet_train_step(
         args.loss_gamma, args.max_depth, args.min_depth,
         args.MAGNET_num_train_iter,

@@ -13,6 +13,7 @@ elements within 1e-4 (depth units) of the threshold are left out, at most
 1 % of them, and the rest are held to the tolerance.
 """
 
+import functools
 import numpy as np
 import pytest
 import torch
@@ -201,11 +202,13 @@ def test_fuse_matches_jax(monkeypatch):
     src_g = np.stack([mu, sig], -1)
     jm = JMagnet(fnet_feature_dim=F)
     enc = (ref_g, x_d3, ref_f, src_g, src_f, R, t, valid, K, rays)
-    v = jm.init(jax.random.PRNGKey(0), *enc, method=JMagnet.fuse)
+    v = jax.eval_shape(functools.partial(jm.init, method=JMagnet.fuse),
+                       jax.random.PRNGKey(0), *enc)
     p = jax.tree.map(lambda a: (rng.randn(*a.shape) * (
-        0.1 if a.ndim == 1 else np.prod(a.shape[:3]) ** -0.5)
-    ).astype(np.float32), jax.device_get(v["params"]))
-    refs = jm.apply({"params": p}, *enc, method=JMagnet.fuse)
+        0.1 if len(a.shape) == 1 else np.prod(a.shape[:3]) ** -0.5)
+    ).astype(np.float32), v["params"])
+    refs = jax.jit(functools.partial(jm.apply, method=JMagnet.fuse))(
+        {"params": p}, *enc)
     model = Magnet(fnet_feature_dim=F).eval()
     sd = {"g_net." + k: w for k, w in gnet_state_dict(p["g_net"]).items()}
     sd.update(_chain_state_dict(p["mask_head"], "mask_head"))

@@ -157,12 +157,12 @@ def test_psmnet_matches_jax_with_its_kernels_on(monkeypatch):
     rng = np.random.RandomState(5)
     x = rng.rand(1, 96, 128, 3).astype(np.float32)
     jm = JPSMNet(feature_dim=64)
-    v = jm.init(jax.random.PRNGKey(5), x)
+    v = jax.jit(jm.init)(jax.random.PRNGKey(5), x)
     v = jax.device_get({"params": v["params"], "batch_stats": jax.tree.map(
         lambda a: np.asarray(rng.rand(*a.shape), np.float32) * 0.5 + 0.3,
         v["batch_stats"])})
     monkeypatch.setenv("MAGNET_TPU_PALLAS_PSM", "1")
-    ref = jm.apply(v, x)
+    ref = jax.jit(jm.apply)(v, x)
     tree = {c: {"f_net": v[c]} for c in v}
     sd = {k[len("f_net."):]: t for k, t in fnet_state_dict(tree).items()}
     pm = PSMNet(64).eval()
@@ -519,8 +519,7 @@ def test_spp_tail_kernel_at_the_frame_shapes(cuda, case):
 def _conv_case(dev, N, H, W, ci, co, k=3, stride=1, dil=1, epi="res",
                tap=None, seed=0):
     """One conv's operands on ``dev`` in bf16 (weight one-hot at ``tap``
-    when given, shift 0), its packed weights and a launch counter."""
-    import types
+    when given, shift 0) and its packed weights."""
     g = torch.Generator().manual_seed(seed)
     bf = torch.bfloat16
     x = torch.randn(N, H, W, ci, generator=g).to(dev, bf)
@@ -536,13 +535,14 @@ def _conv_case(dev, N, H, W, ci, co, k=3, stride=1, dil=1, epi="res",
     res = (torch.randn(N, ho, wo, co, generator=g).to(dev, bf)
            if "res" in epi else None)
     args = (x, w, scale, shift, stride, dil, "relu" in epi, res)
-    return args, pb.pack_weights(w), types.SimpleNamespace(launches=0)
+    return args, pb.pack_weights(w)
 
 
 def _check_conv(cuda, **case):
-    args, packed, counter = _conv_case(cuda, **case)
-    out = pb._conv_cuda(*args, counter, packed)
-    assert counter.launches == 1
+    args, packed = _conv_case(cuda, **case)
+    before = pb.fused_residual_stage.launches
+    out = pb._conv_cuda(*args, "fused_residual_stage", packed)
+    assert pb.fused_residual_stage.launches == before + 1
     _close_cuda(out, pb._conv_ref(*args), torch.bfloat16)
 
 

@@ -507,12 +507,14 @@ def test_entry_point_loads_a_training_checkpoint(tmp_path, fnet_run):
 
 
 def test_unported_training_flags_raise(tmp_path):
-    """Flags of features the port lacks raise; 7-Scenes has no training
+    """Flags of features the port lacks raise; a --mesh_shape other than
+    the world size (one process here) raises; 7-Scenes has no training
     split; ScanNet training needs data_split/scannet_train.txt, which the
     repository lacks, and names it."""
     for extra, error, match in (
             (["--loss_fn", "gaussian"], ValueError, "not ported"),
-            (["--mesh_shape", "4"], ValueError, "not ported"),
+            (["--mesh_shape", "4"], ValueError,
+             "does not match the world size: 1 process"),
             (["--dataset_name", "7scenes"], ValueError, "test only"),
             (["--dataset_name", "scannet"], FileNotFoundError,
              "scannet_train.txt")):
@@ -525,8 +527,7 @@ def test_flags_the_port_does_not_read_are_rejected(tmp_path, capsys):
     """The JAX package's training flags that the port has no use for are
     not accepted and ignored: argparse rejects them."""
     for extra in (["--use_pallas", "False"], ["--param_dtype", "bfloat16"],
-                  ["--cache_features"], ["--profile_dir", "p"],
-                  ["--no_distributed"]):
+                  ["--cache_features"]):
         with pytest.raises(SystemExit):
             train_fnet.main(ENTRY_FLAGS + ["--exp_dir", str(tmp_path),
                                            "--device", "cpu"] + extra)
