@@ -19,9 +19,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      products in f32) on the elements that do not sit within 1e-4 of its
      consistency threshold (at most 1 % may), also at a roll of 0.9 rad
      about the optical axis, with one view invalid and at the KITTI cost
-     volume (88x304, 2 views), each site with the kernel's plan replayed in
-     plain PyTorch (the share of corners served from staged windows, the
-     bytes copied into shared memory, the bytes a plain gather requests).
+     volume (88x304, 2 views) and as one rank of a view-sharded frame
+     computes it (2 of the 4 views divided by the global v_total = 4; the
+     launch at its own V equals it doubled, bit for bit), each site with
+     the kernel's plan replayed in plain PyTorch (the share of corners
+     served from staged windows, the bytes copied into shared memory, the
+     bytes a plain gather requests).
      Convex upsampling runs as MaGNet calls it (the 3 maps of a frame in one
      launch, each bit-equal to its one-map call) and as the D-Net does (one
      map); its backward (the port's own kernel) at the two training sites
@@ -103,11 +106,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      (480x640, batch 4, 4 source views, 5 candidates, 3 iterations, bf16)
      from phase 12's D-Net and phase 8's F-Net: 3 steps and a validation
      pass; only g_net.* and mask_head.* change, launches per step as
-     predicted, ms per step by events; then one step's loss and G-Net and
-     mask-head gradients against the same step with f32 weights and the
-     plain encode (the D-Net and F-Net on the CPU), with the f32 encode of
-     the 20 frames and row 4 at batch 4 held to their plain versions on the
-     way;
+     predicted, ms per step by events; then one step's loss and gradients
+     against the same step with f32 weights and the plain encode (the D-Net
+     and F-Net on the CPU): the f32 step's all of them, the bf16 step's
+     loss and G-Net gradients; the bf16 step's mask-head gradients against
+     an f32 step whose upsampling takes the bf16 step's own coarse maps
+     (the f32 mask head on its decoder feature, the f32 loss; the reading
+     against the f32 step and the mask head's cancellation, the sums of
+     |terms| over max|g|, printed beside); the f32 encode of the 20 frames
+     and row 4 at batch 4 held to their plain versions on the way;
  14. streaming: test_magnet --cache_features (its streaming forward and
      the harness) at the ScanNet eval shape, bf16, on a 12-frame sliding
      window built here (a reference and its 4 neighbours, one frame a
@@ -170,7 +177,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      fuse's) equals the eager bf16 forward bit for bit, else at phase 7's
      bf16 limits; ms per frame of the loaded program against eager;
  21. one stream per card (serve/streams.py) over every card: each stream's
-     map equal bit for bit to the single-stream forward; ms per frame.
+     map equal bit for bit to the single-stream forward; ms per frame;
+ 22. view-sharded single-stream inference (core/sharding_inference.py) at
+     the ScanNet eval shape from phase 17's model, bf16 and f32: W = 1 over
+     NCCL equal to the monolithic forward bit for bit; W = 2 over gloo,
+     both ranks on this card (each encodes the reference and 2 of the 4
+     views, the cost volume summed over the ranks): the ranks equal bit for
+     bit, f32 at phase 7's f32 limits of the monolithic forward, bf16
+     within 2e-2 of its max|map|; ms a frame by events on each rank and
+     the all-reduce's share;
+ 23. training dumps (utils/visualize.py): the three dumps from maps the card
+     computed, each file a 640x480 JPEG; host ms a dump.
 Phase 3 also holds rows 12 and 13 at their path-A sites (N = 1 and 5),
 row 14 at the four KITTI layer shapes (3 frames; row 6's chain over the
 same blocks timed beside it), rows 1 and 2 at the KITTI decoder's four
@@ -207,6 +224,8 @@ import torch.nn.functional as F
 from magnet_tpu_torch import (dryrun, profile_conv, test_dnet, test_magnet,
                               train_dnet, train_fnet, train_magnet)
 from magnet_tpu_torch.core import config, distributed, mesh
+from magnet_tpu_torch.core.sharding_inference import (shard_magnet_inference,
+                                                      view_mesh)
 from magnet_tpu_torch.data import base
 from magnet_tpu_torch.data.synthetic import (SyntheticMultiView,
                                              SyntheticSingleView)
@@ -240,6 +259,7 @@ from magnet_tpu_torch.nn.efficientnet import (CHAIN_OPERANDS,
                                               fold_mbconv_chain)
 from magnet_tpu_torch.nn.layers import BN_MOMENTUM, conv2d, nchw, nhwc
 from magnet_tpu_torch.ops.costvolume import sweep_forward_args
+from magnet_tpu_torch.ops.upsample import upsample_via_mask
 from magnet_tpu_torch.profile_dnet import (cuda_ms, graph_ms, kernel_profile,
                                            random_chain, trunk_tail_sites)
 from magnet_tpu_torch.profile_dnet import stage_times as dnet_stage_times
@@ -251,6 +271,7 @@ from magnet_tpu_torch.serve import export as serve_export
 from magnet_tpu_torch.serve import streams
 from magnet_tpu_torch.train import checkpoint, optim, steps
 from magnet_tpu_torch.train import losses as train_losses
+from magnet_tpu_torch.utils import visualize
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside the
 # tensor cores, HBM3.
@@ -291,8 +312,20 @@ MAGNET_TRAIN_F32_TOL = dict(loss=1e-4, grad=1e-3, grad_median=1e-3)
 # the bf16 stage-3 step against the f32 one: the (mu, sigma) maps of the
 # loss are bf16 (8 bits: 0.4 % of a value), so the NLL moves by about 1 %
 # (1.35e-2 on the CPU at 96x128, B = 4, V = 4, 3 iterations, with gradients
-# 0.043 worst and 0.015 median of their tensor's max)
+# 0.043 worst and 0.015 median of their tensor's max); the loss and G-Net's
+# gradients are held to the f32 step
 MAGNET_TRAIN_BF16_TOL = dict(loss=5e-2, grad=0.3, grad_median=0.05)
+# the bf16 step's mask-head gradients against an f32 step whose upsampling
+# takes the bf16 step's own coarse (mu, sigma) maps (``mask_head_reference``:
+# the f32 mask head on the bf16 step's decoder feature, the f32 loss), worst
+# and median tensor of their tensor's max. On an H100 some states that
+# phases 8 and 12 train read over these limits (ROADMAP, fault 4); the
+# cancellation in the head's sums is printed beside the reading
+MASK_HEAD_BF16_TOL = dict(grad=0.3, grad_median=0.05)
+# phase 3: row 4 as one rank of a view-sharded frame computes it
+SHARD_SITE = "a rank's 2 of 4 views, v_total 4"
+# phase 22: frames timed
+SHARD_FRAMES = 10
 # streaming against the monolithic forward, of the largest |map|: the
 # encode at batch 1 may take other kernel plans (and cuDNN algorithms) than
 # at batch 5, each rounding its bf16 output once more or less
@@ -514,24 +547,35 @@ def plan_stats(a: list) -> dict:
 
 def check_cost_volume_kernel(dev):
     """Row 4 at the MaGNet main path (ScanNet: 120x160, V = 4), at a 0.9 rad
-    roll, with one view invalid, and at the KITTI cost volume (88x304, V =
-    2; timed, in no frame's sum); timed on (mu, sigma) pairs packed once, as
-    ``Magnet.fuse`` keeps them."""
+    roll, with one view invalid, at the KITTI cost volume (88x304, V = 2)
+    and as one rank of a view-sharded frame computes it (at the main path's
+    shape, the first 2 of 4 views divided by the global ``v_total`` = 4);
+    the last four timed, in no frame's sum; timed on (mu, sigma) pairs
+    packed once, as ``Magnet.fuse`` keeps them."""
     g = torch.Generator().manual_seed(2)
     rows = []
     kitti = dict(hc=KITTI_HC, wc=KITTI_WC, views=KITTI_VIEWS)
     for site, path, kw in (("main path", "magnet", {}),
                            ("roll 0.9 rad", "magnet", dict(roll=0.9)),
                            ("one view invalid", "magnet", dict(invalid=True)),
-                           ("KITTI", "kitti", kitti)):
+                           ("KITTI", "kitti", kitti),
+                           (SHARD_SITE, "magnet", {})):
         a32 = [t.to(dev) for t in cv_case(g, **kw)]
+        v_total = None
+        if site == SHARD_SITE:
+            # a rank's contiguous half of the views: src, mu, sigma, R, t,
+            # is_valid
+            v_total = a32[2].shape[1]
+            a32 = [t[:, :v_total // 2] if 2 <= i <= 7 else t
+                   for i, t in enumerate(a32)]
         views = a32[2].shape[1]
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             a = a32[:1] + [t.to(dtype) for t in a32[1:3]] + a32[3:]
-            out = cvk.cost_volume_cw(*a, 5.0)
+            out = cvk.cost_volume_cw(*a, 5.0, v_total=v_total)
             torch.cuda.synchronize()
-            ref, margin = cvk.cost_volume_cw_ref(*a, 5.0, return_margin=True)
+            ref, margin = cvk.cost_volume_cw_ref(*a, 5.0, return_margin=True,
+                                                 v_total=v_total)
             err, lim, excluded = cvk.compare(out, ref, margin,
                                              KERNEL_TOL[torch.float32])
             if not ref.abs().max() > 0.1:
@@ -553,10 +597,22 @@ def check_cost_volume_kernel(dev):
             site=f"cost_volume_cw ({site})", path=path,
             frame=site == "main path", err_f32=errs[torch.float32],
             err_bf16=errs[torch.bfloat16],
-            ms=graph_ms(lambda: cvk.cost_volume_cw(*a, 5.0, ops)),
-            plain_ms=plain_time(lambda: cvk.cost_volume_cw_ref(*a, 5.0)),
+            ms=graph_ms(lambda: cvk.cost_volume_cw(*a, 5.0, ops, v_total)),
+            plain_ms=plain_time(lambda: cvk.cost_volume_cw_ref(
+                *a, 5.0, v_total=v_total)),
             library_ms=None, bound_ms=bms, bound_by=by, gflop=flops / 1e9,
             compulsory_mb=need / 1e6, **plan_stats(a)))
+        if v_total is not None:
+            # the same launch divided by its own V: the divisor is all that
+            # differs, and both are powers of two
+            own = cvk.cost_volume_cw(*a, 5.0)
+            exact = torch.equal(own, out * (v_total / views))
+            log(f"  cost_volume_cw ({site}): the launch at v_total = "
+                f"{v_total} times {v_total // views} equals the launch at "
+                f"V = {views} bit for bit {exact}")
+            if not exact:
+                raise RuntimeError("cost_volume_cw: v_total is not the "
+                                   "divisor")
     return rows
 
 
@@ -2010,32 +2066,106 @@ def magnet_step_grads(model, batch: dict, args, dtype, encodings=None):
     return float(loss.detach()), grads
 
 
+def mask_head_reference(model, coarse: list, x_d3: torch.Tensor,
+                        batch: dict, args) -> tuple:
+    """The loss and mask-head gradients of an f32 step (train mode, no
+    update) whose upsampling takes another step's coarse (mu, sigma) maps
+    ``coarse`` as they are: the f32 mask head on ``x_d3``,
+    ``upsample_via_mask`` and the stage-3 loss. Also each gradient's
+    cancellation: the largest sum of the |terms| of its sums over the
+    pixels, over max|g| (a rounding of every term by a relative u moves a
+    gradient by at most u times that, in max|g|)."""
+    model.zero_grad(set_to_none=True)
+    model.train()
+    y, convs = nchw(x_d3), []
+    for i, m in enumerate(model.mask_head):
+        if isinstance(m, torch.nn.Conv2d):
+            x, y = y.detach(), conv2d(y, m)
+            y.retain_grad()
+            convs.append((f"mask_head.{i}", m, x, y))
+        else:
+            y = m(y)
+    preds = upsample_via_mask([c.float() for c in coarse], nhwc(y),
+                              model.downsample_ratio)
+    loss = steps.magnet_preds_loss(preds, batch["depth"], args.loss_gamma,
+                                   args.max_depth, args.min_depth)
+    loss.backward()
+    grads = mask_head_grads(model)
+    cancel = {}
+    with torch.no_grad():
+        for name, m, x, z in convs:
+            dz = z.grad.abs()
+            terms = {"weight": torch.nn.grad.conv2d_weight(
+                         x.abs(), m.weight.shape, dz, m.stride, m.padding),
+                     "bias": dz.sum((0, 2, 3))}
+            for k, t in terms.items():
+                g = grads[f"{name}.{k}"]
+                cancel[f"{name}.{k}"] = (t.max() / g.abs().max()).item()
+    return float(loss.detach()), grads, cancel
+
+
+def mask_head_grads(model) -> dict:
+    grads = {k: p.grad.detach().clone()
+             for k, p in model.named_parameters()
+             if k.startswith("mask_head.") and p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def only(res: tuple, prefix: str) -> tuple:
+    """A step's (loss, gradients) with the gradients of ``prefix``'s
+    tensors alone."""
+    return res[0], {k: v for k, v in res[1].items() if k.startswith(prefix)}
+
+
 def grad_errors(res: tuple, ref: tuple) -> dict:
     (loss, grads), (loss_ref, grads_ref) = res, ref
-    if grads.keys() != grads_ref.keys():
+    if not grads or grads.keys() != grads_ref.keys():
         raise RuntimeError("the steps differ in what they train")
     g = [(grads[k] - v).abs().max().item() / v.abs().max().item()
          for k, v in grads_ref.items()]
+    worst = list(grads_ref)[int(np.argmax(g))]
     return dict(loss=abs(loss - loss_ref) / abs(loss_ref), grad=max(g),
-                grad_median=float(np.median(g)))
+                grad_median=float(np.median(g)), worst=worst,
+                worst_max=grads_ref[worst].abs().max().item())
 
 
-def check_magnet_train_step(args) -> dict:
+def check_magnet_train_step(args, gate: bool = True) -> dict:
     """One stage-3 step (loss and gradients, no update) from the phase's
     loaded model (G-Net's last conv scaled by 0.05: residuals of O(1), as a
     trained G-Net gives) on its first batch, against the same step with f32
     weights and the plain encode (D-Net and F-Net on the CPU, the fuse on
     the card): the f32 step with the encode's kernels to
-    MAGNET_TRAIN_F32_TOL, the bf16 step to MAGNET_TRAIN_BF16_TOL; on the
-    way the f32 encode of the B (V + 1) frames against the plain one and
-    row 4 at batch B against its plain version."""
+    MAGNET_TRAIN_F32_TOL; the bf16 step's loss and G-Net gradients to
+    MAGNET_TRAIN_BF16_TOL, its mask-head gradients to MASK_HEAD_BF16_TOL
+    against ``mask_head_reference`` on its own decoder feature and coarse
+    maps (taken by forward hooks on ``d_net`` and ``g_net``; the reading
+    against the f32 step's printed beside); on the way the f32
+    encode of the B (V + 1) frames against the plain one and row 4 at batch
+    B against its plain version. Without ``gate`` the readings come back
+    with the names of the steps out of their limits under ``failed``."""
     model = build_magnet_train(args, "cuda")
     with torch.no_grad():
         model.g_net.gnet[6].weight.mul_(0.05)
     raw = base.collate([SyntheticMultiView(args).get(i)
                         for i in range(MAGNET_TRAIN_B)])
     batch = train_magnet.batch_to_device(raw, "cuda")
-    bf16 = magnet_step_grads(model, batch, args, torch.bfloat16)
+    # the bf16 step's coarse maps (G-Net's outputs) and the reference
+    # frames' decoder feature (the mask head's input)
+    coarse, feat = [], []
+    hooks = [model.g_net.register_forward_hook(
+                 lambda m, inputs, out: coarse.append(out.detach())),
+             model.d_net.register_forward_hook(
+                 lambda m, inputs, out: feat.append(
+                     out[1][:MAGNET_TRAIN_B].detach()))]
+    try:
+        bf16 = magnet_step_grads(model, batch, args, torch.bfloat16)
+    finally:
+        for h in hooks:
+            h.remove()
+    if len(coarse) != ITERS or len(feat) != 1:
+        raise RuntimeError(f"the bf16 step's G-Net gave {len(coarse)} maps, "
+                           f"its D-Net {len(feat)} features")
     f32 = magnet_step_grads(model, batch, args, torch.float32)
     cpu = copy.deepcopy(model).cpu()
     B, V = MAGNET_TRAIN_B, VIEWS
@@ -2079,20 +2209,52 @@ def check_magnet_train_step(args) -> dict:
     if not ref[0] > 0 or not all(g.abs().max() > 0
                                  for g in ref[1].values()):
         raise RuntimeError("the reference step has no gradient")
-    errs = {"f32": grad_errors(f32, ref), "bf16": grad_errors(bf16, ref)}
-    for name, e in errs.items():
-        tol = MAGNET_TRAIN_F32_TOL if name == "f32" else MAGNET_TRAIN_BF16_TOL
+    *mref, cancel = mask_head_reference(model, coarse, feat[0].float(),
+                                        batch, args)
+    mask = only(bf16, "mask_head.")
+    errs = {"f32": grad_errors(f32, ref),
+            "bf16": grad_errors(only(bf16, "g_net."), only(ref, "g_net.")),
+            "bf16_mask_head": grad_errors(mask, mref),
+            "bf16_mask_head_vs_f32_step": grad_errors(
+                mask, only(ref, "mask_head."))}
+    for name, what, n, tol in (
+            ("f32", "G-Net and mask-head", len(ref[1]), MAGNET_TRAIN_F32_TOL),
+            ("bf16", "G-Net", len(only(ref, "g_net.")[1]),
+             MAGNET_TRAIN_BF16_TOL)):
+        e = errs[name]
         log(f"  {name} step (the encode's kernels) vs the f32 step with the "
             f"plain encode (CPU, {cpu_s:.1f} s): loss {ref[0]:.6f}, rel err "
-            f"{e['loss']:.2e} (limit {tol['loss']}); {len(ref[1])} G-Net and "
-            f"mask-head gradients worst {e['grad']:.2e} (limit "
-            f"{tol['grad']}), median {e['grad_median']:.2e} (limit "
-            f"{tol['grad_median']}) of their tensor's max")
-        if not all(e[k] <= v for k, v in tol.items()):
-            raise RuntimeError(f"the {name} stage-3 step disagrees with the "
-                               "f32 step with the plain encode")
+            f"{e['loss']:.2e} (limit {tol['loss']}); {n} {what} gradients "
+            f"worst {e['grad']:.2e} (limit {tol['grad']}), median "
+            f"{e['grad_median']:.2e} (limit {tol['grad_median']}) of their "
+            f"tensor's max")
+    e = errs["bf16_mask_head"]
+    log(f"  bf16 step's {len(mref[1])} mask-head gradients vs the f32 mask "
+        f"head on its own decoder feature, upsampling its own coarse maps, "
+        f"the f32 loss: worst {e['grad']:.2e} (limit "
+        f"{MASK_HEAD_BF16_TOL['grad']}; {e['worst']}, max|g| "
+        f"{e['worst_max']:.2e}), median {e['grad_median']:.2e} (limit "
+        f"{MASK_HEAD_BF16_TOL['grad_median']}) of their tensor's max")
+    e = errs["bf16_mask_head_vs_f32_step"]
+    log(f"  bf16 step's mask-head gradients vs the f32 step's (not a gate): "
+        f"worst {e['grad']:.2e} ({e['worst']}, max|g| {e['worst_max']:.2e}),"
+        f" median {e['grad_median']:.2e}")
+    c = np.array(list(cancel.values()))
+    log(f"  mask-head gradients' sums of |terms| over max|g| (f32 "
+        f"reference): median {np.median(c):.1f}, largest {c.max():.1f} "
+        f"({max(cancel, key=cancel.get)}); {errs['bf16_mask_head']['worst']}"
+        f" {cancel[errs['bf16_mask_head']['worst']]:.1f}; times bf16's 2^-8:"
+        f" median {np.median(c) / 256:.2e}, largest {c.max() / 256:.2e}")
+    failed = [name for name, tol in (("f32", MAGNET_TRAIN_F32_TOL),
+                                     ("bf16", MAGNET_TRAIN_BF16_TOL),
+                                     ("bf16_mask_head", MASK_HEAD_BF16_TOL))
+              if not all(errs[name][k] <= v for k, v in tol.items())]
+    if gate and failed:
+        raise RuntimeError(f"the {', '.join(failed)} stage-3 step disagrees "
+                           "with its f32 reference")
     return dict(errs, encode_rel_err=max(enc_err), cv_err=cv_err,
-                cv_excluded=excluded, cpu_encode_s=cpu_s)
+                cv_excluded=excluded, cpu_encode_s=cpu_s,
+                mask_head_cancellation=cancel, failed=failed)
 
 
 # ---- phase 14: streaming inference ----------------------------------------
@@ -2771,6 +2933,14 @@ def environ(**kw):
                 os.environ[k] = v
 
 
+def nccl_group_of_one() -> dict:
+    """The environment of a process group of one over NCCL at a free port
+    (``core/distributed.py``)."""
+    return dict(MAGNET_TPU_DIST="1", MAGNET_TPU_NUM_PROCESSES="1",
+                MAGNET_TPU_PROCESS_ID="0",
+                MAGNET_TPU_COORDINATOR=distributed.free_port())
+
+
 def dist_train_argv(exp_dir: str, name: str, steps_: int,
                     extra=()) -> list:
     """train_fnet's flags at the protocol of train_scripts/fnet/scannet.txt
@@ -2817,9 +2987,7 @@ def check_distributed_training(exp_dir: str) -> dict:
     process."""
     one = run_fnet(dist_train_argv(exp_dir, "fnet_w0", DIST_STEPS))
     again = run_fnet(dist_train_argv(exp_dir, "fnet_w0b", DIST_STEPS))
-    coordinator = dict(MAGNET_TPU_DIST="1", MAGNET_TPU_NUM_PROCESSES="1",
-                       MAGNET_TPU_PROCESS_ID="0",
-                       MAGNET_TPU_COORDINATOR=distributed.free_port())
+    coordinator = nccl_group_of_one()
     with environ(**coordinator):
         nccl = run_fnet(dist_train_argv(exp_dir, "fnet_w1", DIST_STEPS))
     if torch.distributed.is_initialized():
@@ -3135,6 +3303,151 @@ def check_multistream(model, inputs16) -> dict:
                 host_ms=host)
 
 
+# ---- phase 22: view-sharded single-stream inference ------------------------
+
+def check_view_sharded(model, inputs16, inputs32, exp_dir: str) -> dict:
+    """``core/sharding_inference.py`` at the ScanNet eval shape from
+    ``main_path_model``'s weights, in bf16 and in f32 (the same model with
+    its convs cast back to f32): (a) W = 1 over NCCL in this process, its
+    map equal to the monolithic forward's bit for bit; (b) W = 2 over gloo,
+    both ranks on this card (``dryrun.view_sharded_worker``): the ranks'
+    maps equal bit for bit, the f32 map within phase 7's gate of the
+    monolithic forward, the bf16 one within STREAM_TOL of its largest
+    |map| (each rank encodes 1 + V / 2 = 3 frames, which may take other
+    plans than 5, as phase 14 found); ms a frame by CUDA events on each
+    rank, beside the ms of one all-reduce of the cost volume."""
+    model32 = cast_for_inference(copy.deepcopy(model), torch.float32)
+    cases = {"bfloat16": (model, inputs16), "float32": (model32, inputs32)}
+    with torch.inference_mode():
+        mono = {k: m(*x)[-1] for k, (m, x) in cases.items()}
+        mono_ms = cuda_ms(lambda: model(*inputs16)[-1], iters=SHARD_FRAMES)
+    w1 = {}
+    with environ(**nccl_group_of_one()), distributed.session("cuda"):
+        if torch.distributed.get_backend() != "nccl":
+            raise RuntimeError("the group is not NCCL's")
+        mesh = view_mesh(1)
+        for k, (m, x) in cases.items():
+            run = shard_magnet_inference(m, mesh, ITERS)
+            w1[k] = dict(exact=torch.equal(run(*x), mono[k]))
+            if k == "bfloat16":
+                w1[k]["frame_ms"] = cuda_ms(lambda: run(*x),
+                                            iters=SHARD_FRAMES)
+    if torch.distributed.is_initialized():
+        raise RuntimeError("the W = 1 run left its process group")
+    log(f"  W = 1 over NCCL: equal to the monolithic forward bit for bit: "
+        f"bf16 {w1['bfloat16']['exact']}, f32 {w1['float32']['exact']}; "
+        f"{w1['bfloat16']['frame_ms']:.3f} ms a frame by events (monolithic "
+        f"{mono_ms:.3f})")
+    if not all(v["exact"] for v in w1.values()):
+        raise RuntimeError("the W = 1 view-sharded forward is not the "
+                           "monolithic one")
+
+    # the flags of ``magnet_args`` (the parser's defaults are the ScanNet
+    # eval configuration), from which each rank builds its model
+    argv = ["--exp_name", "chip_smoke_magnet", "--exp_dir", exp_dir,
+            "--DNET_ckpt", "", "--FNET_ckpt", "", "--MAGNET_ckpt", "",
+            "--dataset_name", "synthetic", "--dataset_path", "none",
+            "--compute_dtype", "bfloat16", "--device", "cuda"]
+    case = Path(exp_dir) / "view_sharded_case.pt"
+    names = ("ref_img", "src_imgs", "R", "t", "is_valid", "intM", "rays2d")
+    torch.save(dict(
+        argv=argv, state={k: v.cpu() for k, v in
+                               model.state_dict().items()},
+        dtypes=[torch.float32, torch.bfloat16], device="cuda",
+        inputs={k: v.float().cpu().numpy() for k, v in zip(names, inputs32)},
+        n_iters=ITERS, meshes=[2], frames=SHARD_FRAMES), case)
+    out = str(Path(exp_dir) / "view_sharded_rank{rank}.pt")
+    t = time.perf_counter()
+    distributed.spawn(dryrun.view_sharded_worker, 2, (str(case), out),
+                      backend="gloo")
+    spawn_s = time.perf_counter() - t
+    ranks = [torch.load(out.format(rank=r), weights_only=False)
+             for r in range(2)]
+    res = dict(w1=w1, monolithic_ms=mono_ms, spawn_s=spawn_s)
+    for k in cases:
+        r0, r1 = ranks[0][k, 2], ranks[1][k, 2]
+        same = torch.equal(r0["pred"], r1["pred"])
+        ref = mono[k].float().cpu()
+        if k == "float32":
+            err = compare_f32_maps([r0["pred"]], [ref],
+                                   "W = 2 f32 vs the monolithic forward")
+            ok = True
+        else:
+            e = (r0["pred"] - ref).abs().max().item()
+            lim = STREAM_TOL * ref.abs().max().item()
+            err, ok = dict(err=e, limit=lim), e <= lim
+        share = [ITERS * r[k, 2]["all_reduce_ms"] / r[k, 2]["frame_ms"]
+                 for r in ranks]
+        limit = "" if k == "float32" else f" (limit {err['limit']:.3e})"
+        log(f"  W = 2 over gloo on one card, {k}: ranks equal bit for bit "
+            f"{same}; max_abs_err against the monolithic forward "
+            f"{err['err']:.3e}{limit}; ms a frame by events "
+            f"{[round(r[k, 2]['frame_ms'], 3) for r in ranks]}, one "
+            f"all-reduce {[round(r[k, 2]['all_reduce_ms'], 3) for r in ranks]}"
+            f" ms, {ITERS} a frame: {[round(100 * x, 2) for x in share]} % "
+            f"of the frame ({spawn_s:.1f} s with the processes' start)")
+        if not (same and ok and torch.isfinite(r0["pred"]).all()):
+            raise RuntimeError(f"the W = 2 view-sharded forward ({k}) "
+                               "disagrees")
+        res[k] = dict(err, ranks_equal=same,
+                      frame_ms=[r[k, 2]["frame_ms"] for r in ranks],
+                      all_reduce_ms=[r[k, 2]["all_reduce_ms"]
+                                     for r in ranks], all_reduce_share=share)
+    return res
+
+
+# ---- phase 23: training dumps ----------------------------------------------
+
+def check_dumps(model, inputs16, exp_dir: str) -> dict:
+    """``utils/visualize.py``'s three dumps from maps the card computed at
+    the ScanNet eval shape (the main-path model in bf16): MaGNet's 3
+    iterations; the D-Net's (mu, var) as the last iteration's (mu,
+    sigma^2); the F-Net's depth as the encode's coarse mu of the reference
+    frame at 120x160. Each file exists and decodes as a 640x480 JPEG; host
+    ms a dump, the copies from the card included."""
+    from PIL import Image
+    args = magnet_args("cuda", "bfloat16", 1, exp_dir)
+    depth = SyntheticMultiView(args).get(0)["depth"][None]
+    vis_dir = Path(exp_dir) / "vis"
+    vis_dir.mkdir(exist_ok=True)
+    dump_args = argparse.Namespace(dataset_name="scannet", min_depth=1e-3,
+                                   max_depth=10.0, exp_vis_dir=str(vis_dir))
+    with torch.inference_mode():
+        preds = model(*inputs16)
+        coarse = model.encode(inputs16[0])[0]
+    dnet = torch.stack([preds[-1][..., 0], preds[-1][..., 1] ** 2], -1)
+    img = inputs16[0]
+    out = {}
+    for name, call, n in (
+            ("magnet", lambda i: visualize.visualize_magnet(
+                dump_args, img, depth, preds, i), 2 + 3 * ITERS),
+            ("dnet", lambda i: visualize.visualize_dnet(
+                dump_args, img, depth, dnet, i), 5),
+            ("fnet", lambda i: visualize.visualize_fnet(
+                dump_args, img, depth, coarse[..., 0], i), 4)):
+        torch.cuda.synchronize()
+        ms = []
+        for i in range(3):
+            t = time.perf_counter()
+            call(i)
+            ms.append(1e3 * (time.perf_counter() - t))
+            files = sorted(vis_dir.glob(f"{i:08d}_*.jpg"))
+            for f in files:
+                with Image.open(f) as im:
+                    im.load()
+                    if im.size != (W, H) or im.format != "JPEG":
+                        raise RuntimeError(f"{f.name}: {im.format} "
+                                           f"{im.size}")
+                f.unlink()
+            if len(files) != n:
+                raise RuntimeError(f"visualize_{name} wrote {len(files)} "
+                                   f"files, want {n}")
+        out[name] = dict(files=n, host_ms=float(np.median(ms)))
+        log(f"  visualize_{name}: {n} files of {W}x{H}, "
+            f"{out[name]['host_ms']:.1f} ms a dump on the host (median of 3)")
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default="", help="also write the results here")
@@ -3302,6 +3615,11 @@ def main() -> int:
     log(f"[21] one stream per card: make_multistream_forward over "
         f"{torch.cuda.device_count()} card(s)")
     multistream = check_multistream(model, inputs16)
+    log(f"[22] view-sharded inference at {H}x{W}, {VIEWS} source views: "
+        f"W = 1 over NCCL, W = 2 over gloo on this card, bf16 and f32")
+    view_sharded = check_view_sharded(model, inputs16, inputs32, exp_dir)
+    log("[23] training dumps (utils/visualize.py) of maps the card computed")
+    dumps = check_dumps(model, inputs16, exp_dir)
     del model
 
     runs = {"magnet": (magnet_path, MAGNET_FRAMES),
@@ -3447,7 +3765,8 @@ def main() -> int:
                            opcheck=opcheck, operator_cost=op_cost,
                            distributed_training=dist_train,
                            profile_dir=profile_dir, export=export,
-                           multistream=multistream),
+                           multistream=multistream,
+                           view_sharded=view_sharded, dumps=dumps),
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -176,8 +176,8 @@ def _add_train_flags(p: argparse.ArgumentParser, default_batch: int) -> None:
     p.add_argument("--batch_size", default=default_batch, type=int)
     p.add_argument("--validate_every", default=5000, type=int)
     p.add_argument("--visualize_every", default=1000, type=int,
-                   help="accepted; the port does not visualise (no "
-                        "matplotlib on the card's machine)")
+                   help="rank 0 writes image dumps under exp/<name>/vis "
+                        "every this many samples (utils/visualize.py)")
     p.add_argument("--workers", default=4, type=int,
                    help="threads that load the training batches ahead of "
                         "the step (evaluation loads on one)")

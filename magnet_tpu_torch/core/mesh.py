@@ -76,12 +76,13 @@ def rank_rows(t: torch.Tensor) -> torch.Tensor:
     return t[rank * n:(rank + 1) * n]
 
 
-def replicate(module: torch.nn.Module) -> torch.nn.Module:
-    """Rank 0's parameters and buffers on every rank."""
+def replicate(module: torch.nn.Module, group=None) -> torch.nn.Module:
+    """Rank 0's parameters and buffers on every rank (of ``group``, a group
+    that holds rank 0; default the whole world)."""
     if dist.is_available() and dist.is_initialized():
         with torch.no_grad():
             for t in list(module.parameters()) + list(module.buffers()):
-                dist.broadcast(t.data, 0)
+                dist.broadcast(t.data, 0, group=group)
     return module
 
 

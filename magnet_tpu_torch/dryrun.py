@@ -22,9 +22,10 @@ the check's control, must fail it).
 
 The module's other workers run the port's own steps and entry points under
 such a group, for the tests and ``chip_smoke.py``: ``fnet_step_worker``
-(one stage-2 step from a saved case, its outputs saved) and
-``entry_worker`` (a training entry point's ``train``). They are module
-functions so that ``spawn`` can import them.
+(one stage-2 step from a saved case, its outputs saved), ``entry_worker``
+(a training entry point's ``train``) and ``view_sharded_worker`` (the
+view-sharded forward of ``core/sharding_inference.py`` from a saved case).
+They are module functions so that ``spawn`` can import them.
 
     python -m magnet_tpu_torch.dryrun [n] [--device cpu|cuda]
 """
@@ -207,6 +208,80 @@ def entry_worker(rank: int, world: int, entry: str, argv: list,
         state={k: v.detach().cpu()
                for k, v in res["state"].model.state_dict().items()}),
         out_path.format(rank=rank))
+
+
+def view_sharded_worker(rank: int, world: int, case_path: str,
+                        out_path: str) -> None:
+    """The view-sharded forward (``core/sharding_inference.py``) under the
+    group, from the case that ``case_path`` holds (``torch.save`` of a
+    dict: ``argv`` the ``test_magnet`` flags that build the model,
+    ``state`` its state dict, ``dtypes`` the compute dtypes to run in turn,
+    ``device``, ``inputs`` the numpy arguments of ``Magnet.forward`` by
+    name, ``n_iters``, ``meshes`` the mesh sizes to run, ``frames`` the
+    forwards to time on a card, 0 for none). Every rank builds the model;
+    only rank 0 loads ``state``, the others start from another seed, so
+    that only the replication makes them agree. TF32 is off. Saves, by
+    (dtype, mesh size) for each mesh that holds this rank, the (B, H, W, 2)
+    map in f32 and on a card the ms a frame by CUDA events and the ms of
+    one all-reduce of the cost volume, to ``out_path`` with ``{rank}``
+    filled in."""
+    from magnet_tpu_torch.core import config
+    from magnet_tpu_torch.core.sharding_inference import (
+        shard_magnet_inference, view_mesh)
+    from magnet_tpu_torch.models.build import (build_magnet,
+                                               cast_for_inference,
+                                               init_weights_)
+    c = torch.load(case_path, weights_only=False)
+    dev = _process_device(c["device"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = config.parse_args(config.build_test_magnet_parser(), c["argv"])
+    model = build_magnet(args, "cpu")
+    if rank == 0:
+        model.load_state_dict(c["state"], strict=False)
+    else:
+        init_weights_(model, 1000 + rank)
+    model = model.to(dev)
+    x = _tensors(c["inputs"], dev)
+    meshes = {n: view_mesh(n) for n in c["meshes"]}
+    out = {}
+    for dtype in c["dtypes"]:
+        model = cast_for_inference(model, dtype)
+        inputs = [x[k] for k in ("ref_img", "src_imgs", "R", "t",
+                                 "is_valid", "intM", "rays2d")]
+        inputs[:2] = [a.to(dtype) for a in inputs[:2]]
+        for n, mesh in meshes.items():
+            if mesh.rank < 0:
+                continue
+            run = shard_magnet_inference(model, mesh, c["n_iters"])
+            res = dict(pred=run(*inputs).float().cpu())
+            if c.get("frames") and dev.type == "cuda":
+                res.update(_sharded_ms(run, inputs, mesh, c["frames"],
+                                       model.k_list.numel()))
+            out[str(dtype).split(".")[-1], n] = res
+    torch.save(out, out_path.format(rank=rank))
+
+
+def _sharded_ms(run, inputs, mesh, frames: int, D: int) -> dict:
+    """ms a frame of ``run`` by CUDA events over ``frames`` forwards, and
+    ms of one all-reduce of the (B, h, w, D) f32 cost volume by events over
+    as many (the ranks meet at a barrier before each)."""
+    rays = inputs[-1]
+    cv = torch.zeros(rays.shape[0], rays.shape[-1], D, device=rays.device)
+    out = {}
+    for name, fn in (("frame_ms", lambda: run(*inputs)),
+                     ("all_reduce_ms", lambda: mesh.sum(cv))):
+        fn()
+        dist.barrier(group=mesh.group)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(frames):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        out[name] = ev[0].elapsed_time(ev[1]) / frames
+    return out
 
 
 def main(argv=None) -> int:

@@ -36,8 +36,8 @@ _SIGNATURES = {
     # relu_mask, stream
     "mt_head_chain": [_I] + [_P] * 10 + [_I] * 7 + [_P],
     # dtype, d, ref, src, ms, R, t, valid, K, rays, out, B, V, H, W, C, D,
-    # kappa, stream
-    "mt_cost_volume_cw": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
+    # v_total, kappa, stream
+    "mt_cost_volume_cw": [_I] + [_P] * 10 + [_I] * 7 + [_F, _P],
     # dtype, cv, feat, prev, w0..w3, b1..b3, out, B, H, W, D, stream
     "mt_gnet_update": [_I] + [_P] * 11 + [_I] * 4 + [_P],
     # dtype, n, depth0..3, mask, out0..3, B, H, W, C, k, stream

@@ -8,7 +8,11 @@ the view in f32, the view's feature, mu and sigma maps are sampled
 bilinearly (zeros outside), the sampled feature is dotted with the
 reference feature, the cost is zeroed where ``|z - mu_w| >= kappa *
 sigma_w`` and weighted by the view's validity; the views are summed and
-divided by their number.
+divided by ``v_total``: their number by default, the global view count
+where each device holds a share of a frame's views and the partial cost
+volumes are summed over the devices (``core/sharding_inference.py``; the
+JAX package's psum over its view axis divides by the global count without
+saying so).
 
 The CUDA kernel (``csrc/cost_volume_cw.cu``) gives a block an 8 x 8 tile of
 reference pixels and all their candidates, and cuts each view's candidates
@@ -82,11 +86,13 @@ def cost_volume_cw_ref(d_volume: torch.Tensor, ref_feat: torch.Tensor,
                        src_sigma: torch.Tensor, R: torch.Tensor,
                        t: torch.Tensor, is_valid: torch.Tensor,
                        intM: torch.Tensor, rays2d: torch.Tensor,
-                       kappa: float, return_margin: bool = False):
+                       kappa: float, return_margin: bool = False,
+                       v_total: int = None):
     """Plain version. d_volume: (B, H, W, D); ref_feat: (B, H, W, C);
     src_feat: (B, V, H, W, C); src_mu, src_sigma: (B, V, H, W); R:
     (B, V, 3, 3); t: (B, V, 3); is_valid: (B, V); intM: (B, 3, 3); rays2d:
-    (B, 3, H*W). Returns (B, H, W, D) f32; with ``return_margin`` also the
+    (B, 3, H*W); ``v_total``, the divisor of the sum over the views
+    (default V). Returns (B, H, W, D) f32; with ``return_margin`` also the
     (B, H, W, D) margin described in the module note.
 
     Features match in their own type (f32 accumulation); mu and sigma round
@@ -114,10 +120,19 @@ def cost_volume_cw_ref(d_volume: torch.Tensor, ref_feat: torch.Tensor,
             cost[b] += dot * (gap < 0) * is_valid[b, v].to(f32)
             if return_margin and bool(is_valid[b, v] != 0):
                 margin[b] = torch.minimum(margin[b], gap.abs())
-    cost = (cost / float(V)).reshape(B, H, W, D)
+    cost = (cost / float(_divisor(v_total, V))).reshape(B, H, W, D)
     if return_margin:
         return cost, margin.reshape(B, H, W, D)
     return cost
+
+
+def _divisor(v_total, V: int) -> int:
+    """``v_total``, V where it is None; raises below 1."""
+    v_total = V if v_total is None else int(v_total)
+    if v_total < 1:
+        raise ValueError(f"cost_volume_cw: v_total={v_total} must be at "
+                         "least 1")
+    return v_total
 
 
 def compare(out: torch.Tensor, ref: torch.Tensor, margin: torch.Tensor,
@@ -298,19 +313,21 @@ def cost_volume_cw(d_volume: torch.Tensor, ref_feat: torch.Tensor,
                    src_sigma: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
                    is_valid: torch.Tensor, intM: torch.Tensor,
                    rays2d: torch.Tensor, kappa: float,
-                   ops: torch.Tensor = None) -> torch.Tensor:
+                   ops: torch.Tensor = None,
+                   v_total: int = None) -> torch.Tensor:
     """The cost volume with the arguments of ``cost_volume_cw_ref``. CPU
     tensors take the plain version; CUDA tensors launch the kernel on the
     current stream: features f32 or bf16, C a multiple of 16 bytes and at
     most 128, D at most 256 (and V x D within the block's shared memory,
     else the launch raises). The geometry and the depths are passed in f32;
     ``ops``, the (mu, sigma) pairs of ``cv_operands``, is made here when it
-    is not given. The launch goes through the operator
+    is not given. ``v_total`` divides the sum over the views (default V;
+    the one launch divides by it). The launch goes through the operator
     ``kernels.ops.cost_volume_cw``."""
     if d_volume.device.type == "cpu":
         return cost_volume_cw_ref(d_volume, ref_feat, src_feat, src_mu,
                                   src_sigma, R, t, is_valid, intM, rays2d,
-                                  kappa)
+                                  kappa, v_total=v_total)
     if d_volume.device.type != "cuda":
         raise ValueError(f"cost_volume_cw: unsupported device "
                          f"{d_volume.device}")
@@ -343,7 +360,7 @@ def cost_volume_cw(d_volume: torch.Tensor, ref_feat: torch.Tensor,
     K = _need(intM, "intM", (B, 3, 3), f32, dev)
     rays = _need(rays2d, "rays2d", (B, 3, H * W), f32, dev)
     return OPS.cost_volume_cw(d, ref, src, ms, Rc, tc, valid, K, rays,
-                              float(kappa))
+                              float(kappa), _divisor(v_total, V))
 
 
 cost_volume_cw.launches = 0

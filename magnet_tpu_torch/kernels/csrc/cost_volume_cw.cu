@@ -13,7 +13,9 @@
 // maps bilinearly (zeros outside the map), take the dot product of the
 // sampled feature with the reference feature, zero it where
 // |z - mu_w| >= kappa * sigma_w, weight it by the view's validity flag; sum
-// over the views and divide by their number.
+// over the views and divide by v_total: their number, or the global view
+// count where each device holds a share of the views and the partial sums
+// are added over the devices (core/sharding_inference.py).
 //
 // Bound on an H100: the compulsory bytes (source maps, reference feature,
 // depths, output: about 12 MB a launch at the ScanNet eval shape in bf16)
@@ -84,6 +86,8 @@ struct CvArgs {
   const float* rays;   // (B, 3, H*W)
   float* out;          // (B, H, W, D)
   int B, V, H, W, C, D;
+  int v_total;         // the divisor of the sum over views: V, or the global
+                       // view count when the views are split over devices
   float kappa;
   int tiles_x;
   int swz;             // XOR of the chunk index on odd pixels (bank spread)
@@ -513,7 +517,7 @@ __global__ void __launch_bounds__(CV_THREADS, NCH <= 2 ? 3 : 2) cost_volume_cw_k
     const int p = i / a.D, d = i - p * a.D;
     const int y = ty0 + p / CV_TILE_W, x = tx0 + p % CV_TILE_W;
     if (y < a.H && x < a.W)
-      a.out[((size_t)b * hw + y * a.W + x) * a.D + d] = acc[d * (CV_TP + 1) + p] / (float)a.V;
+      a.out[((size_t)b * hw + y * a.W + x) * a.D + d] = acc[d * (CV_TP + 1) + p] / (float)a.v_total;
   }
 }
 
@@ -532,16 +536,16 @@ int launch_cv(const CvArgs& a, cudaStream_t s) {
 
 // dtype: 0 f32, 1 bf16 (of ref, src and ms). Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for shapes the kernel does not
-// take (C not a multiple of 16 bytes or over 128, D over 256, shared memory
-// over the block's limit, maps of 32768 pixels a side).
+// take (C not a multiple of 16 bytes or over 128, D over 256, v_total below
+// 1, shared memory over the block's limit, maps of 32768 pixels a side).
 extern "C" int mt_cost_volume_cw(int dtype, const void* d, const void* ref, const void* src,
                                  const void* ms, const void* R, const void* t,
                                  const void* valid, const void* K, const void* rays,
                                  void* out, int B, int V, int H, int W, int C, int D,
-                                 float kappa, void* stream) {
+                                 int v_total, float kappa, void* stream) {
   using namespace mt;
   const int elem = dtype == 1 ? 2 : 4;
-  if (C < 1 || C * elem % 16 || C > CV_MAX_C || D < 1 || D > CV_MAX_D || V < 1 || H > 32767 ||
+  if (C < 1 || C * elem % 16 || C > CV_MAX_C || D < 1 || D > CV_MAX_D || V < 1 || v_total < 1 || H > 32767 ||
       W > 32767 || cv_layout(V, D).total > CV_SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || W == 0) return (int)cudaSuccess;
@@ -550,7 +554,7 @@ extern "C" int mt_cost_volume_cw(int dtype, const void* d, const void* ref, cons
            static_cast<const float*>(R), static_cast<const float*>(t),
            static_cast<const float*>(valid), static_cast<const float*>(K),
            static_cast<const float*>(rays), static_cast<float*>(out),
-           B, V, H, W, C, D, kappa, (W + CV_TILE_W - 1) / CV_TILE_W,
+           B, V, H, W, C, D, v_total, kappa, (W + CV_TILE_W - 1) / CV_TILE_W,
            chunks % (2 * CV_LANES) == 0 ? CV_LANES : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int per_lane = (chunks + CV_LANES - 1) / CV_LANES;   // 16-byte chunks a lane

@@ -54,7 +54,7 @@ SCHEMAS = {
                   "int relu_mask) -> Tensor",
     "cost_volume_cw": "(Tensor d, Tensor ref, Tensor src, Tensor ms, "
                       "Tensor R, Tensor t, Tensor valid, Tensor K, "
-                      "Tensor rays, float kappa) -> Tensor",
+                      "Tensor rays, float kappa, int v_total) -> Tensor",
     "gnet_update": "(Tensor cv, Tensor feat, Tensor prev, Tensor[] ws, "
                    "Tensor[] bs) -> Tensor",
     "upsample_mask": "(Tensor[] maps, Tensor mask, int k) -> Tensor[]",
@@ -251,7 +251,7 @@ def _head_chain_fake(x, ws, bs, c_out, relu_mask):
 # ---- cost_volume_cw ---------------------------------------------------------
 
 @_impl("cost_volume_cw")
-def _cost_volume_cw(d, ref, src, ms, R, t, valid, K, rays, kappa):
+def _cost_volume_cw(d, ref, src, ms, R, t, valid, K, rays, kappa, v_total):
     what = "cost_volume_cw"
     dev, mdt = d.device, src.dtype
     code = _dtype(src, what)
@@ -266,6 +266,8 @@ def _cost_volume_cw(d, ref, src, ms, R, t, valid, K, rays, kappa):
                          f"at most {MAX_C}")
     if D > MAX_D:
         raise ValueError(f"{what}: D={D} is over {MAX_D}")
+    if v_total < 1:
+        raise ValueError(f"{what}: v_total={v_total} must be at least 1")
     for tt, name, shape, dt in (
             (d, "d_volume", (B, H, W, D), F32), (ref, "ref_feat",
                                                  (B, H, W, C), mdt),
@@ -278,13 +280,14 @@ def _cost_volume_cw(d, ref, src, ms, R, t, valid, K, rays, kappa):
     _launch("mt_cost_volume_cw", what, dev, code, d.data_ptr(),
             ref.data_ptr(), src.data_ptr(), ms.data_ptr(), R.data_ptr(),
             t.data_ptr(), valid.data_ptr(), K.data_ptr(), rays.data_ptr(),
-            out.data_ptr(), B, V, H, W, C, D, float(kappa))
+            out.data_ptr(), B, V, H, W, C, D, int(v_total), float(kappa))
     _count("cost_volume_cw")
     return out
 
 
 @_fake("cost_volume_cw")
-def _cost_volume_cw_fake(d, ref, src, ms, R, t, valid, K, rays, kappa):
+def _cost_volume_cw_fake(d, ref, src, ms, R, t, valid, K, rays, kappa,
+                         v_total):
     return d.new_empty(d.shape, dtype=F32)
 
 

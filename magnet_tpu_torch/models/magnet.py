@@ -20,7 +20,10 @@ kernels; G-Net and the mask head then run plain convs with autograd, the
 cost volume (row 4's kernel) sees the previous prediction detached, and the
 upsampling's backward is ``kernels.upsample_mask``'s kernel. The streaming
 path (``eval/streaming.py``) calls ``encode`` once a frame and ``fuse`` once
-a window.
+a window. View-sharded inference (``core/sharding_inference.py``) gives each
+device a share of the source views: with ``fuse``'s ``view_mesh`` each
+device's partial cost volume is divided by the global view count and summed
+over the devices.
 
 Parameter names give the reference checkpoint layout: ``d_net.d_net.*``,
 ``f_net.f_net.*``, ``g_net.gnet.{0,2,4,6}``, ``mask_head.{0,2,4,6}``.
@@ -131,11 +134,21 @@ class Magnet(nn.Module):
              src_feat: torch.Tensor, src_R: torch.Tensor,
              src_t: torch.Tensor, is_valid: torch.Tensor,
              intM: torch.Tensor, rays2d: torch.Tensor,
-             n_iters: Optional[int] = None) -> List[torch.Tensor]:
+             n_iters: Optional[int] = None,
+             view_mesh=None) -> List[torch.Tensor]:
         """ref_gauss: (B, h, w, 2); x_d3: (B, h, w, 256); ref_feat:
         (B, h, w, F); src_gauss: (B, V, h, w, 2); src_feat: (B, V, h, w, F).
-        Returns the n_iters upsampled (B, H, W, 2) (mu, sigma) maps."""
+        Returns the n_iters upsampled (B, H, W, 2) (mu, sigma) maps.
+
+        With a ``view_mesh`` (``core.sharding_inference.ViewMesh``) the V
+        views are this device's share of V times the mesh's size: each
+        iteration's (B, h, w, D) f32 cost volume is this share's sum divided
+        by that global count, summed over the mesh (``view_mesh.sum``)
+        before G-Net runs; G-Net, the mask head and the upsampling then run
+        alike on every device."""
         n_iters = self.n_iters if n_iters is None else n_iters
+        v_total = (None if view_mesh is None
+                   else src_feat.shape[1] * view_mesh.size)
         src_mu = src_gauss[..., 0].float()
         src_sigma = src_gauss[..., 1].float()
         # the cost volume's (mu, sigma) pairs do not change either
@@ -150,7 +163,9 @@ class Magnet(nn.Module):
                         + prev[..., 1:2].float() * self.k_list)
             cv = cvk.cost_volume_cw(d_volume, ref_feat, src_feat, src_mu,
                                     src_sigma, src_R, src_t, is_valid, intM,
-                                    rays2d, self.kappa, ops)
+                                    rays2d, self.kappa, ops, v_total)
+            if view_mesh is not None:
+                cv = view_mesh.sum(cv)
             preds.append(self.g_net(cv, feat_contrib, prev))
         mask = run_head(self.mask_head, x_d3)
         return upsample_via_mask(preds[1:], mask, self.downsample_ratio)
@@ -158,11 +173,12 @@ class Magnet(nn.Module):
     def forward(self, ref_img: torch.Tensor, src_imgs: torch.Tensor,
                 src_R: torch.Tensor, src_t: torch.Tensor,
                 is_valid: torch.Tensor, intM: torch.Tensor,
-                rays2d: torch.Tensor, n_iters: Optional[int] = None
-                ) -> List[torch.Tensor]:
+                rays2d: torch.Tensor, n_iters: Optional[int] = None,
+                view_mesh=None) -> List[torch.Tensor]:
         """ref_img: (B, H, W, 3); src_imgs: (B, V, H, W, 3); src_R:
         (B, V, 3, 3); src_t: (B, V, 3); is_valid: (B, V); intM: (B, 3, 3);
-        rays2d: (B, 3, h*w) at cost-volume resolution."""
+        rays2d: (B, 3, h*w) at cost-volume resolution. ``view_mesh`` as in
+        ``fuse``."""
         B, V, H, W = src_imgs.shape[:4]
         imgs = torch.cat([ref_img, src_imgs.reshape(B * V, H, W, 3)], 0)
         gauss, feat_d, feat_m = self.encode(imgs)
@@ -170,7 +186,7 @@ class Magnet(nn.Module):
             gauss[:B], feat_d[:B].contiguous(), feat_m[:B],
             gauss[B:].reshape(B, V, *gauss.shape[1:]),
             feat_m[B:].reshape(B, V, *feat_m.shape[1:]),
-            src_R, src_t, is_valid, intM, rays2d, n_iters)
+            src_R, src_t, is_valid, intM, rays2d, n_iters, view_mesh)
 
 
 class MagnetF(nn.Module):

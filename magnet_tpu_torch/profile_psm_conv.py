@@ -79,8 +79,9 @@ process each:
     computes no fine pixel, stores no fine row, or loads neither the mask
     nor the coarse rows;
   * ``parent_cv``, ``parent_up``: the cost volume's (``parent_cv``) or
-    convex upsampling's (``parent_up``, with that commit's ``build.py``)
-    kernel and wrapper taken from the checkout of an earlier commit at
+    convex upsampling's (``parent_up``, with the cost volume's) kernel and
+    wrapper, with that commit's ``build.py`` and ``ops.py`` (so a commit
+    that has ``ops.py``), taken from the checkout of an earlier commit at
     ``--parent`` (default ``build/parent``, e.g. ``mkdir -p build/parent
     && git archive <commit> magnet_tpu_torch | tar -x -C build/parent``),
     called as that commit's code calls them: the cost volume packing its
@@ -134,11 +135,17 @@ SG = "magnet_tpu_torch/kernels/csrc/sweep_grad_src.cu"
 CV = "magnet_tpu_torch/kernels/csrc/cost_volume_cw.cu"
 UP = "magnet_tpu_torch/kernels/csrc/upsample_mask.cu"
 # variant -> the files it takes from the earlier commit at --parent
+# (each takes that commit's ``build.py`` and ``ops.py``: the C signatures
+# and the operators go with the kernels; the cost volume's changed with its
+# ``v_total``, so ``parent_up`` takes that commit's cost volume too)
+_BINDING = ("magnet_tpu_torch/kernels/build.py",
+            "magnet_tpu_torch/kernels/ops.py")
+_PARENT_CV = (CV, "magnet_tpu_torch/kernels/cost_volume_cw.py")
 PARENTS = {
-    "parent_cv": (CV, "magnet_tpu_torch/kernels/cost_volume_cw.py"),
+    "parent_cv": _PARENT_CV + _BINDING,
     "parent_up": ("magnet_tpu_torch/kernels/csrc/upsample_mask.cu",
-                  "magnet_tpu_torch/kernels/upsample_mask.py",
-                  "magnet_tpu_torch/kernels/build.py"),
+                  "magnet_tpu_torch/kernels/upsample_mask.py")
+                 + _PARENT_CV + _BINDING,
 }
 # the kinds of site whose calls differ at the earlier commit
 PARENT_KINDS = ("cv", "up")

@@ -4,16 +4,19 @@
 loss and validation; the loop around their step is the JAX package's: a
 loss line every ``--log_every`` steps, a validation (metrics appended to
 ``exp/<name>/log/eval_acc.txt``) and a checkpoint (``train/checkpoint.py``)
-every ``--validate_every`` samples and at the end. Under a process group
+every ``--validate_every`` samples and at the end, and image dumps
+(``utils/visualize.py``, the entry point's ``visualize``) every
+``--visualize_every`` samples. Under a process group
 (``core/distributed.py``) every rank steps on its share of the batch and
-rank 0 alone logs, validates and saves, the others waiting at a barrier.
+rank 0 alone logs, dumps, validates and saves, the others waiting at a
+barrier.
 ``--profile_dir`` traces a window of steps (``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -41,9 +44,13 @@ def device_of(args) -> torch.device:
 
 
 def run(args, state, step_fn: Callable, loader, to_device: Callable,
-        validate: Callable[[], Dict]) -> Dict:
+        validate: Callable[[], Dict],
+        visualize: Optional[Callable[[Dict, Dict, int], None]] = None
+        ) -> Dict:
     """Train ``state`` over ``--n_epochs`` of ``loader`` (each raw batch
-    through ``to_device``, then ``step_fn``). Returns the final state, the
+    through ``to_device``, then ``step_fn``); after a step where
+    ``total_iter % --visualize_every`` is below the batch size, rank 0
+    calls ``visualize(raw, batch, total_iter)``. Returns the final state, the
     loss and time of every step (host clock with the loss read, and CUDA
     events around the step on a card), the last validation's metrics and
     the last checkpoint's directory (None and "" on ranks other than 0),
@@ -91,6 +98,9 @@ def run(args, state, step_fn: Callable, loader, to_device: Callable,
                 print(f"epoch {epoch + 1}/{args.n_epochs} iter {total_iter} "
                       f"loss {loss:.5f} ({time.time() - t0:.1f}s, "
                       f"{sps:.2f} steps/s)", flush=True)
+            if visualize is not None and lead and \
+                    total_iter % args.visualize_every < args.batch_size:
+                visualize(raw, batch, total_iter)
             if total_iter % args.validate_every < args.batch_size:
                 mts, ckpt = validate_and_save()
     window.close()

@@ -186,15 +186,19 @@ def make_dnet_eval_fn(model: torch.nn.Module):
     return forward
 
 
-def make_magnet_eval_fn(model: torch.nn.Module, n_iters: int):
-    """batch -> the last iteration's (B, H, W, 2) = (mu, sigma), in eval mode
-    without autograd; the model is back in its mode after."""
+def make_magnet_eval_fn(model: torch.nn.Module, n_iters: int,
+                        return_all: bool = False):
+    """batch -> the last iteration's (B, H, W, 2) = (mu, sigma), with
+    ``return_all`` the list of every iteration's (the training dumps show
+    each one), in eval mode without autograd; the model is back in its mode
+    after."""
     @torch.inference_mode()
-    def forward(batch: Batch) -> torch.Tensor:
+    def forward(batch: Batch):
         was = model.training
         try:
-            return model.eval()(*[batch[k] for k in MAGNET_INPUTS],
-                                n_iters=n_iters)[-1]
+            preds = model.eval()(*[batch[k] for k in MAGNET_INPUTS],
+                                 n_iters=n_iters)
+            return preds if return_all else preds[-1]
         finally:
             model.train(was)
     return forward

@@ -11,7 +11,9 @@ with one-cycle schedules, the encoder at a tenth of the learning rate
 ``tf_efficientnet_b5_ap`` ImageNet state dict; ``--DNET_fix_encoder_weights
 AdaBins_fix`` loads the AdaBins encoder (``core/config.py::ADABINS_ENCODER``)
 and freezes it (``compat/encoder.py``). It logs a loss line every
-``--log_every`` steps, validates at the input size into
+``--log_every`` steps, dumps images every ``--visualize_every`` samples
+(``utils/visualize.py``: the eval forward of the batch's first image),
+validates at the input size into
 ``exp/<name>/log/eval_acc.txt`` and writes a checkpoint (model, optimizer,
 schedule, step, generator) under ``exp/<name>/models/`` at each validation and
 at the end, which ``--DNET_ckpt`` of ``test_dnet``, ``test_magnet`` and
@@ -43,6 +45,7 @@ from magnet_tpu_torch.data import (TRAIN_MODES, VAL_MODES,
 from magnet_tpu_torch.eval import harness
 from magnet_tpu_torch.models.build import build_dnet_train
 from magnet_tpu_torch.train import checkpoint, loop, optim, steps
+from magnet_tpu_torch.utils import visualize as vis
 
 
 def batch_to_device(batch: Dict[str, np.ndarray],
@@ -103,11 +106,17 @@ def _train(args) -> Dict:
         x = torch.from_numpy(np.asarray(img, np.float32)).to(device)
         return eval_fn(x).float().cpu().numpy()
 
+    def visualize(raw, batch, total_iter):
+        """The eval forward of the batch's first image (train_DNet.py:118)."""
+        img = batch["img"][:1]
+        vis.visualize_dnet(args, img, batch["depth"][:1], eval_fn(img),
+                           total_iter)
+
     return loop.run(
         args, state, step_fn, train_loader,
         lambda raw: batch_to_device(raw, device),
         lambda: harness.evaluate_dnet(val_forward, val_loader, args,
-                                      progress=False))
+                                      progress=False), visualize)
 
 
 def main(argv=None) -> Dict:

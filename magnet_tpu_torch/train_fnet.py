@@ -5,7 +5,9 @@
 Mirrors ``train_FNet.py``: the PSM-Net matching features are trained through
 the fixed SID plane sweep (``--FNET_num_depth_bins`` planes) with an L1 loss
 on the soft-argmax depth, AdamW with one-cycle schedules. It logs a loss
-line every ``--log_every`` samples, validates into
+line every ``--log_every`` samples, dumps images every ``--visualize_every``
+samples (``utils/visualize.py``: the first sample's soft-argmax depth),
+validates into
 ``exp/<name>/log/eval_acc.txt`` and writes a checkpoint (model, optimizer,
 schedule, step) under ``exp/<name>/models/`` at each validation and at the
 end; ``--resume_ckpt`` continues from one. The step runs on ``--device``
@@ -32,6 +34,7 @@ from magnet_tpu_torch.eval import harness
 from magnet_tpu_torch.models.build import build_magnet_f
 from magnet_tpu_torch.models.magnet import sid_depth_centers
 from magnet_tpu_torch.train import checkpoint, loop, losses, optim, steps
+from magnet_tpu_torch.utils import visualize as vis
 
 GEOMETRY_KEYS = ("R", "t", "is_valid", "intM", "rays2d")
 
@@ -106,12 +109,21 @@ def _train(args) -> Dict:
         d_center, args.max_depth, args.min_depth,
         compute_dtype=config.compute_dtype(args.compute_dtype))
     val_forward = make_val_forward(model, d_center, device)
+
+    def visualize(raw, batch, total_iter):
+        """The soft-argmax depth of the batch's first sample
+        (train_FNet.py:101-108,138)."""
+        pred = val_forward({k: raw[k][:1]
+                            for k in ("ref_img", "src_imgs") + GEOMETRY_KEYS})
+        vis.visualize_fnet(args, raw["ref_img"][:1], raw["depth"][:1], pred,
+                           total_iter)
+
     return loop.run(
         args, state, step_fn, train_loader,
         lambda raw: batch_to_device(raw, (args.dpv_height, args.dpv_width),
                                     device),
         lambda: harness.evaluate_fnet(val_forward, val_loader, args,
-                                      progress=False))
+                                      progress=False), visualize)
 
 
 def main(argv=None) -> Dict:

@@ -11,7 +11,9 @@ gamma-weighted Gaussian NLL (``--loss_fn gaussian``, ``--loss_gamma``) of
 all ``--MAGNET_num_train_iter`` upsampled iterations, AdamW with one-cycle
 schedules. The cost volume runs row 4's kernel on the batch, the
 upsampling's backward its own kernel. It logs a loss line every
-``--log_every`` steps, validates (``eval/harness.evaluate_magnet``, the f32
+``--log_every`` steps, dumps images every ``--visualize_every`` samples
+(``utils/visualize.py``: each of the ``--MAGNET_num_train_iter``
+iterations' maps of the first sample, in eval mode), validates (``eval/harness.evaluate_magnet``, the f32
 weights in eval mode at ``--MAGNET_num_test_iter`` iterations) into
 ``exp/<name>/log/eval_acc.txt`` and writes a checkpoint under
 ``exp/<name>/models/`` at each validation and at the end; ``--resume_ckpt``
@@ -35,6 +37,7 @@ from magnet_tpu_torch.data import (TRAIN_MODES, VAL_MODES,
 from magnet_tpu_torch.eval import harness
 from magnet_tpu_torch.models.build import build_magnet_train
 from magnet_tpu_torch.train import checkpoint, loop, optim, steps
+from magnet_tpu_torch.utils import visualize as vis
 
 
 def batch_to_device(batch: Dict[str, np.ndarray],
@@ -85,14 +88,25 @@ def _train(args) -> Dict:
         compute_dtype=config.compute_dtype(args.compute_dtype))
     eval_fn = steps.make_magnet_eval_fn(model, args.MAGNET_num_test_iter)
 
+    # every one of the training iterations' maps (train_MaGNet.py:91-93)
+    vis_fn = steps.make_magnet_eval_fn(model, args.MAGNET_num_train_iter,
+                                       return_all=True)
+
     def val_forward(raw) -> np.ndarray:
         return eval_fn(batch_to_device(raw, device)).float().cpu().numpy()
+
+    def visualize(raw, batch, total_iter):
+        """The eval forward of the batch's first sample
+        (train_MaGNet.py:121-126)."""
+        preds = vis_fn({k: batch[k][:1] for k in steps.MAGNET_INPUTS})
+        vis.visualize_magnet(args, raw["ref_img"][:1], raw["depth"][:1],
+                             preds, total_iter)
 
     return loop.run(
         args, state, step_fn, train_loader,
         lambda raw: batch_to_device(raw, device),
         lambda: harness.evaluate_magnet(val_forward, val_loader, args,
-                                        progress=False))
+                                        progress=False), visualize)
 
 
 def main(argv=None) -> Dict:

@@ -43,6 +43,9 @@ from test_torch_kernels import (  # noqa: F401 (torch_threads)
     cv_inputs, gnet_inputs, upsample_inputs, torch_threads)
 
 TOL = 1e-4
+# the exact XLA cost volume as one compiled program (run op by op it takes
+# seconds a call)
+_cv_xla = jax.jit(_cost_volume_cw_xla, static_argnums=10)
 
 
 def _close(out, ref):
@@ -72,14 +75,14 @@ def _cv_check(args, jax_ref):
 ], ids=["small_pose", "roll03", "roll06", "roll09", "leaving"])
 def test_cost_volume_matches_jax_xla(case):
     args = cv_inputs(**case)
-    _cv_check(args, _cost_volume_cw_xla(*map(jnp.asarray, args), 5.0))
+    _cv_check(args, _cv_xla(*map(jnp.asarray, args), 5.0))
 
 
 def test_cost_volume_matches_jax_xla_at_the_eval_shape():
     """The ScanNet eval shape: 120x160, 4 source views, 64 features (the
     one full-shape parity that is quick enough here, about 6 s)."""
     args = cv_inputs(B=1, V=4, H=120, W=160, C=64, invalid_last=False)
-    _cv_check(args, _cost_volume_cw_xla(*map(jnp.asarray, args), 5.0))
+    _cv_check(args, _cv_xla(*map(jnp.asarray, args), 5.0))
 
 
 def test_cost_volume_matches_jax_pallas_in_band():
@@ -91,7 +94,7 @@ def test_cost_volume_matches_jax_pallas_in_band():
 def test_cost_volume_all_outside_is_zero():
     args = cv_inputs(shift=100.0)
     out = cvk.cost_volume_cw_ref(*[_t(a) for a in args], 5.0)
-    ref = np.asarray(_cost_volume_cw_xla(*map(jnp.asarray, args), 5.0))
+    ref = np.asarray(_cv_xla(*map(jnp.asarray, args), 5.0))
     assert np.abs(ref).max() < 1e-5 and out.abs().max() < 1e-5
 
 

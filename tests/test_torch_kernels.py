@@ -1044,6 +1044,27 @@ def test_cost_volume_kernel_sweep_forward(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
+@pytest.mark.parametrize("V,v_total", [(2, 4), (1, 3), (3, 3)])
+def test_cost_volume_kernel_v_total(cuda, dtype, V, v_total):
+    """A device's share of a view-sharded frame: the sum over its V views
+    divided by the global ``v_total``, in the one launch, against the plain
+    version with the same divisor; the launch at its own V rescaled."""
+    a = _cv_t(cuda, dtype, B=2, V=V, H=40, W=56, C=64, D=5,
+              invalid_last=False)
+    before = cvk.cost_volume_cw.launches
+    out = cvk.cost_volume_cw(*a, 5.0, v_total=v_total)
+    assert cvk.cost_volume_cw.launches == before + 1
+    torch.cuda.synchronize()
+    ref, margin = cvk.cost_volume_cw_ref(*a, 5.0, return_margin=True,
+                                         v_total=v_total)
+    cvk.compare(out, ref, margin, _TOL[torch.float32])
+    own = cvk.cost_volume_cw(*a, 5.0)
+    torch.testing.assert_close(out * v_total, own * V, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 def test_cost_volume_kernel_calls_are_bit_equal(cuda, dtype):
     a = _cv_t(cuda, dtype, B=2, V=3, H=48, W=64, C=64, D=20, roll=0.9,
               shift=0.3)

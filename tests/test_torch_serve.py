@@ -147,7 +147,7 @@ def _cv_case(g, dt):
     mu, sigma = 2.0 + torch.rand(1, 2, 4, 6), 0.2 + torch.rand(1, 2, 4, 6)
     geo = _geometry(g)
     want = cvk.cost_volume_cw_ref(d, ref, src, mu, sigma, *geo, 5.0)
-    return want, (d, ref, src, cvk.cv_operands(mu, sigma, dt), *geo, 5.0)
+    return want, (d, ref, src, cvk.cv_operands(mu, sigma, dt), *geo, 5.0, 2)
 
 
 def _gnet_case(g, dt):
