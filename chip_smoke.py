@@ -109,12 +109,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      predicted, ms per step by events; then one step's loss and gradients
      against the same step with f32 weights and the plain encode (the D-Net
      and F-Net on the CPU): the f32 step's all of them, the bf16 step's
-     loss and G-Net gradients; the bf16 step's mask-head gradients against
-     an f32 step whose upsampling takes the bf16 step's own coarse maps
-     (the f32 mask head on its decoder feature, the f32 loss; the reading
-     against the f32 step and the mask head's cancellation, the sums of
-     |terms| over max|g|, printed beside); the f32 encode of the 20 frames
-     and row 4 at batch 4 held to their plain versions on the way;
+     loss and G-Net gradients; the bf16 step's mask head in three parts:
+     its mask logits' gradient against the f32 mask head's on the bf16
+     step's decoder feature and coarse maps, each conv's output against
+     its exactly rounded bf16 result on the step's own input, its
+     gradients against the f64 backward through the step's own conv
+     outputs from its own logits' gradient (its gradients against the f32
+     mask head's and the f32 step's printed beside, not gated); the f32
+     encode of the 20 frames and row 4 at batch 4 held to their plain
+     versions on the way;
  14. streaming: test_magnet --cache_features (its streaming forward and
      the harness) at the ScanNet eval shape, bf16, on a 12-frame sliding
      window built here (a reference and its 4 neighbours, one frame a
@@ -243,6 +246,7 @@ from magnet_tpu_torch.kernels import res_block as rbk
 from magnet_tpu_torch.kernels import spp_tail as st
 from magnet_tpu_torch.kernels import sweep_grad_src as sgk
 from magnet_tpu_torch.kernels import upsample_mask as uk
+from magnet_tpu_torch.models import magnet as magnet_module
 from magnet_tpu_torch.models.build import (build_dnet, build_dnet_train,
                                            build_fnet, build_magnet,
                                            build_magnet_f,
@@ -315,13 +319,19 @@ MAGNET_TRAIN_F32_TOL = dict(loss=1e-4, grad=1e-3, grad_median=1e-3)
 # 0.043 worst and 0.015 median of their tensor's max); the loss and G-Net's
 # gradients are held to the f32 step
 MAGNET_TRAIN_BF16_TOL = dict(loss=5e-2, grad=0.3, grad_median=0.05)
-# the bf16 step's mask-head gradients against an f32 step whose upsampling
-# takes the bf16 step's own coarse (mu, sigma) maps (``mask_head_reference``:
-# the f32 mask head on the bf16 step's decoder feature, the f32 loss), worst
-# and median tensor of their tensor's max. On an H100 some states that
-# phases 8 and 12 train read over these limits (ROADMAP, fault 4); the
-# cancellation in the head's sums is printed beside the reading
-MASK_HEAD_BF16_TOL = dict(grad=0.3, grad_median=0.05)
+# the bf16 step's mask head, held in the three parts that the chain rule
+# composes into its gradients: the upstream (its mask logits' gradient
+# against the f32 head's, ``mask_head_reference``, of max|ref|); each
+# conv's output against the exactly rounded bf16 result on the step's own
+# input (of max|ref|, phase 3's bf16 kernel limit); the mask-head gradients
+# against the f64 backward through the step's own conv outputs from its own
+# logits' gradient (worst and median tensor of their tensor's max). The
+# gradients against the f32 head are printed, not gated: they rest on a few
+# hundred fine pixels whose ReLU pattern any bf16 forward decides, and read
+# 0.3 to 0.55 of max|g| in some trained states (ROADMAP, fault 4)
+MASK_HEAD_UPSTREAM_TOL = 3e-2
+MASK_HEAD_FORWARD_TOL = KERNEL_TOL[torch.bfloat16]
+MASK_HEAD_BACKWARD_TOL = dict(grad=0.03, grad_median=0.01)
 # phase 3: row 4 as one rank of a view-sharded frame computes it
 SHARD_SITE = "a rank's 2 of 4 views, v_total 4"
 # phase 22: frames timed
@@ -2066,50 +2076,211 @@ def magnet_step_grads(model, batch: dict, args, dtype, encodings=None):
     return float(loss.detach()), grads
 
 
-def mask_head_reference(model, coarse: list, x_d3: torch.Tensor,
+def capture_bf16_step(model, batch: dict, args) -> dict:
+    """The bf16 step of ``magnet_step_grads`` on ``model`` and ``batch``
+    (its loss and gradients under ``step``) with what its mask head and
+    upsampling saw, taken by forward hooks on ``g_net``, ``d_net`` and the
+    head's ReLUs and by a wrapper of ``Magnet.fuse``'s upsampling: the
+    coarse (mu, sigma) maps, the decoder feature ``x`` (NHWC), each conv's
+    input ``ins`` and output ``outs`` (NCHW; the last output the mask
+    logits), the logits' gradient ``dlogits`` (NHWC) and the upsampled
+    maps' gradients ``upstream``. The hooks and the wrapper change no value
+    of the step."""
+    coarse, feat, logits, fine, ins, outs = [], [], [], [], [], []
+
+    def upsample(maps, mask, k):
+        mask.retain_grad()
+        logits.append(mask)
+        out = upsample_via_mask(maps, mask, k)
+        for p in out:
+            p.retain_grad()
+        fine.extend(out)
+        return out
+
+    def relu(m, inputs, out):
+        outs.append(inputs[0].detach())
+        ins.append(out.detach())
+    hooks = [model.g_net.register_forward_hook(
+                 lambda m, inputs, out: coarse.append(out.detach())),
+             model.d_net.register_forward_hook(
+                 lambda m, inputs, out: feat.append(out[1].detach()))]
+    hooks += [m.register_forward_hook(relu) for m in model.mask_head
+              if isinstance(m, torch.nn.ReLU)]
+    magnet_module.upsample_via_mask = upsample
+    try:
+        step = magnet_step_grads(model, batch, args, torch.bfloat16)
+    finally:
+        magnet_module.upsample_via_mask = upsample_via_mask
+        for h in hooks:
+            h.remove()
+    if len(coarse) != ITERS or len(feat) != 1 or len(logits) != 1:
+        raise RuntimeError(f"the bf16 step's G-Net gave {len(coarse)} maps, "
+                           f"its D-Net {len(feat)} features, its mask head "
+                           f"{len(logits)} masks")
+    x = feat[0][:len(coarse[0])]
+    return dict(step=step, coarse=coarse, x=x, ins=[nchw(x)] + ins,
+                outs=outs + [nchw(logits[0].detach())],
+                dlogits=logits[0].grad.detach(),
+                upstream=[p.grad.detach() for p in fine])
+
+
+def mask_head_reference(head, k: int, coarse: list, x_d3: torch.Tensor,
                         batch: dict, args) -> tuple:
-    """The loss and mask-head gradients of an f32 step (train mode, no
-    update) whose upsampling takes another step's coarse (mu, sigma) maps
-    ``coarse`` as they are: the f32 mask head on ``x_d3``,
-    ``upsample_via_mask`` and the stage-3 loss. Also each gradient's
-    cancellation: the largest sum of the |terms| of its sums over the
-    pixels, over max|g| (a rounding of every term by a relative u moves a
-    gradient by at most u times that, in max|g|)."""
-    model.zero_grad(set_to_none=True)
-    model.train()
-    y, convs = nchw(x_d3), []
-    for i, m in enumerate(model.mask_head):
-        if isinstance(m, torch.nn.Conv2d):
-            x, y = y.detach(), conv2d(y, m)
-            y.retain_grad()
-            convs.append((f"mask_head.{i}", m, x, y))
-        else:
-            y = m(y)
-    preds = upsample_via_mask([c.float() for c in coarse], nhwc(y),
-                              model.downsample_ratio)
+    """The loss, the mask-head gradients and the mask logits' gradient
+    (NHWC) of an f32 step (no update) whose upsampling takes another step's
+    coarse (mu, sigma) maps ``coarse`` as they are: the f32 mask head
+    ``head`` on ``x_d3``, ``upsample_via_mask`` by ``k`` and the stage-3
+    loss."""
+    head.zero_grad(set_to_none=True)
+    y = nchw(x_d3)
+    for m in head:
+        y = conv2d(y, m) if isinstance(m, torch.nn.Conv2d) else m(y)
+    logits = nhwc(y)
+    logits.retain_grad()
+    preds = upsample_via_mask([c.float() for c in coarse], logits, k)
     loss = steps.magnet_preds_loss(preds, batch["depth"], args.loss_gamma,
                                    args.max_depth, args.min_depth)
     loss.backward()
-    grads = mask_head_grads(model)
-    cancel = {}
-    with torch.no_grad():
-        for name, m, x, z in convs:
-            dz = z.grad.abs()
-            terms = {"weight": torch.nn.grad.conv2d_weight(
-                         x.abs(), m.weight.shape, dz, m.stride, m.padding),
-                     "bias": dz.sum((0, 2, 3))}
-            for k, t in terms.items():
-                g = grads[f"{name}.{k}"]
-                cancel[f"{name}.{k}"] = (t.max() / g.abs().max()).item()
-    return float(loss.detach()), grads, cancel
+    grads = {f"mask_head.{n}": p.grad.detach().clone()
+             for n, p in head.named_parameters()}
+    head.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, logits.grad.detach()
 
 
-def mask_head_grads(model) -> dict:
-    grads = {k: p.grad.detach().clone()
-             for k, p in model.named_parameters()
-             if k.startswith("mask_head.") and p.grad is not None}
-    model.zero_grad(set_to_none=True)
-    return grads
+def r16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 in the forward, the identity in the backward."""
+    return t + (t.to(torch.bfloat16).to(t.dtype) - t).detach()
+
+
+def head64(head, x: torch.Tensor, head16: bool, actual=None,
+           outs=None) -> tuple:
+    """The mask head ``head`` in f64 on x (NHWC): its parameters as f64
+    leaves (named as the model's) and the logits (NHWC). With ``head16``
+    each weight, bias and conv output is rounded to bf16 as a bf16 step's
+    convs give them. With ``actual`` (a step's conv outputs, NCHW) those
+    are the forward values, the gradients flowing through the f64 convs.
+    ``outs`` collects the conv outputs."""
+    params, y = {}, nchw(x.double())
+    actual = None if actual is None else list(actual)
+    for i, m in enumerate(head):
+        if isinstance(m, torch.nn.Conv2d):
+            w = m.weight.detach().double().requires_grad_()
+            b = m.bias.detach().double().requires_grad_()
+            params[f"mask_head.{i}.weight"] = w
+            params[f"mask_head.{i}.bias"] = b
+            if head16:
+                w, b = r16(w), r16(b)
+            y = F.conv2d(y, w, b, m.stride, m.padding)
+            if head16:
+                y = r16(y)
+            if actual is not None:
+                y = actual.pop(0).double() + (y - y.detach())
+            if outs is not None:
+                outs.append(y.detach())
+        else:
+            y = m(y)
+    return params, nhwc(y)
+
+
+def conv_exact_bf16(m: torch.nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """The conv ``m`` on x (NCHW, bf16) with m's weight and bias cast to
+    bf16, as a bf16 step casts them: f64 arithmetic (exact up to the sums'
+    f64 rounding), then one rounding to bf16."""
+    w, b = (t.detach().to(torch.bfloat16).double()
+            for t in (m.weight, m.bias))
+    return F.conv2d(x.double(), w, b, m.stride, m.padding).to(torch.bfloat16)
+
+
+def forward_gaps(actual: list, ref: list) -> list:
+    """Each conv output of a bf16 step against a reference (NCHW): the
+    largest difference over max|ref|, the share of elements apart by more
+    than a bf16 step (2^-7 of |ref|), and the elements whose sign differs,
+    all and in the coarse map's outer ring of pixels."""
+    out = []
+    for a, e in zip(actual, ref):
+        a, e = a.double(), e.double()
+        d = (a - e).abs()
+        flip = (a > 0) != (e > 0)
+        ring = torch.ones_like(flip)
+        ring[:, :, 1:-1, 1:-1] = False
+        out.append(dict(rel_max=(d.max() / e.abs().max()).item(),
+                        over_ulp=(d > 2 ** -7 * e.abs()).double()
+                        .mean().item(),
+                        sign_flips=int(flip.sum()),
+                        ring_flips=int((flip & ring).sum())))
+    return out
+
+
+def mask_head_gates(head, k: int, cap: dict, batch: dict, args) -> dict:
+    """The readings of phase 13's gates of a bf16 step's mask head ``head``
+    from ``capture_bf16_step``'s ``cap``. ``upstream``: the mask logits'
+    gradient against the f32 head's (``mask_head_reference`` on the step's
+    decoder feature and coarse maps), the largest and the L2 difference over
+    max|ref| and |ref|. ``forward``: each conv's output against
+    ``conv_exact_bf16`` on the step's own input (``forward_gaps``).
+    ``backward``: the mask-head gradients against the f64 backward through
+    the step's own conv outputs (``head64`` with ``actual``) from the step's
+    own logits' gradient (``grad_errors``). By the chain rule these three
+    make up the gradients. Not gated, ``end_to_end``: the gradients against
+    the f32 head's, with each tensor's relative L2 under ``rel_l2``."""
+    mask = only(cap["step"], "mask_head.")
+    loss, grads, dlogits = mask_head_reference(
+        head, k, cap["coarse"], cap["x"].float(), batch, args)
+    d, r = cap["dlogits"].double(), dlogits.double()
+    upstream = dict(rel_max=((d - r).abs().max() / r.abs().max()).item(),
+                    rel_l2=((d - r).norm() / r.norm()).item())
+    convs = [m for m in head if isinstance(m, torch.nn.Conv2d)]
+    forward = forward_gaps(cap["outs"], [conv_exact_bf16(m, x) for m, x
+                                         in zip(convs, cap["ins"])])
+    params, z = head64(head, cap["x"], True, actual=cap["outs"])
+    z.backward(cap["dlogits"].double())
+    backward = grad_errors(mask, (mask[0], {n: p.grad for n, p in
+                                            params.items()}))
+    end_to_end = dict(grad_errors(mask, (loss, grads)), rel_l2={
+        n: ((mask[1][n] - g).norm() / g.norm()).item()
+        for n, g in grads.items()})
+    return dict(upstream=upstream, forward=forward, backward=backward,
+                end_to_end=end_to_end)
+
+
+def mask_head_failures(r: dict) -> list:
+    """The gates of ``mask_head_gates``' readings ``r`` out of their
+    limits, each with its reading."""
+    u = r["upstream"]["rel_max"]
+    failed = ([] if u <= MASK_HEAD_UPSTREAM_TOL else
+              [f"mask-head upstream {u:.3e} (limit {MASK_HEAD_UPSTREAM_TOL})"])
+    failed += [f"mask-head conv {i} forward {f['rel_max']:.3e} (limit "
+               f"{MASK_HEAD_FORWARD_TOL})" for i, f in enumerate(r["forward"])
+               if not f["rel_max"] <= MASK_HEAD_FORWARD_TOL]
+    failed += [f"mask-head backward {k} {r['backward'][k]:.3e} (limit {v})"
+               for k, v in MASK_HEAD_BACKWARD_TOL.items()
+               if not r["backward"][k] <= v]
+    return failed
+
+
+def log_mask_head(r: dict) -> None:
+    u, b, e = r["upstream"], r["backward"], r["end_to_end"]
+    log(f"  bf16 step's mask-logit gradient vs the f32 mask head's on its own"
+        f" decoder feature and coarse maps: rel max {u['rel_max']:.2e} "
+        f"(limit {MASK_HEAD_UPSTREAM_TOL}), rel L2 {u['rel_l2']:.2e}")
+    log(f"  bf16 step's mask-head convs vs their exactly rounded bf16 results"
+        f" on its own inputs (rel max, limit {MASK_HEAD_FORWARD_TOL}; share "
+        f"over a bf16 step; sign flips, of them in the outer ring): "
+        + "; ".join(f"conv {i} {f['rel_max']:.2e}, {f['over_ulp']:.2e}, "
+                    f"{f['sign_flips']}, {f['ring_flips']}"
+                    for i, f in enumerate(r["forward"])))
+    log(f"  bf16 step's {len(e['rel_l2'])} mask-head gradients vs the f64 "
+        f"backward through its own conv outputs from its own mask-logit "
+        f"gradient: worst {b['grad']:.2e} (limit "
+        f"{MASK_HEAD_BACKWARD_TOL['grad']}; {b['worst']}), median "
+        f"{b['grad_median']:.2e} (limit "
+        f"{MASK_HEAD_BACKWARD_TOL['grad_median']}) of their tensor's max")
+    log(f"  bf16 step's mask-head gradients vs the f32 mask head's (not "
+        f"gated): worst {e['grad']:.2e} ({e['worst']}, max|g| "
+        f"{e['worst_max']:.2e}), median {e['grad_median']:.2e} of their "
+        f"tensor's max; rel L2 " + ", ".join(
+            f"{n[len('mask_head.'):]} {v:.2e}"
+            for n, v in e["rel_l2"].items()))
 
 
 def only(res: tuple, prefix: str) -> tuple:
@@ -2130,42 +2301,29 @@ def grad_errors(res: tuple, ref: tuple) -> dict:
                 worst_max=grads_ref[worst].abs().max().item())
 
 
-def check_magnet_train_step(args, gate: bool = True) -> dict:
+def check_magnet_train_step(args, gate: bool = True,
+                            keep: dict = None) -> dict:
     """One stage-3 step (loss and gradients, no update) from the phase's
     loaded model (G-Net's last conv scaled by 0.05: residuals of O(1), as a
     trained G-Net gives) on its first batch, against the same step with f32
     weights and the plain encode (D-Net and F-Net on the CPU, the fuse on
     the card): the f32 step with the encode's kernels to
     MAGNET_TRAIN_F32_TOL; the bf16 step's loss and G-Net gradients to
-    MAGNET_TRAIN_BF16_TOL, its mask-head gradients to MASK_HEAD_BF16_TOL
-    against ``mask_head_reference`` on its own decoder feature and coarse
-    maps (taken by forward hooks on ``d_net`` and ``g_net``; the reading
-    against the f32 step's printed beside); on the way the f32
+    MAGNET_TRAIN_BF16_TOL, its mask head to ``mask_head_gates``' three
+    limits on what ``capture_bf16_step`` takes of it (the readings against
+    the f32 mask head and the f32 step printed beside); on the way the f32
     encode of the B (V + 1) frames against the plain one and row 4 at batch
     B against its plain version. Without ``gate`` the readings come back
-    with the names of the steps out of their limits under ``failed``."""
+    with the gates out of their limits under ``failed``. A dict ``keep``
+    receives the model, the batch and the captured bf16 step."""
     model = build_magnet_train(args, "cuda")
     with torch.no_grad():
         model.g_net.gnet[6].weight.mul_(0.05)
     raw = base.collate([SyntheticMultiView(args).get(i)
                         for i in range(MAGNET_TRAIN_B)])
     batch = train_magnet.batch_to_device(raw, "cuda")
-    # the bf16 step's coarse maps (G-Net's outputs) and the reference
-    # frames' decoder feature (the mask head's input)
-    coarse, feat = [], []
-    hooks = [model.g_net.register_forward_hook(
-                 lambda m, inputs, out: coarse.append(out.detach())),
-             model.d_net.register_forward_hook(
-                 lambda m, inputs, out: feat.append(
-                     out[1][:MAGNET_TRAIN_B].detach()))]
-    try:
-        bf16 = magnet_step_grads(model, batch, args, torch.bfloat16)
-    finally:
-        for h in hooks:
-            h.remove()
-    if len(coarse) != ITERS or len(feat) != 1:
-        raise RuntimeError(f"the bf16 step's G-Net gave {len(coarse)} maps, "
-                           f"its D-Net {len(feat)} features")
+    cap = capture_bf16_step(model, batch, args)
+    bf16 = cap["step"]
     f32 = magnet_step_grads(model, batch, args, torch.float32)
     cpu = copy.deepcopy(model).cpu()
     B, V = MAGNET_TRAIN_B, VIEWS
@@ -2209,12 +2367,9 @@ def check_magnet_train_step(args, gate: bool = True) -> dict:
     if not ref[0] > 0 or not all(g.abs().max() > 0
                                  for g in ref[1].values()):
         raise RuntimeError("the reference step has no gradient")
-    *mref, cancel = mask_head_reference(model, coarse, feat[0].float(),
-                                        batch, args)
     mask = only(bf16, "mask_head.")
     errs = {"f32": grad_errors(f32, ref),
             "bf16": grad_errors(only(bf16, "g_net."), only(ref, "g_net.")),
-            "bf16_mask_head": grad_errors(mask, mref),
             "bf16_mask_head_vs_f32_step": grad_errors(
                 mask, only(ref, "mask_head."))}
     for name, what, n, tol in (
@@ -2228,33 +2383,28 @@ def check_magnet_train_step(args, gate: bool = True) -> dict:
             f"worst {e['grad']:.2e} (limit {tol['grad']}), median "
             f"{e['grad_median']:.2e} (limit {tol['grad_median']}) of their "
             f"tensor's max")
-    e = errs["bf16_mask_head"]
-    log(f"  bf16 step's {len(mref[1])} mask-head gradients vs the f32 mask "
-        f"head on its own decoder feature, upsampling its own coarse maps, "
-        f"the f32 loss: worst {e['grad']:.2e} (limit "
-        f"{MASK_HEAD_BF16_TOL['grad']}; {e['worst']}, max|g| "
-        f"{e['worst_max']:.2e}), median {e['grad_median']:.2e} (limit "
-        f"{MASK_HEAD_BF16_TOL['grad_median']}) of their tensor's max")
+    heads = mask_head_gates(model.mask_head, model.downsample_ratio, cap,
+                            batch, args)
+    log_mask_head(heads)
     e = errs["bf16_mask_head_vs_f32_step"]
     log(f"  bf16 step's mask-head gradients vs the f32 step's (not a gate): "
         f"worst {e['grad']:.2e} ({e['worst']}, max|g| {e['worst_max']:.2e}),"
         f" median {e['grad_median']:.2e}")
-    c = np.array(list(cancel.values()))
-    log(f"  mask-head gradients' sums of |terms| over max|g| (f32 "
-        f"reference): median {np.median(c):.1f}, largest {c.max():.1f} "
-        f"({max(cancel, key=cancel.get)}); {errs['bf16_mask_head']['worst']}"
-        f" {cancel[errs['bf16_mask_head']['worst']]:.1f}; times bf16's 2^-8:"
-        f" median {np.median(c) / 256:.2e}, largest {c.max() / 256:.2e}")
-    failed = [name for name, tol in (("f32", MAGNET_TRAIN_F32_TOL),
-                                     ("bf16", MAGNET_TRAIN_BF16_TOL),
-                                     ("bf16_mask_head", MASK_HEAD_BF16_TOL))
+    failed = [f"{name} step loss {errs[name]['loss']:.3e}, gradients worst "
+              f"{errs[name]['grad']:.3e}, median "
+              f"{errs[name]['grad_median']:.3e} (limits {tol})"
+              for name, tol in (("f32", MAGNET_TRAIN_F32_TOL),
+                                ("bf16", MAGNET_TRAIN_BF16_TOL))
               if not all(errs[name][k] <= v for k, v in tol.items())]
+    failed += mask_head_failures(heads)
     if gate and failed:
-        raise RuntimeError(f"the {', '.join(failed)} stage-3 step disagrees "
-                           "with its f32 reference")
-    return dict(errs, encode_rel_err=max(enc_err), cv_err=cv_err,
-                cv_excluded=excluded, cpu_encode_s=cpu_s,
-                mask_head_cancellation=cancel, failed=failed)
+        raise RuntimeError("the stage-3 step out of its limits: "
+                           + "; ".join(failed))
+    if keep is not None:
+        keep.update(model=model, batch=batch, cap=cap)
+    return dict(errs, mask_head=heads, encode_rel_err=max(enc_err),
+                cv_err=cv_err, cv_excluded=excluded, cpu_encode_s=cpu_s,
+                failed=failed)
 
 
 # ---- phase 14: streaming inference ----------------------------------------

@@ -1,29 +1,32 @@
 #!/usr/bin/env python3
-"""Phase 13 of chip_smoke.py (the stage-3 step against its f32 references)
-from several fresh states, on one NVIDIA GPU.
+"""Phase 13 of chip_smoke.py (the stage-3 step against its references) from
+several fresh states, on one NVIDIA GPU.
 
-    python3 chip_smoke_phase13.py N [--out readings.json]
+    python3 chip_smoke_phase13.py N [--min M --until K] [--out readings.json]
 
-Builds the kernels, then N times: phase 8 (F-Net training), phase 12 (D-Net
-training) and phase 13's one-step check on a MaGNet built from those two
-checkpoints, each time in a new experiment directory (phase 13's own three
-training steps, which change no checkpoint the check reads, are left out).
-Row 10's atomics and cuDNN's backward make each run's trained state
-another, and phase 13's readings depend on that state. Prints each check's
-readings as chip_smoke.py does, writes them with the mask head's
-cancellation (each gradient's largest sum of |terms| over its max|g|) to
-``--out``, and exits 1 if phase 13's check failed in any state.
+Builds the kernels, then up to N times: phase 8 (F-Net training), phase 12
+(D-Net training) and phase 13's one-step check on a MaGNet built from those
+two checkpoints, each time in a new experiment directory (phase 13's own
+three training steps, which change no checkpoint the check reads, are left
+out). Row 10's atomics and cuDNN's backward make each run's trained state
+another, and phase 13's readings depend on that state. With ``--until K``
+it stops after state M (default N) once K states have read over
+``FORMER_GATE`` on the end-to-end reading. Prints each check's readings as
+chip_smoke.py does (the three gates of the bf16 step's mask head and the
+end-to-end reading against the f32 mask head), a table of them over the
+states, writes them to ``--out``, and exits 1 if any state failed a gate.
 
-Each state also places the bf16 step's mask-head gradients and the gate's
-f32 reference against f64 steps on the bf16 step's coarse maps and decoder
-feature (not a gate): the f64 step alone, then with the bf16 step's
-roundings added one by one (the upsampled maps before the loss, the head's
-weights and conv outputs, both), and the f64 backward of the head from the
-bf16 step's own mask-logit gradient, through the exactly rounded forward
-and through the bf16 step's own conv outputs. It also reads how those
-outputs differ from the exactly rounded ones, the mask-logit gradients'
-differences, and the share of the upstream gradient that the largest
-0.01 % and 1 % of the fine pixels carry.
+Each state also places the bf16 step's mask-head gradients and the f32
+mask head's against f64 steps on the bf16 step's coarse maps and decoder
+feature (the f64 ladder, a witness, not a gate): the f64 step alone, then
+with the bf16 step's roundings added one by one (the upsampled maps before
+the loss, the head's weights and conv outputs, both), and the f64 backward
+of the head from the bf16 step's own mask-logit gradient through the
+exactly rounded forward (gate 3 runs it through the step's own forward). It
+also reads how the step's conv outputs differ from that exactly rounded
+forward's (each on the forward's own input, where gate 2 reads each on the
+step's), the mask-logit gradients' differences, and the share of the
+upstream gradient that the largest 0.01 % and 1 % of the fine pixels carry.
 """
 
 from __future__ import annotations
@@ -36,62 +39,12 @@ import sys
 import tempfile
 
 import torch
-import torch.nn.functional as F
 
 import chip_smoke as cs
-from magnet_tpu_torch.models import magnet as magnet_module
 
-
-def bf16_step_operands(margs) -> tuple:
-    """Phase 13's model, batch and bf16 step (as ``check_magnet_train_step``
-    builds them), with what that step gave the mask head and the upsampling:
-    its coarse maps, its decoder feature, its mask logits and their
-    gradient, and its gradients of the upsampled maps."""
-    model = cs.build_magnet_train(margs, "cuda")
-    with torch.no_grad():
-        model.g_net.gnet[6].weight.mul_(0.05)
-    raw = cs.base.collate([cs.SyntheticMultiView(margs).get(i)
-                           for i in range(cs.MAGNET_TRAIN_B)])
-    batch = cs.train_magnet.batch_to_device(raw, "cuda")
-    return (model, batch) + capture_bf16_step(model, batch, margs)
-
-
-def capture_bf16_step(model, batch: dict, margs) -> tuple:
-    """The bf16 step of ``bf16_step_operands`` on ``model`` and ``batch``."""
-    coarse, feat, fine, logits, convs = [], [], [], [], []
-
-    def upsample(maps, mask, k):
-        mask.retain_grad()
-        logits.append(mask)
-        out = cs.upsample_via_mask(maps, mask, k)
-        for p in out:
-            p.retain_grad()
-        fine.extend(out)
-        return out
-    hooks = [model.g_net.register_forward_hook(
-                 lambda m, inputs, out: coarse.append(out.detach())),
-             model.d_net.register_forward_hook(
-                 lambda m, inputs, out: feat.append(
-                     out[1].detach()))]
-    hooks += [m.register_forward_hook(
-                  lambda m, inputs, out: convs.append(inputs[0].detach()))
-              for m in model.mask_head if isinstance(m, torch.nn.ReLU)]
-    magnet_module.upsample_via_mask = upsample
-    try:
-        bf16 = cs.magnet_step_grads(model, batch, margs, torch.bfloat16)
-    finally:
-        magnet_module.upsample_via_mask = cs.upsample_via_mask
-        for h in hooks:
-            h.remove()
-    return (cs.only(bf16, "mask_head."), coarse, feat[0][:len(coarse[0])],
-            logits[0].detach(), logits[0].grad.detach(),
-            [p.grad.detach() for p in fine],
-            convs + [cs.nchw(logits[0].detach())])
-
-
-def r16(t: torch.Tensor) -> torch.Tensor:
-    """t rounded to bf16 in the forward, the identity in the backward."""
-    return t + (t.to(torch.bfloat16).to(t.dtype) - t).detach()
+# the end-to-end reading's limits before it was split into three gates:
+# worst and median tensor of their tensor's max (counted, not gated)
+FORMER_GATE = dict(grad=0.3, grad_median=0.05)
 
 
 def upsample64(maps: list, logits: torch.Tensor, k: int) -> list:
@@ -102,7 +55,7 @@ def upsample64(maps: list, logits: torch.Tensor, k: int) -> list:
     outs = []
     for d in maps:
         C = d.shape[-1]
-        nb = F.unfold(d.permute(0, 3, 1, 2), 3, padding=1)
+        nb = torch.nn.functional.unfold(d.permute(0, 3, 1, 2), 3, padding=1)
         nb = nb.reshape(B, C, 9, H, W).permute(0, 3, 4, 2, 1)
         outs.append(torch.einsum("bhwjkl,bhwjc->bhkwlc", w, nb).reshape(
             B, H * k, W * k, C))
@@ -123,89 +76,34 @@ def loss64(preds: list, depth: torch.Tensor, args) -> torch.Tensor:
     return loss
 
 
-def head64(model, x: torch.Tensor, head16: bool, actual=None,
-           outs=None) -> tuple:
-    """The mask head in f64 on x (NHWC): its parameters as f64 leaves and
-    the logits; with ``head16`` each weight, bias and conv output is
-    rounded to bf16 as the bf16 step's convs give them. With ``actual``
-    (the bf16 step's conv outputs, NCHW) those are the forward values, the
-    gradients flowing through the f64 convs. ``outs`` collects the conv
-    outputs."""
-    params, y = {}, cs.nchw(x.double())
-    actual = None if actual is None else list(actual)
-    for i, m in enumerate(model.mask_head):
-        if isinstance(m, torch.nn.Conv2d):
-            w = m.weight.detach().double().requires_grad_()
-            b = m.bias.detach().double().requires_grad_()
-            params[f"mask_head.{i}.weight"] = w
-            params[f"mask_head.{i}.bias"] = b
-            if head16:
-                w, b = r16(w), r16(b)
-            y = F.conv2d(y, w, b, m.stride, m.padding)
-            if head16:
-                y = r16(y)
-            if actual is not None:
-                y = actual.pop(0).double() + (y - y.detach())
-            if outs is not None:
-                outs.append(y.detach())
-        else:
-            y = m(y)
-    return params, cs.nhwc(y)
+def f64_ladder(model, cap: dict, batch: dict, args, f32_refs: dict) -> dict:
+    """The bf16 step's mask-head gradients (``capture_bf16_step``'s
+    ``cap``) and the f32 references ``f32_refs`` against f64 steps on the
+    bf16 step's coarse maps and decoder feature, each adding roundings of
+    the bf16 step: of the upsampled maps before the loss (fine16), of the
+    head's weights and conv outputs (head16), both; and the f64 backward of
+    the head from the bf16 step's own mask-logit gradient through the
+    head16 forward. Also how the step's conv outputs differ from that
+    forward's, where the logits' gradient differs, and how few pixels carry
+    the upstream."""
+    head, k, x16 = model.mask_head, model.downsample_ratio, cap["x"]
+    mask = cs.only(cap["step"], "mask_head.")
 
-
-def forward_gaps(actual: list, emulated: list) -> list:
-    """Each conv output of the bf16 step against the f64 head's with the
-    bf16 roundings (NCHW): the largest difference over max|emulated|, the
-    share of elements apart by more than a bf16 step (2^-7 of |emulated|),
-    and the elements whose sign differs, all and in the coarse map's
-    outer ring of pixels."""
-    out = []
-    for a, e in zip(actual, emulated):
-        a = a.double()
-        d = (a - e).abs()
-        flip = (a > 0) != (e > 0)
-        ring = torch.ones_like(flip)
-        ring[:, :, 1:-1, 1:-1] = False
-        out.append(dict(rel_max=(d.max() / e.abs().max()).item(),
-                        over_ulp=(d > 2 ** -7 * e.abs()).double()
-                        .mean().item(),
-                        sign_flips=int(flip.sum()),
-                        ring_flips=int((flip & ring).sum())))
-    return out
-
-
-def f64_ladder(model, mask: tuple, coarse: list, x16: torch.Tensor,
-               logits16: torch.Tensor, dlogits16: torch.Tensor,
-               upstream: list, convs16: list, batch: dict, args,
-               f32_refs: dict) -> dict:
-    """The bf16 step's mask-head gradients ``mask`` and the f32 references
-    ``f32_refs`` (phase 13's gate's) against f64 steps on the bf16 step's
-    coarse maps and decoder feature, each adding roundings of the bf16
-    step: of the upsampled maps before the loss (fine16), of the head's
-    weights and conv outputs (head16), both; and the f64 backward of the
-    head from the bf16 step's own mask-logit gradient, through the head16
-    forward and through the bf16 step's own conv outputs ``convs16``. Also
-    how those outputs differ from the head16 forward's, where the logits'
-    gradient differs, and how few pixels carry the upstream."""
-    k = model.downsample_ratio
-
-    def step(fine16: bool, head16: bool, dlogits=None, actual=None,
-             outs=None) -> tuple:
-        params, z = head64(model, x16, head16, actual, outs)
+    def step(fine16: bool, head16: bool, dlogits=None, outs=None) -> tuple:
+        params, z = cs.head64(head, x16, head16, outs=outs)
         if dlogits is not None:
             torch.autograd.backward(z, dlogits.double())
             return None, {n: p.grad for n, p in params.items()}, None
         z.retain_grad()
-        preds = upsample64([c.double() for c in coarse], z, k)
+        preds = upsample64([c.double() for c in cap["coarse"]], z, k)
         if fine16:
-            preds = [r16(p) for p in preds]
+            preds = [cs.r16(p) for p in preds]
         loss = loss64(preds, batch["depth"], args)
         loss.backward()
         grads = {n: p.grad for n, p in params.items()}
         return float(loss.detach()), grads, z.grad
 
-    out, dz = {}, {}
-    refs = {}
+    out, dz, refs = {}, {}, {}
     for name, fine16, head16 in (("f64", False, False),
                                  ("f64_fine16", True, False),
                                  ("f64_head16", False, True),
@@ -215,29 +113,25 @@ def f64_ladder(model, mask: tuple, coarse: list, x16: torch.Tensor,
     f64 = refs["f64"]
     emulated = []
     refs["f64_from_bf16_dlogits"] = (f64[0], step(
-        False, True, dlogits16, outs=emulated)[1])
-    refs["f64_from_bf16_dlogits_bf16_forward"] = (f64[0], step(
-        False, True, dlogits16, actual=convs16)[1])
-    out["forward"] = forward_gaps(convs16, emulated)
-    for name, ref in refs.items():
-        out[name] = dict(vs_bf16=cs.grad_errors(mask, ref),
-                         vs_f64=cs.grad_errors(ref, f64))
-    for name, ref in f32_refs.items():
+        False, True, cap["dlogits"], outs=emulated)[1])
+    out["forward_emulated"] = cs.forward_gaps(cap["outs"], emulated)
+    for name, ref in list(refs.items()) + list(f32_refs.items()):
         out[name] = dict(vs_bf16=cs.grad_errors(mask, ref),
                          vs_f64=cs.grad_errors(ref, f64))
     # the mask logits' gradient of the bf16 step against the f64 steps'
-    d16 = dlogits16.double()
+    d16 = cap["dlogits"].double()
     out["dlogits"] = {n: dict(
         rel_max=((d16 - g).abs().max() / g.abs().max()).item(),
         rel_l2=((d16 - g).norm() / g.norm()).item()) for n, g in dz.items()}
     # how few pixels carry the upstream: the share of sum |dL/dmap| in the
     # largest 0.01 % and 1 % of the fine pixels' |gradients|
-    g = torch.cat([u.float().abs().sum(-1).flatten() for u in upstream])
+    g = torch.cat([u.float().abs().sum(-1).flatten()
+                   for u in cap["upstream"]])
     s = g.sort(descending=True).values
     out["upstream_top_share"] = {
         f"{q:g}": (s[:max(1, int(q * s.numel()))].sum() / s.sum()).item()
         for q in (1e-4, 1e-2)}
-    out["max_abs_logit"] = logits16.float().abs().max().item()
+    out["max_abs_logit"] = cap["outs"][-1].float().abs().max().item()
     line = "; ".join(
         f"{n} {r['vs_bf16']['grad']:.2e}/{r['vs_bf16']['grad_median']:.2e} "
         f"(vs f64 {r['vs_f64']['grad']:.2e}/{r['vs_f64']['grad_median']:.2e})"
@@ -248,7 +142,7 @@ def f64_ladder(model, mask: tuple, coarse: list, x16: torch.Tensor,
            "roundings, by conv (rel max, share over a bf16 step, sign flips,"
            " of them in the outer ring): " + "; ".join(
                f"{v['rel_max']:.2e}, {v['over_ulp']:.2e}, {v['sign_flips']}, "
-               f"{v['ring_flips']}" for v in out["forward"]))
+               f"{v['ring_flips']}" for v in out["forward_emulated"]))
     cs.log("  mask-logit gradient, bf16 step vs the f64 steps (rel max, rel "
            "L2): " + "; ".join(f"{n} {v['rel_max']:.2e}, {v['rel_l2']:.2e}"
                                for n, v in out["dlogits"].items())
@@ -259,9 +153,33 @@ def f64_ladder(model, mask: tuple, coarse: list, x16: torch.Tensor,
     return out
 
 
+def over_former_gate(r: dict) -> bool:
+    e = r["mask_head"]["end_to_end"]
+    return not all(e[k] <= v for k, v in FORMER_GATE.items())
+
+
+def summary(r: dict) -> str:
+    """A state's three gate readings and its end-to-end reading."""
+    m = r["mask_head"]
+    u, b, e = m["upstream"], m["backward"], m["end_to_end"]
+    l2 = e["rel_l2"].values()
+    return (f"state {r['state']}: upstream {u['rel_max']:.2e} (L2 "
+            f"{u['rel_l2']:.2e}); forward by conv "
+            + ", ".join(f"{f['rel_max']:.2e}" for f in m["forward"])
+            + f"; backward {b['grad']:.2e}/{b['grad_median']:.2e}; end to "
+            f"end {e['grad']:.2e}/{e['grad_median']:.2e}, rel L2 "
+            f"{min(l2):.2e}-{max(l2):.2e}"
+            + (" (over the former gate)" if over_former_gate(r) else "")
+            + (f"; FAILED {r['failed']}" if r["failed"] else ""))
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("n", type=int, help="fresh states to read")
+    p.add_argument("n", type=int, help="fresh states to read, at most")
+    p.add_argument("--min", type=int, default=0,
+                   help="states to read at least with --until (default n)")
+    p.add_argument("--until", type=int, default=0,
+                   help="stop once this many states read over FORMER_GATE")
     p.add_argument("--out", default="", help="also write the readings here")
     opts = p.parse_args()
     if not torch.cuda.is_available():
@@ -280,23 +198,31 @@ def main() -> int:
     readings = []
     for i in range(opts.n):
         exp_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir="exp")
-        cs.log(f"[8, 12, 13] state {i + 1} of {opts.n}")
+        cs.log(f"[8, 12, 13] state {i + 1} of at most {opts.n}")
         fnet = cs.run_train_path(exp_dir)
         dnet = cs.run_dnet_train_path(exp_dir)
         margs = cs.magnet_train_args(exp_dir, dnet["ckpt"], fnet["ckpt"])
-        r = cs.check_magnet_train_step(margs, gate=False)
-        if r["failed"]:
-            cs.log(f"  state {i + 1}: out of their limits: {r['failed']}")
-        model, batch, mask, coarse, x16, *ops = bf16_step_operands(margs)
-        refs = {"f32_gate": tuple(cs.mask_head_reference(
-            model, coarse, x16.float(), batch, margs)[:2])}
-        r["ladder"] = f64_ladder(model, mask, coarse, x16, *ops, batch,
-                                 margs, refs)
-        del model, batch, mask, coarse, x16, ops
+        keep = {}
+        r = cs.check_magnet_train_step(margs, gate=False, keep=keep)
+        model, cap, batch = keep["model"], keep["cap"], keep["batch"]
+        refs = {"f32_head": cs.mask_head_reference(
+            model.mask_head, model.downsample_ratio, cap["coarse"],
+            cap["x"].float(), batch, margs)[:2]}
+        r["ladder"] = f64_ladder(model, cap, batch, margs, refs)
+        del keep, model, cap, batch
         readings.append(dict(state=i + 1, **r))
+        cs.log("  " + summary(readings[-1]))
         torch.cuda.empty_cache()
+        over = sum(map(over_former_gate, readings))
+        if opts.until and over >= opts.until and i + 1 >= (opts.min or opts.n):
+            break
     failed = sum(bool(r["failed"]) for r in readings)
-    cs.log(f"phase 13 failed in {failed} of {opts.n} states")
+    over = sum(map(over_former_gate, readings))
+    cs.log(f"over {len(readings)} states:")
+    for r in readings:
+        cs.log("  " + summary(r))
+    cs.log(f"a gate failed in {failed} of {len(readings)} states; the former "
+           f"gate ({FORMER_GATE}) would have failed in {over}")
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump(dict(device=smi, states=readings), f, indent=1)
