@@ -1,0 +1,12 @@
+"""dnet_ms: milliseconds a unit of work (map or step) spends in CUDA
+events around the D-Net's forward (hooks on Magnet.d_net); the spans'
+sum over the window's units. Nothing where the cell has no such span."""
+
+SPAN = "dnet"
+
+
+def read(obs):
+    total, n = obs.spans.ms_sum(SPAN)
+    if not n or not obs.units:
+        return None
+    return total / obs.units

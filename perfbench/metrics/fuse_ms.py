@@ -1,0 +1,12 @@
+"""fuse_ms: milliseconds a unit of work (map or step) spends in CUDA
+events around Magnet.fuse (a wrapper on the instance); the spans' sum
+over the window's units. Nothing where the cell has no such span."""
+
+SPAN = "fuse"
+
+
+def read(obs):
+    total, n = obs.spans.ms_sum(SPAN)
+    if not n or not obs.units:
+        return None
+    return total / obs.units
