@@ -126,8 +126,10 @@ class Magnet(nn.Module):
         decoder feature (N, h, w, 256), the matching feature (N, h, w, F);
         no gradient reaches the backbones (the JAX package's
         stop_gradient)."""
-        gauss, feat_d = self.d_net(imgs)
-        return gauss, feat_d, self.f_net(imgs)
+        with stage("D-Net"):
+            gauss, feat_d = self.d_net(imgs)
+        with stage("F-Net"):
+            return gauss, feat_d, self.f_net(imgs)
 
     def fuse(self, ref_gauss: torch.Tensor, x_d3: torch.Tensor,
              ref_feat: torch.Tensor, src_gauss: torch.Tensor,
@@ -147,28 +149,34 @@ class Magnet(nn.Module):
         before G-Net runs; G-Net, the mask head and the upsampling then run
         alike on every device."""
         n_iters = self.n_iters if n_iters is None else n_iters
-        v_total = (None if view_mesh is None
-                   else src_feat.shape[1] * view_mesh.size)
-        src_mu = src_gauss[..., 0].float()
-        src_sigma = src_gauss[..., 1].float()
-        # the cost volume's (mu, sigma) pairs do not change either
-        ops = cvk.cv_operands(src_mu, src_sigma, src_feat.dtype)
-        # G-Net's feature term does not change over the iterations.
-        feat_contrib = self.g_net.precompute_feature(x_d3)
-        preds = [ref_gauss]
-        for _ in range(n_iters):
-            # the previous prediction is detached, as in the JAX package
-            prev = preds[-1].detach()
-            d_volume = (prev[..., 0:1].float()
-                        + prev[..., 1:2].float() * self.k_list)
-            cv = cvk.cost_volume_cw(d_volume, ref_feat, src_feat, src_mu,
-                                    src_sigma, src_R, src_t, is_valid, intM,
-                                    rays2d, self.kappa, ops, v_total)
-            if view_mesh is not None:
-                cv = view_mesh.sum(cv)
-            preds.append(self.g_net(cv, feat_contrib, prev))
-        mask = run_head(self.mask_head, x_d3)
-        return upsample_via_mask(preds[1:], mask, self.downsample_ratio)
+        with stage("fuse"):
+            v_total = (None if view_mesh is None
+                       else src_feat.shape[1] * view_mesh.size)
+            src_mu = src_gauss[..., 0].float()
+            src_sigma = src_gauss[..., 1].float()
+            # the cost volume's (mu, sigma) pairs do not change either
+            ops = cvk.cv_operands(src_mu, src_sigma, src_feat.dtype)
+            # G-Net's feature term does not change over the iterations.
+            feat_contrib = self.g_net.precompute_feature(x_d3)
+            preds = [ref_gauss]
+            for _ in range(n_iters):
+                # the previous prediction is detached, as in the JAX package
+                prev = preds[-1].detach()
+                d_volume = (prev[..., 0:1].float()
+                            + prev[..., 1:2].float() * self.k_list)
+                with stage("cost volume"):
+                    cv = cvk.cost_volume_cw(d_volume, ref_feat, src_feat,
+                                            src_mu, src_sigma, src_R, src_t,
+                                            is_valid, intM, rays2d,
+                                            self.kappa, ops, v_total)
+                    if view_mesh is not None:
+                        cv = view_mesh.sum(cv)
+                with stage("G-Net update"):
+                    preds.append(self.g_net(cv, feat_contrib, prev))
+            with stage("mask head + upsample"):
+                mask = run_head(self.mask_head, x_d3)
+                return upsample_via_mask(preds[1:], mask,
+                                         self.downsample_ratio)
 
     def forward(self, ref_img: torch.Tensor, src_imgs: torch.Tensor,
                 src_R: torch.Tensor, src_t: torch.Tensor,
@@ -179,14 +187,15 @@ class Magnet(nn.Module):
         (B, V, 3, 3); src_t: (B, V, 3); is_valid: (B, V); intM: (B, 3, 3);
         rays2d: (B, 3, h*w) at cost-volume resolution. ``view_mesh`` as in
         ``fuse``."""
-        B, V, H, W = src_imgs.shape[:4]
-        imgs = torch.cat([ref_img, src_imgs.reshape(B * V, H, W, 3)], 0)
-        gauss, feat_d, feat_m = self.encode(imgs)
-        return self.fuse(
-            gauss[:B], feat_d[:B].contiguous(), feat_m[:B],
-            gauss[B:].reshape(B, V, *gauss.shape[1:]),
-            feat_m[B:].reshape(B, V, *feat_m.shape[1:]),
-            src_R, src_t, is_valid, intM, rays2d, n_iters, view_mesh)
+        with stage("forward"):
+            B, V, H, W = src_imgs.shape[:4]
+            imgs = torch.cat([ref_img, src_imgs.reshape(B * V, H, W, 3)], 0)
+            gauss, feat_d, feat_m = self.encode(imgs)
+            return self.fuse(
+                gauss[:B], feat_d[:B].contiguous(), feat_m[:B],
+                gauss[B:].reshape(B, V, *gauss.shape[1:]),
+                feat_m[B:].reshape(B, V, *feat_m.shape[1:]),
+                src_R, src_t, is_valid, intM, rays2d, n_iters, view_mesh)
 
 
 class MagnetF(nn.Module):

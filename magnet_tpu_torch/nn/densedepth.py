@@ -48,6 +48,7 @@ from magnet_tpu_torch.nn.layers import (GN_GROUPS, WSConv2d, cached_fold,
                                         ws_conv2d)
 from magnet_tpu_torch.ops.resample import resize_bilinear_align_corners
 from magnet_tpu_torch.ops.upsample import upsample_bilinear, upsample_via_mask
+from magnet_tpu_torch.utils.profiling import stage
 
 # Decoder widths that run through the conv kernel (up2, up3).
 KERNEL_STAGE_FEATURES = (512, 256)
@@ -213,18 +214,21 @@ class DenseDepth(nn.Module):
                                learned_upsampling, use_bn)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator = None):
-        f4, f5, f6, f8, f11 = self.encoder(nchw(x), generator)
-        dec = self.decoder
-        skips = [f8, f6, f5, f4][:dec.n_ups]
-        y = nhwc(conv2d(f11, dec.conv2))
-        for i, skip in enumerate(skips):
-            up = getattr(dec, f"up{i + 1}")
-            y = (remat(up, y, nhwc(skip)) if self.remat and up.training
-                 else up(y, nhwc(skip)))
-        depth = run_head(dec.depth_head, y)
-        if not self.as_dnet:
-            return depth, y
-        k = self.downsample_ratio
-        if self.learned_upsampling:
-            return upsample_via_mask(depth, run_head(dec.mask_head, y), k)
-        return upsample_bilinear(depth, None, k)
+        with stage("D-Net trunk"):
+            f4, f5, f6, f8, f11 = self.encoder(nchw(x), generator)
+        with stage("D-Net decoder"):
+            dec = self.decoder
+            skips = [f8, f6, f5, f4][:dec.n_ups]
+            y = nhwc(conv2d(f11, dec.conv2))
+            for i, skip in enumerate(skips):
+                up = getattr(dec, f"up{i + 1}")
+                y = (remat(up, y, nhwc(skip)) if self.remat and up.training
+                     else up(y, nhwc(skip)))
+            depth = run_head(dec.depth_head, y)
+            if not self.as_dnet:
+                return depth, y
+            k = self.downsample_ratio
+            if self.learned_upsampling:
+                return upsample_via_mask(depth, run_head(dec.mask_head, y),
+                                         k)
+            return upsample_bilinear(depth, None, k)

@@ -2,11 +2,11 @@
 
 ``step_account`` runs the training step of ``train.steps`` as the entry
 point runs it, with ``utils.profiling.StageTimes`` active: CUDA events around
-each of the step's spans (the F-Net forward, the sweep forward and softmax,
-soft-argmax and L1, the whole backward with its two sweep parts, clip and
-AdamW), and the whole step by the host clock; the F-Net backward is the
-backward less its sweep parts, the host gap the host-clock step less the
-spans' sum. ``protocol_args`` are the flags of
+the step's own span and each span inside it (the F-Net forward, the sweep
+forward and softmax, soft-argmax and L1, the whole backward with its two
+sweep parts, clip and AdamW), and the whole step by the host clock; the
+F-Net backward is the backward less its sweep parts, the host gap the
+host-clock step less the spans' sum. ``protocol_args`` are the flags of
 ``train_scripts/fnet/scannet.txt`` (480x640, batch 2, 4 source views, 80
 sweep planes, cost volume 120x160, bf16 compute with f32 master weights) on
 the synthetic dataset. ``chip_smoke.py`` phase 8 runs both at the protocol,
@@ -33,6 +33,7 @@ FLAGS = "train_scripts/fnet/scannet.txt"
 # feature channels
 IMG_H, IMG_W, CV_H, CV_W = 480, 640, 120, 160
 SWEEP_B, SWEEP_V, SWEEP_D, SWEEP_C = 2, 4, 80, 64
+STEP = "F-Net step"
 SWEEP_BACKWARD = ("sweep backward: grad_src (row-10 kernel)",
                   "sweep backward: grad_ref (plain re-gather)")
 
@@ -49,7 +50,10 @@ def step_account(step_fn, state, batch, iters: int = 3) -> dict:
             torch.cuda.synchronize()
             host.append(1e3 * (time.perf_counter() - t))
     ms = times.ms(skip=1)
-    top = [n for n in ms if n != "backward" and n not in SWEEP_BACKWARD]
+    # the spans directly inside the step, the backward apart (its sweep
+    # parts run on autograd's thread, under no span of the step's)
+    top = [n for n in ms if n != "backward"
+           and times.host[n][0].parent == STEP]
     ms["F-Net backward (backward less the sweep backward)"] = (
         ms["backward"] - sum(ms[n] for n in SWEEP_BACKWARD))
     ms["step, host clock"] = sum(host[1:]) / (len(host) - 1)

@@ -90,13 +90,14 @@ def make_dnet_train_step(max_depth: float, min_depth: float,
     on its (mu, var), then the clipped AdamW update."""
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict]:
-        gt, mask = _clamped_gt(batch["depth"], max_depth, min_depth)
-        model = state.model.train()
-        with stage("D-Net forward"):
-            out = model(batch["img"].to(compute_dtype), state.generator)
-        with stage("loss"):
-            loss = losses.dnet_loss(out, gt, mask)
-        return state, _update(state, loss)
+        with stage("D-Net step"):
+            gt, mask = _clamped_gt(batch["depth"], max_depth, min_depth)
+            model = state.model.train()
+            with stage("D-Net forward"):
+                out = model(batch["img"].to(compute_dtype), state.generator)
+            with stage("loss"):
+                loss = losses.dnet_loss(out, gt, mask)
+            return state, _update(state, loss)
 
     return step
 
@@ -113,16 +114,17 @@ def make_fnet_train_step(d_center: torch.Tensor, max_depth: float,
     ``.grad`` holds its clipped gradient."""
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict]:
-        gt, mask = _clamped_gt(batch["depth_dpv"], max_depth, min_depth)
-        model = state.model.train()
-        cv = model(batch["ref_img"].to(compute_dtype),
-                   batch["src_imgs"].to(compute_dtype), batch["R"],
-                   batch["t"], batch["is_valid"], batch["intM"],
-                   batch["rays2d"], d_center)
-        with stage("soft-argmax + L1"):
-            pred = losses.soft_argmax_depth(cv, d_center)
-            loss = losses.fnet_l1_loss(pred, gt, mask)
-        return state, _update(state, loss)
+        with stage("F-Net step"):
+            gt, mask = _clamped_gt(batch["depth_dpv"], max_depth, min_depth)
+            model = state.model.train()
+            cv = model(batch["ref_img"].to(compute_dtype),
+                       batch["src_imgs"].to(compute_dtype), batch["R"],
+                       batch["t"], batch["is_valid"], batch["intM"],
+                       batch["rays2d"], d_center)
+            with stage("soft-argmax + L1"):
+                pred = losses.soft_argmax_depth(cv, d_center)
+                loss = losses.fnet_l1_loss(pred, gt, mask)
+            return state, _update(state, loss)
 
     return step
 
@@ -165,10 +167,11 @@ def make_magnet_train_step(gamma: float, max_depth: float, min_depth: float,
     then the clipped AdamW update of ``make_magnet_optimizer``."""
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict]:
-        model = state.model.train()
-        loss = magnet_batch_loss(model, batch, gamma, max_depth, min_depth,
-                                 n_iters, compute_dtype)
-        return state, _update(state, loss)
+        with stage("MaGNet step"):
+            model = state.model.train()
+            loss = magnet_batch_loss(model, batch, gamma, max_depth,
+                                     min_depth, n_iters, compute_dtype)
+            return state, _update(state, loss)
 
     return step
 

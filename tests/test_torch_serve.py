@@ -80,6 +80,14 @@ def test_monolithic_export_round_trips(served):
     assert torch.equal(out, eager[-1])
     _hold_to_jax(out, refs[-1])
     assert ex.op_counts(program) == {}    # the CPU program: plain versions
+    _no_spans(program)
+
+
+def _no_spans(program):
+    """The program's spans (``utils.profiling.stage``) leave nothing in an
+    exported graph: it is traced with no profiler running."""
+    assert not [n for n in program.graph.nodes
+                if "profiler" in str(n.target)]
 
 
 def test_encode_fuse_export_round_trips(served):
@@ -97,6 +105,8 @@ def test_encode_fuse_export_round_trips(served):
                gauss[1:][None], feat_m[1:][None], *geometry)
     assert torch.equal(out, eager[-1])
     _hold_to_jax(out, refs[-1])
+    _no_spans(encode)
+    _no_spans(fuse)
 
 
 def test_exported_state_is_cast_as_for_inference(served):
