@@ -37,7 +37,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      D = 80, 120x160, C = 64, SID planes, synthetic poses), also at a 0.9
      rad roll and with one view invalid, f32 to 1e-4 * max|ref| and bf16
      features to 2e-2 * max|ref| (atomic adds in any order); its library
-     time is ATen's grid_sampler_2d_backward over the same samples;
+     time is ATen's grid_sampler_2d_backward over the same samples. The
+     reference features' gradient (sweep_grad_ref, the port's own kernel)
+     at the same three sites against the plain re-gather, f32 and bf16
+     features to 1e-4 * max|ref|, two calls equal bit for bit, with the
+     plain version's launches a call;
   4. D-Net path: D-Net inference through the entry point's code path
      (magnet_tpu_torch.test_dnet) at 480x640, bf16, seeded random weights,
      on synthetic frames; every kernel's launch count must rise as the
@@ -66,7 +70,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      initialisation) on synthetic samples: 4 steps and a validation pass;
      finite losses, every parameter and BatchNorm buffer moved, the
      checkpoint restores step and tensors, launches as predicted (row 10
-     once per step, the cost volume once per step and per validation
+     and sweep_grad_ref once per step, the cost volume once per step and
+     per validation
      sample, rows 6-9 in the validation forward); ms per step, peak memory,
      a stage account of one step and the profiler over two;
   9. the training step on the card against the CPU, f32 at a reduced shape
@@ -150,7 +155,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      at --workers 1 and 4, beside phase 12's step;
  17. the kernels as PyTorch operators (kernels/ops.py): torch.library.opcheck
      (schema, autograd registration, fake tensor, AOT dispatch with dynamic
-     shapes) of each of the twelve operators on the arguments of its first
+     shapes) of each of the thirteen operators on the arguments of its first
      phase-3 call; one small operator's host time a call through the
      operator and as a plain function; phase 6's frame by CUDA events and
      on the host clock, through the operators and with the CUDA
@@ -171,7 +176,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      over NCCL;
  19. --profile_dir on a 4-step train_fnet run: the Chrome trace of its
      window exists and names the sweep's operators and kernels
-     (cost_volume_cw, sweep_grad_src);
+     (cost_volume_cw, sweep_grad_src, sweep_grad_ref);
  20. serving export (serve/export.py) at the ScanNet eval shape in bf16:
      the monolithic forward and the encode/fuse pair exported with the f32
      state dict as an argument, saved to bytes, loaded and run; each graph
@@ -200,8 +205,9 @@ chains and transition blocks on the 3 frames of a KITTI sample (maps
 KITTI heads (88x304), f32 and bf16 (timed, in no frame's sum). The bf16
 F-Net convs, blocks, tail and heads are timed on packed operands made once,
 as the modules keep them.
-Then a {"kernels": [...]} line (15 rows: the 14 TPU kernels and the
-upsampling's backward), the nvidia-smi line, and as the last line
+Then a {"kernels": [...]} line (16 rows: the 14 TPU kernels, the
+upsampling's backward and the sweep's reference gradient), the nvidia-smi
+line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
 
@@ -244,6 +250,7 @@ from magnet_tpu_torch.kernels import ops
 from magnet_tpu_torch.kernels import psm_blocks as pb
 from magnet_tpu_torch.kernels import res_block as rbk
 from magnet_tpu_torch.kernels import spp_tail as st
+from magnet_tpu_torch.kernels import sweep_grad_ref as sgr
 from magnet_tpu_torch.kernels import sweep_grad_src as sgk
 from magnet_tpu_torch.kernels import upsample_mask as uk
 from magnet_tpu_torch.models import magnet as magnet_module
@@ -348,7 +355,8 @@ WRAPPERS = {"conv3x3_bnact": cb.conv3x3_bnact, "head_chain": hc.head_chain,
             "fused_residual_stage": pb.fused_residual_stage,
             "downsample_block": pb.downsample_block,
             "expand_block": pb.expand_block, "spp_tail": st.spp_tail,
-            "sweep_grad_src": sgk.sweep_grad_src, "dw_conv": dwk.dw_conv,
+            "sweep_grad_src": sgk.sweep_grad_src,
+            "sweep_grad_ref": sgr.sweep_grad_ref, "dw_conv": dwk.dw_conv,
             "mbconv_chain": mbk.mbconv_chain, "res_block": rbk.res_block}
 # launches per MaGNet frame of the F-Net's kernels (one pass over the 5
 # frames): chains of 2 (stem), 6 (layer1), 30 (layer2 after its first
@@ -996,6 +1004,68 @@ def check_sweep_kernel(dev):
     return rows
 
 
+def launch_calls(fn) -> int:
+    """The kernel launches one call of ``fn`` issues, from the profiler's
+    host launch calls."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if "LaunchKernel" in e.name)
+
+
+def check_sweep_ref_kernel(dev):
+    """The sweep's reference gradient (``sweep_grad_ref``, the port's own
+    kernel; the JAX package leaves it to XLA) at the F-Net training shape
+    (B = 2, V = 4, D = 80, 120x160, C = 64) and row 10's three sites:
+    f32 and bf16 source features against the plain re-gather, both to
+    1e-4 * max|ref| (the same feature values, exact f32 products summed in
+    another order), two calls equal bit for bit (no atomics). The work
+    counts every corner (``perfbench/counts/ops/sweep_grad_ref.py``); the
+    plain version's launches a call beside its time."""
+    rows = []
+    for site, kw in (("main path", {}), ("roll 0.9 rad", dict(roll=0.9)),
+                     ("one view invalid", dict(invalid=True))):
+        case = [x.to(dev) for x in sweep_case(**kw)]
+        g = torch.Generator().manual_seed(10)
+        src32 = _randn(g, TRAIN_B, VIEWS, HC, WC, FEAT).to(dev)
+        a32 = [case[0], src32, *case[2:]]
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            a = a32[:1] + [src32.to(dtype)] + a32[2:]
+            out = sgr.sweep_grad_ref(*a)
+            ref = sgr.sweep_grad_ref_ref(*a)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            lim = KERNEL_TOL[torch.float32] * ref.abs().max().item()
+            log(f"  sweep_grad_ref ({site}) {str(dtype)[6:]}: max_abs_err "
+                f"{err:.3e} (limit {lim:.3e})")
+            if (out.shape != ref.shape or not torch.isfinite(out).all()
+                    or not err <= lim or not ref.abs().max() > 0.1):
+                raise RuntimeError("sweep_grad_ref disagrees with its plain "
+                                   "version")
+            if not torch.equal(out, sgr.sweep_grad_ref(*a)):
+                raise RuntimeError("sweep_grad_ref: two calls differ")
+            errs[dtype] = err
+        samples = TRAIN_B * VIEWS * HC * WC * TRAIN_D
+        n_bytes = nbytes(*a, out)
+        flops = (2.0 * 4 * FEAT + 30.0) * samples
+        bms, by = bound_ms(n_bytes, flops, PEAK_F32_FLOPS)
+        rows.append(dict(
+            site=f"sweep_grad_ref ({site})", path="fnet_train",
+            frame=site == "main path", err_f32=errs[torch.float32],
+            err_bf16=errs[torch.bfloat16],
+            ms=graph_ms(lambda: sgr.sweep_grad_ref(*a)),
+            ms_f32=graph_ms(lambda: sgr.sweep_grad_ref(*a32)),
+            plain_ms=plain_time(lambda: sgr.sweep_grad_ref_ref(*a)),
+            plain_launches=launch_calls(lambda: sgr.sweep_grad_ref_ref(*a)),
+            library_ms=None, bound_ms=bms, bound_by=by, gflop=flops / 1e9,
+            compulsory_mb=n_bytes / 1e6))
+    return rows
+
+
 def dw_sites() -> dict:
     """{(map, channels, K): count} of the stride-1 conv_dw that stay outside
     the chains at 480x640 with both switches on."""
@@ -1520,7 +1590,8 @@ def run_train_path(exp_dir: str) -> dict:
     # per step the sweep forward and backward; per validation sample the
     # F-Net's inference kernels and the sweep forward
     per_val = dict(FNET_LAUNCHES, cost_volume_cw=1)
-    want = {k: TRAIN_STEPS * int(k in ("cost_volume_cw", "sweep_grad_src"))
+    want = {k: TRAIN_STEPS * int(k in ("cost_volume_cw", "sweep_grad_src",
+                                       "sweep_grad_ref"))
             + n_val * per_val.get(k, 0) for k in WRAPPERS}
     log(f"  launches over {TRAIN_STEPS} steps and {n_val} validation "
         f"samples: found {counts}, expected {want}")
@@ -3321,7 +3392,8 @@ def check_profile_dir(exp_dir: str) -> dict:
     events = json.loads(open(path).read(), strict=False)["traceEvents"]
     names = {e.get("name", "") for e in events}
     want = ["magnet_tpu_torch::cost_volume_cw", "cost_volume_cw_kernel",
-            "magnet_tpu_torch::sweep_grad_src", "sweep_grad_src_kernel"]
+            "magnet_tpu_torch::sweep_grad_src", "sweep_grad_src_kernel",
+            "magnet_tpu_torch::sweep_grad_ref", "sweep_grad_ref_kernel"]
     found = {w: any(w in n for n in names) for w in want}
     log(f"  trace {path} ({os.path.getsize(path) / 1e6:.1f} MB, "
         f"{len(names)} names): {found}")
@@ -3632,12 +3704,13 @@ def main() -> int:
         psm_rows = check_psm_kernels(dev)
         sweep_fwd_rows = check_sweep_forward(dev)
         sweep_rows = check_sweep_kernel(dev)
+        sweep_ref_rows = check_sweep_ref_kernel(dev)
         mb_rows = check_mbchain_kernel(dev)
         dw_rows = check_dw_kernel(dev)
         rb_rows = check_resblock_kernel(dev)
     sites = (conv_rows + head_rows + cv_rows + sweep_fwd_rows + gnet_rows
-             + up_rows + upbwd_rows + psm_rows + sweep_rows + mb_rows
-             + dw_rows + rb_rows)
+             + up_rows + upbwd_rows + psm_rows + sweep_rows + sweep_ref_rows
+             + mb_rows + dw_rows + rb_rows)
     for r in sites:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -3657,6 +3730,10 @@ def main() -> int:
             f"{r['compulsory_mb']:.1f} MB, {r['corners']} in-image corners, "
             f"{r['walk_reductions']} reductions in the emulated walk "
             f"({r['corners'] / r['walk_reductions']:.2f}x fewer)")
+    for r in sweep_ref_rows:
+        log(f"  {r['site']}: f32 features {r['ms_f32']:.4f} ms; compulsory "
+            f"{r['compulsory_mb']:.1f} MB; the plain version "
+            f"{r['plain_launches']} launches a call")
     for r in gnet_rows:
         log(f"  {r['site']}: the whole update in bf16 cuDNN convs and "
             f"elementwise ops {r['chain_ms']:.4f} ms")
@@ -3898,6 +3975,16 @@ def main() -> int:
             kernels.append(row)
         else:
             kernels[-1]["dnet_train"] = row
+    # the port's own kernel: the sweep's reference gradient, per F-Net
+    # training step (phase 8's launches)
+    kernels.append(dict(
+        entry("sweep_grad_ref", csrc + "cost_volume_cw.cu",
+              "magnet_tpu/ops/costvolume.py:588",
+              sweep_ref_rows, "sweep_grad_ref", path="fnet_train"),
+        note="port-only: the reference features' gradient of the sweep, "
+             "which the JAX package takes by XLA (no TPU kernel)",
+        plain_launches=next(r["plain_launches"] for r in sweep_ref_rows
+                            if r["frame"])))
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump(dict(device=smi, kernels=kernels, sites=sites,

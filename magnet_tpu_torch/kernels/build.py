@@ -54,6 +54,9 @@ _SIGNATURES = {
     # dtype, depth, ref, gbar, R, t, valid, K, rays, out, B, V, H, W, C, D,
     # stream
     "mt_sweep_grad_src": [_I] + [_P] * 9 + [_I] * 6 + [_P],
+    # dtype, depth, src, gbar, R, t, valid, K, rays, out, B, V, H, W, C, D,
+    # stream
+    "mt_sweep_grad_ref": [_I] + [_P] * 9 + [_I] * 6 + [_P],
     # dtype, x, w, out, N, H, W, C, K, pt, pl, stream
     "mt_dw_conv": [_I] + [_P] * 3 + [_I] * 7 + [_P],
     # dtype, x, wpw, s1, wdw, s2, wse1, bse1, wse2, bse2, wpwl, s3, d, pool,

@@ -205,15 +205,19 @@ def cost_volume_cw_plan(d_volume: torch.Tensor, ref_feat: torch.Tensor,
                         src_feat: torch.Tensor, src_mu, src_sigma,
                         R: torch.Tensor, t: torch.Tensor,
                         is_valid: torch.Tensor, intM: torch.Tensor,
-                        rays2d: torch.Tensor, kappa=None) -> dict:
+                        rays2d: torch.Tensor, kappa=None,
+                        extra: int = 2) -> dict:
     """The kernel's chunks for these inputs (the arguments of
     ``cost_volume_cw``; only the geometry, the shapes and the features' type
     are read), in plain PyTorch on the inputs' device. Per 8 x 8 tile and
     valid view the box of the in-image bilinear corners of each candidate's
     samples; a candidate's chunk is the largest aligned run of ``CHUNK``,
-    ..., 2, 1 candidates whose boxes' union times (C + 2) channels fits
-    ``WINDOW_BYTES`` (staged), or the candidate alone, and a run of such
-    lone candidates within an aligned ``CHUNK`` is one global job.
+    ..., 2, 1 candidates whose boxes' union times C + ``extra`` channels
+    fits ``WINDOW_BYTES`` (staged), or the candidate alone, and a run of
+    such lone candidates within an aligned ``CHUNK`` is one global job.
+    ``extra``: 2, the (mu, sigma) pair the cost volume stages beside the
+    features; 0 for the sweep gradient (``sweep_grad_ref``), which stages
+    the features alone.
 
     Returns ``jobs``, (n, 11) int64 rows (b, tile row, tile column, view,
     first candidate, candidates, staged, xlo, ylo, width, height), a tile's
@@ -259,7 +263,7 @@ def cost_volume_cw_plan(d_volume: torch.Tensor, ref_feat: torch.Tensor,
                 u = _union(box.reshape(ty, tx, dp // level, level, 4)
                            ).repeat_interleave(level, -2)
                 area = (u[..., 1] - u[..., 0] + 1) * (u[..., 3] - u[..., 2] + 1)
-                fits = (u[..., 0] > u[..., 1]) | (area * (C + 2) * elem
+                fits = (u[..., 0] > u[..., 1]) | (area * (C + extra) * elem
                                                   <= WINDOW_BYTES)
                 size = torch.where(fits, level, size)
                 staged |= fits
@@ -286,7 +290,8 @@ def cost_volume_cw_plan(d_volume: torch.Tensor, ref_feat: torch.Tensor,
             ww, wh = pk[:, 1] - pk[:, 0] + 1, pk[:, 3] - pk[:, 2] + 1
             stats["staged_jobs"] += int(st.sum())
             stats["global_jobs"] += int((~st).sum())
-            stats["smem_bytes"] += int((ww * wh * st).sum()) * (C + 2) * elem
+            stats["smem_bytes"] += (int((ww * wh * st).sum()) * (C + extra)
+                                    * elem)
             jobs.append(torch.stack(
                 [torch.full_like(i, b), i, j, torch.full_like(i, v), d,
                  size[i, j, d], st.long(), pk[:, 0], pk[:, 2], ww, wh], -1))

@@ -53,6 +53,34 @@
 //     atomics: two calls are equal bit for bit.
 // The cameras, the tile's rays and its candidate depths are read into
 // shared memory once, at the start.
+//
+// Second entry point, mt_sweep_grad_ref: the gradient of the F-Net training
+// sweep (the forward above at mu 0, sigma 1e30, kappa 1 and the same depths
+// at every pixel) with respect to the reference features,
+//
+//   grad_ref[b, q, c] = sum over v, d of
+//       gbar[b, q, d] * valid[b, v] * bilinear(src_v, proj(q, d))[c].
+//
+// It replaces no TPU kernel: the JAX package leaves this gradient to XLA (a
+// re-gather in the custom VJP of magnet_tpu/ops/costvolume.py), and its
+// Pallas backward (sweepbwd_pallas.py) is the source gradient alone.
+// Bound on an H100 at the training shape (B = 2, V = 4, D = 80, 120x160,
+// C = 64): the f32 operations, a multiply-add per channel at each of 4
+// corners and the projection a sample, 6.66 GFLOP, 0.099 ms at 67 TFLOP/s;
+// the bytes (about 42 MB) take 0.013 ms. The plain re-gather it replaces
+// took 59.5 ms on an H100, 600x that bound, in 2785 launches a step.
+// Design: the forward transposed in the channels, not in the pixels. The
+// gradient gathers (a reference pixel reads the source corners its samples
+// fall on), so it runs on the forward's tiles, plan and staged windows as
+// they stand, and sees the same samples and corners: a staged pixel takes C
+// channels (no (mu, sigma) pair). The tile's cotangent rows, (64, D) f32,
+// are read into shared memory in place of the forward's accumulator. Four
+// lanes own a reference pixel and hold a quarter of its C f32 sums in
+// registers, the feature's place in the forward; per sample each lane adds
+// gbar * valid * w times each corner's channels to them, and writes them
+// once at the end. No reductions across lanes, no atomics: two calls are
+// equal bit for bit, and the work per sample is the forward's less its dot
+// product's shuffles and the consistency test.
 
 #include <climits>
 
@@ -84,8 +112,11 @@ struct CvArgs {
   const float* valid;  // (B, V)
   const float* K;      // (B, 3, 3)
   const float* rays;   // (B, 3, H*W)
-  float* out;          // (B, H, W, D)
+  const float* gbar;   // sweep gradient: (B, H, W, D) cotangent of the sum
+  float* out;          // (B, H, W, D); sweep gradient: (B, H, W, C)
   int B, V, H, W, C, D;
+  int dpix;            // depths a pixel in d: D, or 0 where every pixel
+                       // takes the same D planes (d is then (D,))
   int v_total;         // the divisor of the sum over views: V, or the global
                        // view count when the views are split over devices
   float kappa;
@@ -214,8 +245,8 @@ __device__ __forceinline__ void cv_cp_async(void* dst, const void* src) {
 // w = 1 when staged (else a global job).
 
 // The copies of a staged job's window into `win`: features row by row, then
-// the (mu, sigma) pairs.
-template <typename T>
+// the (mu, sigma) pairs where MS.
+template <typename T, bool MS>
 __device__ void cv_stage(const CvArgs& a, int bv, int4 job, unsigned char* win) {
   if (!job.w) return;
   const int xlo = job.y & 0xffff, ylo = job.y >> 16;
@@ -236,6 +267,7 @@ __device__ void cv_stage(const CvArgs& a, int bv, int4 job, unsigned char* win) 
       if (e >= row) e -= row, ++r;
     }
   }
+  if constexpr (!MS) return;
   constexpr int MSB = 2 * sizeof(T);
   unsigned char* wms = win + (size_t)ww * wh * a.C * sizeof(T);
   const char* ms = static_cast<const char*>(a.ms) +
@@ -351,41 +383,18 @@ __device__ __forceinline__ void cv_match(const CvArgs& a, int bv, float valid, i
   }
 }
 
-// Blocks an SM: three where a lane holds at most two 16-byte chunks of the
-// feature (up to 88 registers without the bound), else two.
-template <typename T, int NCH>
-__global__ void __launch_bounds__(CV_THREADS, NCH <= 2 ? 3 : 2) cost_volume_cw_kernel(CvArgs a) {
-  constexpr int VEC = 16 / sizeof(T);
-  extern __shared__ __align__(128) unsigned char smem[];
-  const CvLayout L = cv_layout(a.V, a.D);
-  float* acc = reinterpret_cast<float*>(smem + L.acc);
+// Steps 1 and 2 of both kernels, after the cameras, the tile's rays and
+// candidate depths are in shared memory: the box of every valid (view,
+// candidate), then each view's jobs (box[v * D + j], j < count[v]). `bpp`:
+// the bytes a staged source pixel takes.
+__device__ __forceinline__ void cv_plan(const CvArgs& a, const CvLayout& L, unsigned char* smem,
+                                        int ty0, int tx0, int bpp) {
   int4* box = reinterpret_cast<int4*>(smem + L.box);
   int* count = reinterpret_cast<int*>(smem + L.count);
-  float4* geom = reinterpret_cast<float4*>(smem + L.geom);
-  float* view = reinterpret_cast<float*>(smem + L.view);
-  float* ray = reinterpret_cast<float*>(smem + L.ray);
-  float* dep = reinterpret_cast<float*>(smem + L.dep);
+  const float* view = reinterpret_cast<const float*>(smem + L.view);
+  const float* ray = reinterpret_cast<const float*>(smem + L.ray);
+  const float* dep = reinterpret_cast<const float*>(smem + L.dep);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.y;
-  const int ty0 = (blockIdx.x / a.tiles_x) * CV_TILE_H;
-  const int tx0 = (blockIdx.x % a.tiles_x) * CV_TILE_W;
-  const int hw = a.H * a.W;
-  const int bpp = (a.C + 2) * (int)sizeof(T);
-
-  // the cameras, the tile's rays and candidate depths, read once
-  for (int i = tid; i < a.D * (CV_TP + 1); i += CV_THREADS) acc[i] = 0.f;
-  if (tid < a.V) cv_load_view(a, b, b * a.V + tid, view + tid * CV_VIEW);
-  for (int i = tid; i < 3 * CV_TP; i += CV_THREADS) {
-    const int k = i / CV_TP, p = i - k * CV_TP;
-    const int y = ty0 + p / CV_TILE_W, x = tx0 + p % CV_TILE_W;
-    ray[i] = y < a.H && x < a.W ? __ldg(a.rays + ((size_t)b * 3 + k) * hw + y * a.W + x) : 0.f;
-  }
-  for (int i = tid; i < CV_TP * a.D; i += CV_THREADS) {
-    const int p = i / a.D, d = i - p * a.D;
-    const int y = ty0 + p / CV_TILE_W, x = tx0 + p % CV_TILE_W;
-    dep[i] = y < a.H && x < a.W ? __ldg(a.d + ((size_t)b * hw + y * a.W + x) * a.D + d) : 0.f;
-  }
-  __syncthreads();
 
   // 1. the box of every valid (view, candidate): a lane two tile pixels
   for (int i = warp; i < a.V * a.D; i += CV_WARPS) {
@@ -457,13 +466,99 @@ __global__ void __launch_bounds__(CV_THREADS, NCH <= 2 ? 3 : 2) cost_volume_cw_k
     if (lane == 0) count[v] = n;
   }
   __syncthreads();
+}
 
-  // 3. the jobs, the next job's window in flight while one is matched
+// The cameras, the tile's rays and candidate depths into shared memory (both
+// kernels, before cv_plan).
+__device__ __forceinline__ void cv_load_tile(const CvArgs& a, const CvLayout& L,
+                                             unsigned char* smem, int b, int ty0, int tx0) {
+  float* view = reinterpret_cast<float*>(smem + L.view);
+  float* ray = reinterpret_cast<float*>(smem + L.ray);
+  float* dep = reinterpret_cast<float*>(smem + L.dep);
+  const int tid = threadIdx.x;
+  const int hw = a.H * a.W;
+  if (tid < a.V) cv_load_view(a, b, b * a.V + tid, view + tid * CV_VIEW);
+  for (int i = tid; i < 3 * CV_TP; i += CV_THREADS) {
+    const int k = i / CV_TP, p = i - k * CV_TP;
+    const int y = ty0 + p / CV_TILE_W, x = tx0 + p % CV_TILE_W;
+    ray[i] = y < a.H && x < a.W ? __ldg(a.rays + ((size_t)b * 3 + k) * hw + y * a.W + x) : 0.f;
+  }
+  for (int i = tid; i < CV_TP * a.D; i += CV_THREADS) {
+    const int p = i / a.D, d = i - p * a.D;
+    const int y = ty0 + p / CV_TILE_W, x = tx0 + p % CV_TILE_W;
+    dep[i] = y < a.H && x < a.W ? __ldg(a.d + ((size_t)b * hw + y * a.W + x) * a.dpix + d) : 0.f;
+  }
+  __syncthreads();
+}
+
+// Where step 3 starts: the first view with jobs (V if none), its first job's
+// window copies issued into the first buffer.
+template <typename T, bool MS>
+__device__ __forceinline__ int cv_first(const CvArgs& a, const CvLayout& L, unsigned char* smem,
+                                        int b) {
+  const int4* box = reinterpret_cast<const int4*>(smem + L.box);
+  const int* count = reinterpret_cast<const int*>(smem + L.count);
   int v = 0;
   while (v < a.V && count[v] == 0) ++v;
-  int j = 0;
-  if (v < a.V) cv_stage<T>(a, b * a.V + v, box[v * a.D], smem + L.win0);
+  if (v < a.V) cv_stage<T, MS>(a, b * a.V + v, box[v * a.D], smem + L.win0);
   hp::cp_async_commit();
+  return v;
+}
+
+// 3. the jobs from view v on, the next job's window in flight while
+// match(job, window, v, valid) runs on one, each sample's geometry in
+// shared memory first.
+template <typename T, bool MS, typename Match>
+__device__ __forceinline__ void cv_jobs(const CvArgs& a, const CvLayout& L, unsigned char* smem,
+                                        int b, int ty0, int tx0, int v, Match&& match) {
+  const int4* box = reinterpret_cast<const int4*>(smem + L.box);
+  const int* count = reinterpret_cast<const int*>(smem + L.count);
+  float4* geom = reinterpret_cast<float4*>(smem + L.geom);
+  const float* view = reinterpret_cast<const float*>(smem + L.view);
+  const float* ray = reinterpret_cast<const float*>(smem + L.ray);
+  const float* dep = reinterpret_cast<const float*>(smem + L.dep);
+  int j = 0;
+  for (int it = 0; v < a.V; ++it) {
+    int nv = v, nj = j + 1;
+    if (nj == count[v]) {
+      nj = 0;
+      do ++nv; while (nv < a.V && count[nv] == 0);
+    }
+    const int4 job = box[v * a.D + j];
+    unsigned char* cur = smem + ((it & 1) ? L.win1 : L.win0);
+    unsigned char* next = smem + ((it & 1) ? L.win0 : L.win1);
+    if (nv < a.V) cv_stage<T, MS>(a, b * a.V + nv, box[nv * a.D + nj], next);
+    hp::cp_async_commit();
+    cv_geometry(a, view + v * CV_VIEW, ray, dep, job.x & 0xffff, job.x >> 16, ty0, tx0, geom);
+    hp::cp_async_wait<1>();
+    __syncthreads();
+    match(job, cur, v, view[v * CV_VIEW + 22]);
+    __syncthreads();
+    v = nv;
+    j = nj;
+  }
+  hp::cp_async_wait_all();
+}
+
+// Blocks an SM: three where a lane holds at most two 16-byte chunks of the
+// feature (up to 88 registers without the bound), else two.
+template <typename T, int NCH>
+__global__ void __launch_bounds__(CV_THREADS, NCH <= 2 ? 3 : 2) cost_volume_cw_kernel(CvArgs a) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const CvLayout L = cv_layout(a.V, a.D);
+  float* acc = reinterpret_cast<float*>(smem + L.acc);
+  const float4* geom = reinterpret_cast<const float4*>(smem + L.geom);
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int ty0 = (blockIdx.x / a.tiles_x) * CV_TILE_H;
+  const int tx0 = (blockIdx.x % a.tiles_x) * CV_TILE_W;
+  const int hw = a.H * a.W;
+
+  for (int i = tid; i < a.D * (CV_TP + 1); i += CV_THREADS) acc[i] = 0.f;
+  cv_load_tile(a, L, smem, b, ty0, tx0);
+  cv_plan(a, L, smem, ty0, tx0, (a.C + 2) * (int)sizeof(T));
+  const int v0 = cv_first<T, true>(a, L, smem, b);
 
   // the pixel's feature, a quarter of its 16-byte chunks a lane
   const int g = tid / CV_LANES, l = tid % CV_LANES;
@@ -487,30 +582,15 @@ __global__ void __launch_bounds__(CV_THREADS, NCH <= 2 ? 3 : 2) cost_volume_cw_k
     }
   }
 
-  for (int it = 0; v < a.V; ++it) {
-    int nv = v, nj = j + 1;
-    if (nj == count[v]) {
-      nj = 0;
-      do ++nv; while (nv < a.V && count[nv] == 0);
-    }
-    const int4 job = box[v * a.D + j];
-    unsigned char* cur = smem + ((it & 1) ? L.win1 : L.win0);
-    unsigned char* next = smem + ((it & 1) ? L.win0 : L.win1);
-    if (nv < a.V) cv_stage<T>(a, b * a.V + nv, box[nv * a.D + nj], next);
-    hp::cp_async_commit();
-    cv_geometry(a, view + v * CV_VIEW, ray, dep, job.x & 0xffff, job.x >> 16, ty0, tx0, geom);
-    hp::cp_async_wait<1>();
-    __syncthreads();
-    const float valid = view[v * CV_VIEW + 22];
-    if (job.w)
-      cv_match<T, NCH, true>(a, b * a.V + v, valid, job, cur, geom, acc, q, off, g, l);
-    else
-      cv_match<T, NCH, false>(a, b * a.V + v, valid, job, cur, geom, acc, q, off, g, l);
-    __syncthreads();
-    v = nv;
-    j = nj;
-  }
-  hp::cp_async_wait_all();
+  cv_jobs<T, true>(a, L, smem, b, ty0, tx0, v0,
+                   [&](int4 job, const unsigned char* cur, int v, float valid) {
+                     if (job.w)
+                       cv_match<T, NCH, true>(a, b * a.V + v, valid, job, cur, geom, acc, q, off,
+                                              g, l);
+                     else
+                       cv_match<T, NCH, false>(a, b * a.V + v, valid, job, cur, geom, acc, q,
+                                               off, g, l);
+                   });
 
   // 4. the tile's costs
   for (int i = tid; i < CV_TP * a.D; i += CV_THREADS) {
@@ -521,15 +601,151 @@ __global__ void __launch_bounds__(CV_THREADS, NCH <= 2 ? 3 : 2) cost_volume_cw_k
   }
 }
 
+// The sweep gradient's samples of one job, one at a time: the lane adds
+// gbar * valid * w times its channels of each corner to its sums s. Corners
+// outside the map weigh 0 and read a pixel of the map in their place, as in
+// cv_dot; a sample that misses the map is skipped.
+template <typename T, int NCH, bool STAGED>
+__device__ __forceinline__ void sg_gather(const CvArgs& a, int bv, float valid, int4 job,
+                                          const unsigned char* win, const float4* geom,
+                                          const float* gb, float (&s)[NCH][16 / sizeof(T)],
+                                          const int (&off)[NCH], int g) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int d0 = job.x & 0xffff, nd = job.x >> 16;
+  const int xlo = job.y & 0xffff, ylo = job.y >> 16;
+  const int pitch = STAGED ? (job.z & 0xffff) : a.W;
+  const T* src = STAGED ? reinterpret_cast<const T*>(win)
+                        : static_cast<const T*>(a.src) + (size_t)bv * a.H * a.W * a.C;
+  for (int dd = 0; dd < nd; ++dd) {
+    const float4 gm = geom[g * nd + dd];
+    if (!cv_hit(gm)) continue;
+    const float gv = gb[(d0 + dd) * (CV_TP + 1) + g] * valid;
+    const int packed = __float_as_int(gm.x);
+    const int x0 = (int)(short)(packed & 0xffff), y0 = packed >> 16;
+    const bool inx[2] = {x0 >= 0, x0 + 1 < a.W};
+    const bool iny[2] = {y0 >= 0, y0 + 1 < a.H};
+    const int at0 = STAGED ? (y0 - ylo) * pitch + (x0 - xlo) : y0 * pitch + x0;
+#pragma unroll
+    for (int cy = 0; cy < 2; ++cy) {
+#pragma unroll
+      for (int cx = 0; cx < 2; ++cx) {
+        const bool in = iny[cy] && inx[cx];
+        const float wt = in ? gv * ((cy ? gm.z : 1.f - gm.z) * (cx ? gm.y : 1.f - gm.y)) : 0.f;
+        const T* f = src + (size_t)(in ? at0 + cy * pitch + cx : 0) * a.C;
+#pragma unroll
+        for (int k = 0; k < NCH; ++k) {
+          if (off[k] >= 0) {
+            float v[VEC];
+            unpack(STAGED ? *reinterpret_cast<const uint4*>(f + off[k]) : ldg16(f + off[k]), v, T());
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) s[k][e] = fmaf(wt, v[e], s[k][e]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The sweep gradient with respect to the reference features: the forward's
+// tiles, plan and windows (a staged pixel C channels), a lane's share of a
+// pixel's C sums in registers, written once.
+template <typename T, int NCH>
+__global__ void __launch_bounds__(CV_THREADS, NCH <= 2 ? 3 : 2) sweep_grad_ref_kernel(CvArgs a) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const CvLayout L = cv_layout(a.V, a.D);
+  float* gb = reinterpret_cast<float*>(smem + L.acc);
+  const float4* geom = reinterpret_cast<const float4*>(smem + L.geom);
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int ty0 = (blockIdx.x / a.tiles_x) * CV_TILE_H;
+  const int tx0 = (blockIdx.x % a.tiles_x) * CV_TILE_W;
+  const int hw = a.H * a.W;
+
+  // the tile's cotangent, laid out as the forward's accumulator
+  for (int i = tid; i < CV_TP * a.D; i += CV_THREADS) {
+    const int p = i / a.D, d = i - p * a.D;
+    const int y = ty0 + p / CV_TILE_W, x = tx0 + p % CV_TILE_W;
+    gb[d * (CV_TP + 1) + p] =
+        y < a.H && x < a.W ? __ldg(a.gbar + ((size_t)b * hw + y * a.W + x) * a.D + d) : 0.f;
+  }
+  cv_load_tile(a, L, smem, b, ty0, tx0);
+  cv_plan(a, L, smem, ty0, tx0, a.C * (int)sizeof(T));
+  const int v0 = cv_first<T, false>(a, L, smem, b);
+
+  const int g = tid / CV_LANES, l = tid % CV_LANES;
+  const int swz = (g & 1) ? a.swz : 0;
+  float s[NCH][VEC];
+  int off[NCH];
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    const int ch = (k * CV_LANES + l) ^ swz;
+    off[k] = ch < a.C / VEC ? ch * VEC : -1;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) s[k][e] = 0.f;
+  }
+
+  cv_jobs<T, false>(a, L, smem, b, ty0, tx0, v0,
+                    [&](int4 job, const unsigned char* cur, int v, float valid) {
+                      if (job.w)
+                        sg_gather<T, NCH, true>(a, b * a.V + v, valid, job, cur, geom, gb, s,
+                                                off, g);
+                      else
+                        sg_gather<T, NCH, false>(a, b * a.V + v, valid, job, cur, geom, gb, s,
+                                                 off, g);
+                    });
+
+  // 4. the pixel's gradient
+  const int y = ty0 + g / CV_TILE_W, x = tx0 + g % CV_TILE_W;
+  if (y < a.H && x < a.W) {
+    float* o = a.out + ((size_t)b * hw + y * a.W + x) * a.C;
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      if (off[k] >= 0) {
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4)
+          *reinterpret_cast<float4*>(o + off[k] + e) =
+              make_float4(s[k][e], s[k][e + 1], s[k][e + 2], s[k][e + 3]);
+      }
+    }
+  }
+}
+
 template <typename T, int NCH>
 int launch_cv(const CvArgs& a, cudaStream_t s) {
   const int smem = cv_layout(a.V, a.D).total;
-  cudaError_t err = cudaFuncSetAttribute(cost_volume_cw_kernel<T, NCH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  void (*kernel)(CvArgs) =
+      a.gbar ? &sweep_grad_ref_kernel<T, NCH> : &cost_volume_cw_kernel<T, NCH>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles_y = (a.H + CV_TILE_H - 1) / CV_TILE_H;
-  cost_volume_cw_kernel<T, NCH><<<dim3(a.tiles_x * tiles_y, a.B), CV_THREADS, smem, s>>>(a);
+  kernel<<<dim3(a.tiles_x * tiles_y, a.B), CV_THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Both entry points: the shapes the kernels take (C a multiple of 16 bytes,
+// at most 128; D at most 256; maps under 32768 pixels a side; the layout
+// within the block's shared memory), then the launch by type and by the
+// 16-byte chunks of a pixel's feature that a lane holds.
+inline int cv_launch(int dtype, CvArgs a, cudaStream_t s) {
+  const int elem = dtype == 1 ? 2 : 4;
+  if (a.C < 1 || a.C * elem % 16 || a.C > CV_MAX_C || a.D < 1 || a.D > CV_MAX_D || a.V < 1 ||
+      a.v_total < 1 || a.H > 32767 || a.W > 32767 || cv_layout(a.V, a.D).total > CV_SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  if (a.B == 0 || a.H == 0 || a.W == 0) return (int)cudaSuccess;
+  const int chunks = a.C * elem / 16;
+  a.tiles_x = (a.W + CV_TILE_W - 1) / CV_TILE_W;
+  a.swz = chunks % (2 * CV_LANES) == 0 ? CV_LANES : 0;
+  const int per_lane = (chunks + CV_LANES - 1) / CV_LANES;   // 16-byte chunks a lane
+  if (dtype == 1) {
+    if (per_lane <= 1) return launch_cv<bf16, 1>(a, s);
+    if (per_lane <= 2) return launch_cv<bf16, 2>(a, s);
+    return launch_cv<bf16, 4>(a, s);
+  }
+  if (per_lane <= 1) return launch_cv<float, 1>(a, s);
+  if (per_lane <= 2) return launch_cv<float, 2>(a, s);
+  if (per_lane <= 4) return launch_cv<float, 4>(a, s);
+  return launch_cv<float, 8>(a, s);
 }
 
 }  // namespace mt
@@ -544,27 +760,27 @@ extern "C" int mt_cost_volume_cw(int dtype, const void* d, const void* ref, cons
                                  void* out, int B, int V, int H, int W, int C, int D,
                                  int v_total, float kappa, void* stream) {
   using namespace mt;
-  const int elem = dtype == 1 ? 2 : 4;
-  if (C < 1 || C * elem % 16 || C > CV_MAX_C || D < 1 || D > CV_MAX_D || V < 1 || v_total < 1 || H > 32767 ||
-      W > 32767 || cv_layout(V, D).total > CV_SMEM_LIMIT)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || H == 0 || W == 0) return (int)cudaSuccess;
-  const int chunks = C * elem / 16;
   CvArgs a{static_cast<const float*>(d), ref, src, ms,
            static_cast<const float*>(R), static_cast<const float*>(t),
            static_cast<const float*>(valid), static_cast<const float*>(K),
-           static_cast<const float*>(rays), static_cast<float*>(out),
-           B, V, H, W, C, D, v_total, kappa, (W + CV_TILE_W - 1) / CV_TILE_W,
-           chunks % (2 * CV_LANES) == 0 ? CV_LANES : 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per_lane = (chunks + CV_LANES - 1) / CV_LANES;   // 16-byte chunks a lane
-  if (dtype == 1) {
-    if (per_lane <= 1) return launch_cv<bf16, 1>(a, s);
-    if (per_lane <= 2) return launch_cv<bf16, 2>(a, s);
-    return launch_cv<bf16, 4>(a, s);
-  }
-  if (per_lane <= 1) return launch_cv<float, 1>(a, s);
-  if (per_lane <= 2) return launch_cv<float, 2>(a, s);
-  if (per_lane <= 4) return launch_cv<float, 4>(a, s);
-  return launch_cv<float, 8>(a, s);
+           static_cast<const float*>(rays), nullptr, static_cast<float*>(out),
+           B, V, H, W, C, D, D, v_total, kappa, 0, 0};
+  return cv_launch(dtype, a, static_cast<cudaStream_t>(stream));
+}
+
+// The sweep gradient with respect to the reference features. dtype: 0 f32,
+// 1 bf16 (of src); depth (D,), gbar (B, H, W, D) and the geometry f32; out
+// (B, H, W, C) f32. Returns as mt_cost_volume_cw, on the same shapes.
+extern "C" int mt_sweep_grad_ref(int dtype, const void* depth, const void* src,
+                                 const void* gbar, const void* R, const void* t,
+                                 const void* valid, const void* K, const void* rays,
+                                 void* out, int B, int V, int H, int W, int C, int D,
+                                 void* stream) {
+  using namespace mt;
+  CvArgs a{static_cast<const float*>(depth), nullptr, src, nullptr,
+           static_cast<const float*>(R), static_cast<const float*>(t),
+           static_cast<const float*>(valid), static_cast<const float*>(K),
+           static_cast<const float*>(rays), static_cast<const float*>(gbar),
+           static_cast<float*>(out), B, V, H, W, C, D, 0, 1, 1.f, 0, 0};
+  return cv_launch(dtype, a, static_cast<cudaStream_t>(stream));
 }

@@ -13,6 +13,7 @@ One operator per C entry point of ``build._SIGNATURES``, defined with
 ``psm_conv``           ``mt_psm_conv`` (F-Net chains, transitions)
 ``spp_tail``           ``mt_spp_tail``
 ``sweep_grad_src``     ``mt_sweep_grad_src``
+``sweep_grad_ref``     ``mt_sweep_grad_ref`` (in ``cost_volume_cw.cu``)
 ``dw_conv``            ``mt_dw_conv``
 ``mbconv_block``       ``mt_mbconv_block``, once a stacked block
 ``res_block``          ``mt_res_block``
@@ -68,6 +69,9 @@ SCHEMAS = {
     "sweep_grad_src": "(Tensor depth, Tensor ref, Tensor gbar, Tensor R, "
                       "Tensor t, Tensor valid, Tensor K, Tensor rays) "
                       "-> Tensor",
+    "sweep_grad_ref": "(Tensor depth, Tensor src, Tensor gbar, Tensor R, "
+                      "Tensor t, Tensor valid, Tensor K, Tensor rays) "
+                      "-> Tensor",
     "dw_conv": "(Tensor x, Tensor w) -> Tensor",
     "mbconv_block": "(Tensor x, Tensor wpw, Tensor s1, Tensor wdw, "
                     "Tensor s2, Tensor wse1, Tensor bse1, Tensor wse2, "
@@ -88,6 +92,7 @@ COUNTERS = {"conv3x3_bnact": "conv3x3_bnact.conv3x3_bnact",
             "expand_block": "psm_blocks.expand_block",
             "spp_tail": "spp_tail.spp_tail",
             "sweep_grad_src": "sweep_grad_src.sweep_grad_src",
+            "sweep_grad_ref": "sweep_grad_ref.sweep_grad_ref",
             "dw_conv": "dw_conv.dw_conv",
             "mbconv_block": "mbconv_chain.mbconv_chain",
             "res_block": "res_block.res_block"}
@@ -530,6 +535,46 @@ def _sweep_grad_src(depth, ref, gbar, R, t, valid, K, rays):
 def _sweep_grad_src_fake(depth, ref, gbar, R, t, valid, K, rays):
     B, H, W, C = ref.shape
     return ref.new_empty((B, R.shape[1], H, W, C), dtype=F32)
+
+
+# ---- sweep_grad_ref ---------------------------------------------------------
+
+@_impl("sweep_grad_ref")
+def _sweep_grad_ref(depth, src, gbar, R, t, valid, K, rays):
+    what = "sweep_grad_ref"
+    dev, mdt = src.device, src.dtype
+    code = _dtype(src, what)
+    if src.dim() != 5 or depth.dim() != 1:
+        raise ValueError(f"{what}: src_feat must be (B, V, H, W, C) and "
+                         "d_center (D,)")
+    B, V, H, W, C = src.shape
+    D = depth.shape[0]
+    MAX_C, MAX_D = _mod("cost_volume_cw").MAX_C, _mod("cost_volume_cw").MAX_D
+    if C % (16 // src.element_size()) or C > MAX_C:
+        raise ValueError(f"{what}: C={C} must be a multiple of 16 bytes and "
+                         f"at most {MAX_C}")
+    if D > MAX_D:
+        raise ValueError(f"{what}: D={D} is over {MAX_D}")
+    for tt, name, shape, dt in (
+            (depth, "d_center", (D,), F32),
+            (src, "src_feat", (B, V, H, W, C), mdt),
+            (gbar, "gbar", (B, H, W, D), F32), (R, "R", (B, V, 3, 3), F32),
+            (t, "t", (B, V, 3), F32), (valid, "is_valid", (B, V), F32),
+            (K, "intM", (B, 3, 3), F32), (rays, "rays2d", (B, 3, H * W), F32)):
+        _check(tt, name, shape, dt, dev, 4)
+    out = torch.empty((B, H, W, C), dtype=F32, device=dev)
+    _launch("mt_sweep_grad_ref", what, dev, code, depth.data_ptr(),
+            src.data_ptr(), gbar.data_ptr(), R.data_ptr(), t.data_ptr(),
+            valid.data_ptr(), K.data_ptr(), rays.data_ptr(), out.data_ptr(),
+            B, V, H, W, C, D)
+    _count("sweep_grad_ref")
+    return out
+
+
+@_fake("sweep_grad_ref")
+def _sweep_grad_ref_fake(depth, src, gbar, R, t, valid, K, rays):
+    B, _, H, W, C = src.shape
+    return src.new_empty((B, H, W, C), dtype=F32)
 
 
 # ---- dw_conv ----------------------------------------------------------------

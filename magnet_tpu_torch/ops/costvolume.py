@@ -16,56 +16,25 @@ pre-softmax cost already divided by V.
 
 Backward (``SweepCost``): the cotangent of the pre-softmax sum is the
 incoming one divided by V. The source features' gradient is the transpose of
-the bilinear warp, ``kernels.sweep_grad_src`` (a CUDA kernel on the card);
-the reference features' gradient is a re-gather, sum over views and planes of
-``gbar * valid * sampled_src``, in plain PyTorch as the JAX package leaves it
-to XLA, chunked over D so that its transient stays bounded. Depths, poses,
-validity, intrinsics and rays get no gradient.
+the bilinear warp, ``kernels.sweep_grad_src``; the reference features'
+gradient is a re-gather, sum over views and planes of ``gbar * valid *
+sampled_src``, ``kernels.sweep_grad_ref`` (the JAX package leaves it to XLA).
+On the card each is one CUDA kernel launch. Depths, poses, validity,
+intrinsics and rays get no gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
-from magnet_tpu_torch.kernels import cost_volume_cw as cvk
 from magnet_tpu_torch.kernels.cost_volume_cw import cost_volume_cw
+from magnet_tpu_torch.kernels.sweep_grad_ref import sweep_grad_ref
 from magnet_tpu_torch.kernels.sweep_grad_src import sweep_grad_src
-from magnet_tpu_torch.ops.resample import bilinear_gather
 from magnet_tpu_torch.utils.profiling import stage
 
 # sigma of the forward: |z - 0| < 1e30 * (sum of in-image weights) holds for
 # every sample that touches the map
 NO_CHECK_SIGMA = 1e30
-# bound on the reference gradient's per-chunk transient (the four sampled
-# corners and their blend for one (batch, view) pair)
-CHUNK_BYTES = 1 << 30
-
-
-def sweep_grad_ref(d_center: torch.Tensor, src_feat: torch.Tensor,
-                   gbar: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
-                   is_valid: torch.Tensor, intM: torch.Tensor,
-                   rays2d: torch.Tensor) -> torch.Tensor:
-    """Gradient of the pre-softmax sweep sum with respect to the reference
-    features: (B, H, W, C) f32 = sum over v and d of ``gbar[b, q, d] *
-    valid[b, v] * src_v`` sampled at the projection of (q, d). gbar:
-    (B, H, W, D); the other arguments as in ``cost_volume_sweep``."""
-    f32 = torch.float32
-    B, V, H, W, C = src_feat.shape
-    D, hw = d_center.shape[0], H * W
-    chunk = max(1, min(D, CHUNK_BYTES // (6 * hw * C * 4)))
-    out = torch.zeros((B, hw, C), dtype=f32, device=src_feat.device)
-    for b in range(B):
-        g_b = gbar[b].reshape(hw, D).to(f32)
-        for v in range(V):
-            for d0 in range(0, D, chunk):
-                dc = d_center[d0:d0 + chunk].to(f32)
-                x, y, _ = cvk.project(intM[b].to(f32), R[b, v].to(f32),
-                                      t[b, v].to(f32), rays2d[b].to(f32),
-                                      dc.expand(hw, -1), H, W)
-                sampled = bilinear_gather(src_feat[b, v], x, y)  # (hw, d, C)
-                g = g_b[:, d0:d0 + chunk] * is_valid[b, v].to(f32)
-                out[b] += torch.bmm(g[:, None, :], sampled)[:, 0]
-    return out.reshape(B, H, W, C)
 
 
 def sweep_forward_args(d_center: torch.Tensor, ref_feat: torch.Tensor,

@@ -7,7 +7,7 @@
   kernels' plain versions, the same calls in the same order) and to the
   JAX forward on the same weights at ``tests/test_torch_magnet.py``'s f32
   limits (1e-4 * max|ref| on all but 1 % of the pixels);
-* each of the twelve operators on ``meta`` tensors: its fake output has the
+* each of the thirteen operators on ``meta`` tensors: its fake output has the
   shape and dtype of its plain version's output on the CPU, in f32 and
   bf16; no operator runs on CPU tensors;
 * ``make_multistream_forward`` with two streams against the single-stream
@@ -32,6 +32,7 @@ from magnet_tpu_torch.kernels import ops
 from magnet_tpu_torch.kernels import psm_blocks as pb
 from magnet_tpu_torch.kernels import res_block as rbk
 from magnet_tpu_torch.kernels import spp_tail as st
+from magnet_tpu_torch.kernels import sweep_grad_ref as sgr
 from magnet_tpu_torch.kernels import sweep_grad_src as sgk
 from magnet_tpu_torch.kernels import upsample_mask as uk
 from magnet_tpu_torch.serve import export as ex
@@ -214,6 +215,14 @@ def _sweep_case(g, dt):
             (dc, ref, gbar, *geo))
 
 
+def _sweep_ref_case(g, dt):
+    dc = torch.linspace(1.0, 5.0, 5)
+    src, gbar = _r(g, 1, 2, 4, 6, 16, dtype=dt), _r(g, 1, 4, 6, 5)
+    geo = _geometry(g)
+    return (sgr.sweep_grad_ref_ref(dc, src, gbar, *geo),
+            (dc, src, gbar, *geo))
+
+
 def _dw_case(g, dt):
     x, w = _r(g, 1, 6, 8, 16, dtype=dt), _r(g, 3, 3, 16, dtype=dt)
     return dwk.dw_conv_ref(x, w), (x, w)
@@ -242,7 +251,8 @@ CASES = {"conv3x3_bnact": _conv_case, "head_chain": _head_case,
          "cost_volume_cw": _cv_case, "gnet_update": _gnet_case,
          "upsample_mask": _up_case, "upsample_mask_bwd": _up_bwd_case,
          "psm_conv": _psm_case, "spp_tail": _spp_case,
-         "sweep_grad_src": _sweep_case, "dw_conv": _dw_case,
+         "sweep_grad_src": _sweep_case, "sweep_grad_ref": _sweep_ref_case,
+         "dw_conv": _dw_case,
          "mbconv_block": _mb_case, "res_block": _res_case}
 
 
@@ -262,7 +272,7 @@ def _leaves(a):
 
 def test_one_operator_per_entry_point():
     assert set(CASES) == set(ops.op_names())
-    assert len(ops.op_names()) == 12
+    assert len(ops.op_names()) == 13
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])

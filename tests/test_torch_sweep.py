@@ -1,5 +1,6 @@
-"""The port's F-Net training sweep (magnet_tpu_torch/ops/costvolume.py and
-kernels/sweep_grad_src.py) against the JAX package, on the CPU, in f32.
+"""The port's F-Net training sweep (magnet_tpu_torch/ops/costvolume.py,
+kernels/sweep_grad_src.py and kernels/sweep_grad_ref.py) against the JAX
+package, on the CPU, in f32.
 
 Inputs are made from a numpy seed as in tests/test_costvolume.py::_setup.
 Tolerances are the JAX tests' own: the forward to atol 2e-4
@@ -17,10 +18,20 @@ max|ref| (sums of the same f32 products in another order), at small
 motion, a large roll, a large baseline and planes that cross behind the
 source camera.
 
-CUDA (marker ``cuda``, skipped without a card): the kernel against its plain
-version, f32 to 1e-4 * max|ref| of the output (atomic adds in any order) and
-bf16 features to 2e-2 * max|ref| (the features rounded once), and the rule
-that a CUDA tensor never reaches the plain version. These import no JAX:
+The reference features' gradient (``sweep_grad_ref``): CPU tensors take
+its plain version and never reach the operator (whose fake
+``tests/test_torch_serve.py`` holds with the others'); its card cases (``GRAD_REF_CASES``) are shown on the CPU to hold
+what they name: staged windows, samples outside the map and behind the
+source camera, and global jobs at every width and type the card tests run.
+
+CUDA (marker ``cuda``, skipped without a card): each kernel against its
+plain version. Row 10: f32 to 1e-4 * max|ref| of the output (atomic adds in
+any order) and bf16 features to 2e-2 * max|ref| (the features rounded
+once). The reference gradient to 1e-4 * max|ref| in both types: both sides
+read the same feature values (bf16 widens exactly) and sum exact f32
+products in another order; two of its calls are equal bit for bit (no
+atomics), and a backward launches it once. A CUDA tensor never reaches a
+plain version. These import no JAX:
 ``python -m pytest --noconftest -m cuda tests/test_torch_sweep.py``.
 """
 
@@ -29,6 +40,7 @@ import pytest
 import torch
 
 from magnet_tpu_torch.kernels import cost_volume_cw as cvk
+from magnet_tpu_torch.kernels import sweep_grad_ref as sgr
 from magnet_tpu_torch.kernels import sweep_grad_src as sgk
 from magnet_tpu_torch.ops import costvolume as cv
 from test_torch_kernels import torch_threads  # noqa: F401
@@ -181,8 +193,8 @@ WALKS = {"small_motion": {}, "roll": dict(roll=0.9),
          "behind_camera": dict(t_shift=(0.0, 0.0, -2.5))}
 
 
-def _walk_case(seed, walk, **shape):
-    kw = dict(shape, **WALKS[walk])
+def _walk_case(seed, walk, cases=WALKS, **shape):
+    kw = dict(shape, **cases[walk])
     t_shift = kw.pop("t_shift", (0.0, 0.0, 0.0))
     case = _setup(seed, **kw)
     case[4] = case[4] + np.asarray(t_shift, np.float32)
@@ -259,6 +271,64 @@ def test_merged_walk_counts_what_a_static_footprint_merges():
     assert reductions <= 4 * 5 * 7
 
 
+# The reference gradient's card cases: small motion (staged windows), a
+# 0.9 rad roll with the near planes behind the source camera (samples
+# outside the map, negative denominators), and a zoom (the source camera
+# 0.9 closer: a tile's samples spread over more than a window holds, so
+# global jobs), at a map larger than any window.
+GRAD_REF_CASES = {"small_motion": {},
+                  "roll_behind_camera": dict(roll=0.9,
+                                             t_shift=(0.0, 0.0, -2.5)),
+                  "zoom": dict(t_shift=(0.0, 0.0, -0.9))}
+GRAD_REF_SHAPE = dict(B=2, V=3, D=40, H=48, W=64)
+GRAD_REF_WIDTHS = [8, 64, 128]
+
+
+def _grad_ref_jobs(case, C, dtype):
+    """(staged, global) jobs of the kernel's plan for a card case at C
+    channels of ``dtype``: the cost volume's plan with C channels a staged
+    pixel."""
+    d, _, src, R, t, valid, K, rays, _ = [_t(a) for a in case]
+    B, V, H, W, _ = src.shape
+    src = torch.zeros(B, V, H, W, C, dtype=dtype)
+    dvol = d.expand(B, H, W, d.shape[0])
+    plan = cvk.cost_volume_cw_plan(dvol, None, src, None, None, R, t, valid,
+                                   K, rays, extra=0)
+    return plan["staged_jobs"], plan["global_jobs"]
+
+
+def test_grad_ref_cpu_tensors_take_the_plain_version(monkeypatch):
+    class Boom:
+        def __getattr__(self, name):
+            raise AssertionError("a CPU tensor reached an operator")
+    monkeypatch.setattr(sgr, "OPS", Boom())
+    case = _setup(5, B=1, D=3, H=8, W=8, C=4)
+    d, _, src, *geo, up = [_t(a) for a in case]
+    sgr.sweep_grad_ref.launches = 0
+    out = sgr.sweep_grad_ref(d, src, up, *geo)
+    np.testing.assert_array_equal(out.numpy(),
+                                  sgr.sweep_grad_ref_ref(d, src, up,
+                                                         *geo).numpy())
+    assert out.shape == (1, 8, 8, 4) and out.dtype == torch.float32
+    assert sgr.sweep_grad_ref.launches == 0
+
+
+@pytest.mark.parametrize("name", list(GRAD_REF_CASES))
+def test_grad_ref_cases_hold_what_they_name(name):
+    case = _walk_case(6, name, GRAD_REF_CASES, C=8, **GRAD_REF_SHAPE)
+    flips, inside, outside, _ = _walk_stats(case)
+    jobs = {(C, dt): _grad_ref_jobs(case, C, dt) for C in GRAD_REF_WIDTHS
+            for dt in (torch.float32, torch.bfloat16)}
+    assert inside > 0
+    if name == "small_motion":
+        assert flips == 0 and jobs[64, torch.bfloat16][0] > 0
+    if name == "roll_behind_camera":
+        assert flips > 0 and outside > 0
+    if name == "zoom":
+        assert all(g > 0 for _, g in jobs.values())
+        assert jobs[8, torch.bfloat16][0] > 0
+
+
 # ---- on the card -------------------------------------------------------
 
 @pytest.fixture
@@ -302,4 +372,52 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
     torch.cuda.synchronize()
     with pytest.raises(ValueError):
         sgk.sweep_grad_src(d, torch.zeros(1, 8, 8, 130, device=cuda), up,
+                           *geo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(GRAD_REF_CASES))
+@pytest.mark.parametrize("C", GRAD_REF_WIDTHS)
+def test_grad_ref_kernel_matches_plain(cuda, dtype, name, C):
+    case = _walk_case(6, name, GRAD_REF_CASES, C=C, **GRAD_REF_SHAPE)
+    d, _, src, *geo, up = [_t(a, cuda) for a in case]
+    src = src.to(dtype)
+    before = sgr.sweep_grad_ref.launches
+    out = sgr.sweep_grad_ref(d, src, up, *geo)
+    torch.cuda.synchronize()
+    assert sgr.sweep_grad_ref.launches == before + 1
+    want = sgr.sweep_grad_ref_ref(d, src, up, *geo)
+    assert out.shape == want.shape and out.dtype == torch.float32
+    assert float(want.abs().max()) > 0.1
+    assert (out - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_grad_ref_calls_are_bit_identical(cuda):
+    case = _walk_case(7, "zoom", GRAD_REF_CASES, C=64, **GRAD_REF_SHAPE)
+    d, _, src, *geo, up = [_t(a, cuda) for a in case]
+    src = src.to(torch.bfloat16)
+    first = sgr.sweep_grad_ref(d, src, up, *geo)
+    assert torch.equal(first, sgr.sweep_grad_ref(d, src, up, *geo))
+
+
+@pytest.mark.cuda
+def test_grad_ref_backward_launches_once_and_never_the_plain_version(
+        cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(sgr, "sweep_grad_ref_ref", boom)
+    case = _setup(8, B=1, D=4, H=8, W=8, C=16)
+    d, ref, src, *geo, up = [_t(a, cuda) for a in case]
+    ref.requires_grad_(True)
+    src.requires_grad_(True)
+    before = sgr.sweep_grad_ref.launches
+    (cv.cost_volume_sweep(d, ref, src, *geo) * up).sum().backward()
+    torch.cuda.synchronize()
+    assert sgr.sweep_grad_ref.launches == before + 1
+    assert ref.grad.dtype == ref.dtype and bool(ref.grad.abs().max() > 0)
+    with pytest.raises(ValueError):
+        sgr.sweep_grad_ref(d, torch.zeros(1, 2, 8, 8, 130, device=cuda), up,
                            *geo)
