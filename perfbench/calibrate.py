@@ -39,12 +39,12 @@ def _train_pair(driver, precision="float32", rows=None):
 
 
 def control_numbers(driver):
+    out = {"fp8": driver.numbers("fp8")}
     if driver.unit == "train":
-        return {"fp8": _train_pair(driver, "fp8"),
-                "half_batch": _train_pair(
-                    driver, rows=driver.args.batch_size // 2),
-                "bf16": _train_pair(driver, "bfloat16")}
-    return {"fp8": driver.numbers("fp8")}
+        out["half_batch"] = _train_pair(driver,
+                                        rows=driver.args.batch_size // 2)
+        out["bf16"] = _train_pair(driver, "bfloat16")
+    return out
 
 
 def main(argv=None):

@@ -31,6 +31,7 @@ import time
 import torch
 
 from perfbench import inputs, judge, program, weights
+from perfbench.counts import model_flops
 from perfbench.reference import magnet as ref_magnet, nets
 from perfbench.reference.precision import Precision, plain_float32
 from perfbench.spans import Spans
@@ -169,6 +170,10 @@ class Driver:
 
     def units_of(self, forwards):
         return forwards * self.B
+
+    def model_flops_per_unit(self):
+        """One map's model FLOPs (``counts.model_flops.frame_flops``)."""
+        return model_flops.frame_flops(self.cfg["shape"])
 
     # ---- traced run --------------------------------------------------------
     def open_spans(self):

@@ -27,6 +27,7 @@ import time
 import torch
 
 from perfbench import inputs, judge, program, weights
+from perfbench.counts import model_flops
 from perfbench.reference import nets, train as ref_train
 from perfbench.reference.precision import Precision, plain_float32
 from perfbench.spans import Spans
@@ -159,6 +160,11 @@ class Driver:
     def units_of(self, steps):
         return steps
 
+    def model_flops_per_unit(self):
+        """One step's model FLOPs (``counts.model_flops.train_flops``)."""
+        return model_flops.train_flops(self.cfg["shape"],
+                                       self.args.batch_size)
+
     def open_spans(self):
         self.spans = Spans(self.device)
         if self.device.type == "cuda":
@@ -250,12 +256,19 @@ class Driver:
                          for n, p in ref.named_parameters()}
         return out
 
-    def numbers(self):
-        out = judge.train_numbers(self.kept, self.reference_out())
+    def numbers(self, subject="program"):
+        """``judge.train_numbers`` of the first steps and, with ``win_`` in
+        front, of the drawn window step, against the reference's: the
+        program's, or (``subject`` "fp8") the reference computed in fp8
+        put in the program's place."""
+        control = subject != "program"
+        first = self.reference_out(subject) if control else self.kept
+        out = judge.train_numbers(first, self.reference_out())
         if self.window_step is not None:
-            win = judge.train_numbers(self.window_out(),
-                                      self.reference_window())
-            out.update({"win_" + k: v for k, v in win.items()})
+            win = (self.reference_window(subject) if control
+                   else self.window_out())
+            out.update({"win_" + k: v for k, v in judge.train_numbers(
+                win, self.reference_window()).items()})
         return out
 
     def compared(self):

@@ -4,11 +4,13 @@ the check against the reference, and the result line.
 Everything is found by name from ``BENCHMARK.json``: the cell's entry names
 its configuration (``configs`` gives the file) and its traffic mix
 (``perfbench/traffic/<mix>.json``, whose ``driver`` names the general
-driver in ``perfbench/drivers/``); every metric, end-to-end or per-layer, is
-read by ``perfbench/metrics/<base>.py`` where ``<base>`` is the metric's
-name up to its first dot; the limits of the check are
-``perfbench/limits/<cell>.json``. A later cell or metric is a new file and
-a new entry, with no edit here.
+driver in ``perfbench/drivers/``: it builds the model, runs the traffic,
+counts the model's FLOPs a unit on its own plain reference and judges the
+outputs); every metric, end-to-end or per-layer, is read by
+``perfbench/metrics/<base>.py`` where ``<base>`` is the metric's name up to
+its first dot; the limits of the check are ``perfbench/limits/<cell>.json``.
+A later cell, metric or architecture is new files and new entries, with no
+edit here.
 
 With ``trace`` 0 the result carries the cell's end-to-end metrics; with 1
 the benchmark's spans are on during the window and ``profiled_units`` more
@@ -110,14 +112,6 @@ def driver_for(cfg, mix, seed, device):
     return mod.Driver(cfg, mix, seed, device)
 
 
-def model_flops(driver, cfg) -> float:
-    """Model FLOPs per unit of the driver's work."""
-    from perfbench.counts import model_flops as mf
-    if driver.unit == "train":
-        return mf.train_flops(cfg["shape"], driver.args.batch_size)
-    return mf.frame_flops(cfg["shape"])
-
-
 def check_device(cell) -> None:
     if not torch.cuda.is_available():
         raise CellError("no CUDA device: this benchmark measures the card")
@@ -153,7 +147,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
         driver.close_spans()
         from perfbench import trace as tracing
         obs.trace = tracing.profiled(driver, mix["profiled_units"])
-        obs.model_flops_per_unit = model_flops(driver, cfg)
+        obs.model_flops_per_unit = driver.model_flops_per_unit()
     metrics = {}
     for m in cell_metrics(bench, cell_name, trace):
         value = reader(m["name"])(obs)

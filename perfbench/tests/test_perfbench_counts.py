@@ -87,3 +87,24 @@ def test_model_flops_on_the_meta_device():
     assert bigger == pytest.approx(4 * frame, rel=0.02)
     train = model_flops.train_flops(shape, 2)
     assert train > 0
+
+
+# each cell's model FLOPs a unit as the harness counted them before the
+# drivers brought their own count
+CELL_FLOPS = {"scannet.video_b4": 2018706407040.0,
+              "kitti.video_b4": 1716458530432.0,
+              "scannet.train_fnet": 4079612805120.0}
+
+
+@pytest.mark.parametrize("cell", sorted(CELL_FLOPS))
+def test_each_driver_counts_its_cells_model_flops(cell):
+    from perfbench import harness
+    bench = harness.load_json(harness.ROOT / "BENCHMARK.json")
+    _, cfg, mix, _ = harness.find(bench, cell)
+    driver = harness.driver_for(cfg, mix, 1, "cpu")
+    if mix["driver"] == "train":
+        # the batch the flags state, as set-up parses it
+        from magnet_tpu_torch.core import config
+        driver.args = config.parse_args(config.build_train_fnet_parser(),
+                                        cfg["train_flags"])
+    assert driver.model_flops_per_unit() == CELL_FLOPS[cell]

@@ -19,8 +19,7 @@ TOL_CV = 1e-4
 
 @pytest.mark.parametrize("cell", ["scannet.video_b4", "kitti.video_b4"])
 def test_frames_agree_with_the_program_in_float32(cell, tiny):
-    H, W = (64, 96) if "scannet" in cell else (32, 128)
-    over = tiny("float32", H, W)
+    over = tiny("float32")
     r = harness.run(cell, 2147483659, 0.2, False, time.perf_counter(),
                     device="cpu", override=over)
     assert r["correct"]
