@@ -13,6 +13,8 @@ there): ``--mbconv_chain`` (``MAGNET_TPU_PALLAS_MB``), ``--dw_kernel``
 port reads and those the reference flag files set; argparse rejects the
 JAX package's others, and ``check_train_flags`` raises on a value whose
 feature the port does not have yet, rather than ignore it.
+``build_test_adabins_parser`` has the flags of the AdaBins evaluation
+(``test_adabins.py``), a model the JAX package does not have.
 """
 
 from __future__ import annotations
@@ -162,6 +164,41 @@ def build_test_magnet_parser() -> argparse.ArgumentParser:
                         "windows (eval/streaming.py)")
     p.add_argument("--cache_max_frames", type=int, default=48,
                    help="LRU capacity of the streaming feature cache")
+    return p
+
+
+def build_test_adabins_parser() -> argparse.ArgumentParser:
+    """The flags of ``test_adabins.py``: the published AdaBins evaluation's
+    (``evaluate.py``: ``--n_bins``, the depth range, the input size, the
+    KITTI crops) under the names the other entry points give them, the
+    checkpoint as ``--ADABINS_ckpt``, and the port's ``--compute_dtype``,
+    ``--device`` and trunk switches."""
+    p = _new_parser()
+    p.add_argument("--exp_name", required=True, type=str)
+    p.add_argument("--exp_dir", required=True, type=str)
+    p.add_argument("--ADABINS_ckpt", required=True, type=str,
+                   help="the published AdaBins .pt; empty keeps seeded "
+                        "weights")
+    p.add_argument("--n_bins", type=int, default=256)
+    p.add_argument("--dataset_name", required=True, type=str,
+                   help=DATASET_HELP)
+    p.add_argument("--dataset_path", required=True, type=str)
+    p.add_argument("--input_height", type=int, default=352)
+    p.add_argument("--input_width", type=int, default=1216)
+    p.add_argument("--min_depth", type=float, default=1e-3)
+    p.add_argument("--max_depth", type=float, default=80)
+    p.add_argument("--do_kb_crop", default=True, action="store_true")
+    p.add_argument("--eigen_crop", default=False, action="store_true")
+    p.add_argument("--garg_crop", default=False, action="store_true")
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   help="{bfloat16, float32}")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--synthetic_length", type=int, default=64,
+                   help="items per split for the synthetic dataset")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; 'cpu' runs the plain versions of "
+                        "the kernels")
+    add_trunk_switches(p)
     return p
 
 

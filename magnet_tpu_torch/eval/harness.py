@@ -1,7 +1,8 @@
 """Evaluation harness: the reference's per-image metric protocol.
 
 The port's copy of ``magnet_tpu/eval/harness.py::evaluate_dnet``,
-``evaluate_fnet`` and ``evaluate_magnet``. Per test image (batch 1):
+``evaluate_fnet`` and ``evaluate_magnet``, and ``evaluate_adabins``, the
+published AdaBins ``evaluate.py``'s protocol. Per test image (batch 1):
 forward, copy to the host, valid-pixel mask (+ optional garg/eigen crop),
 clamp/scrub the prediction, 12 metrics into a streaming average.
 """
@@ -36,6 +37,22 @@ def evaluate_dnet(forward: Callable, loader, args,
         gt = np.asarray(batch["depth"])[0]
         out = np.asarray(forward(batch["img"]))
         m = _eval_one(gt, out[0, :, :, 0], out[0, :, :, 1], args)
+        if m is not None:
+            avg.update(m)
+        if progress and i % 200 == 0:
+            print(f"  eval {i}/{len(loader)}", flush=True)
+    return avg.get_value()
+
+
+def evaluate_adabins(forward: Callable, loader, args,
+                     progress: bool = True) -> Dict[str, float]:
+    """forward(img (1, H, W, 3) numpy, (h, w)) -> the (h, w) depth at the
+    ground truth's size, numpy. No variance: the table's NLL is 0."""
+    avg = M.RunningAverageDict()
+    for i, batch in enumerate(loader):
+        gt = np.asarray(batch["depth"])[0]
+        m = _eval_one(gt, np.asarray(forward(batch["img"], gt.shape)), None,
+                      args)
         if m is not None:
             avg.update(m)
         if progress and i % 200 == 0:

@@ -10,7 +10,9 @@ the seeded weights (smoke runs without a checkpoint).
 ``build_magnet_f`` makes the F-Net training head with the JAX package's
 training initialisation (``init_train_weights_``), ``build_dnet_train`` the
 D-Net of stage 1 (``init_flax_weights_``) and ``build_magnet_train`` the
-stage-3 pipeline with its stage checkpoints loaded.
+stage-3 pipeline with its stage checkpoints loaded. ``build_adabins``
+makes the AdaBins model (``models/adabins.py``) and loads
+``--ADABINS_ckpt``, the published checkpoint or its state dict.
 ``cast_for_inference`` applies the compute-dtype policy;
 ``realistic_depth_init_`` puts seeded random weights into the depth regime
 of a trained network.
@@ -25,6 +27,7 @@ import torch.nn as nn
 
 from magnet_tpu_torch.compat.from_jax import load_state_dict
 from magnet_tpu_torch.core import config
+from magnet_tpu_torch.models.adabins import AdaBins
 from magnet_tpu_torch.models.dnet import DNet
 from magnet_tpu_torch.models.fnet import FNet
 from magnet_tpu_torch.models.magnet import Magnet, MagnetF
@@ -42,9 +45,11 @@ def _use_bn(args) -> bool:
 
 
 def init_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded random weights: fan-in scaled normal convs (activations stay
-    O(1) through the deep trunk), random positive BatchNorm statistics,
-    random GroupNorm scales and biases."""
+    """Seeded random weights: fan-in scaled normal convs and Linear layers
+    (attention's packed projection too; activations stay O(1) through the
+    deep trunk), random positive BatchNorm statistics, random GroupNorm and
+    LayerNorm scales and biases, and the port's own bare parameters
+    (positional encodings) uniform, as published."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -58,9 +63,21 @@ def init_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
                 m.bias.normal_(0.0, 0.1, generator=g)
                 m.running_mean.normal_(0.0, 0.5, generator=g)
                 m.running_var.uniform_(0.5, 2.0, generator=g)
-            elif isinstance(m, nn.GroupNorm):
+            elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
                 m.weight.uniform_(0.5, 1.5, generator=g)
                 m.bias.normal_(0.0, 0.1, generator=g)
+            elif isinstance(m, nn.Linear):
+                m.weight.normal_(0.0, m.in_features ** -0.5, generator=g)
+                m.bias.normal_(0.0, 0.02, generator=g)
+            elif isinstance(m, nn.MultiheadAttention):
+                m.in_proj_weight.normal_(0.0, m.embed_dim ** -0.5,
+                                         generator=g)
+                m.in_proj_bias.normal_(0.0, 0.02, generator=g)
+            elif not type(m).__module__.startswith("torch.nn."):
+                # a parameter of the port's own modules (positional
+                # encodings): uniform in [0, 1), as published (torch.rand)
+                for p in m.parameters(recurse=False):
+                    p.uniform_(0.0, 1.0, generator=g)
     return model
 
 
@@ -228,6 +245,22 @@ def load_magnet_checkpoints(model: Magnet, args) -> Magnet:
     return model
 
 
+def build_adabins(args, device: str = None) -> AdaBins:
+    """AdaBins from the parsed flags (``--n_bins``, ``--min_depth``,
+    ``--max_depth``, the trunk's kernel switches), seeded from ``--seed``,
+    in eval mode on ``device`` (default ``--device``), with
+    ``--ADABINS_ckpt`` loaded where it is given (``stage_state_dict``: the
+    published ``.pt``, its ``model`` entry and ``module.`` prefixes
+    unwrapped)."""
+    model = AdaBins(n_bins=args.n_bins, min_depth=args.min_depth,
+                    max_depth=args.max_depth, **trunk_switches(args))
+    init_weights_(model, getattr(args, "seed", 0))
+    model = model.eval().to(device or args.device)
+    if args.ADABINS_ckpt:
+        model.load_state_dict(stage_state_dict(args.ADABINS_ckpt))
+    return model
+
+
 def realistic_depth_init_(model: Magnet) -> Magnet:
     """Pin the Gaussian heads of a randomly initialised model to the regime
     of a trained one: the last depth-head conv is zeroed with the bias
@@ -249,9 +282,12 @@ def realistic_depth_init_(model: Magnet) -> Magnet:
 
 
 def cast_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """The compute-dtype policy: conv weights and biases in ``dtype``;
-    BatchNorm and GroupNorm parameters and statistics stay f32 (the folded
-    scale and shift are f32); the squeeze-excitation convs stay f32, as
+    """The compute-dtype policy: conv, Linear and attention weights and
+    biases in ``dtype``, and the transformer's LayerNorm scales and shifts
+    (PyTorch's fused encoder layer takes one dtype; the kernel keeps the
+    statistics in f32); BatchNorm and GroupNorm parameters and statistics
+    and the positional encodings stay f32 (the folded scale and shift are
+    f32); the squeeze-excitation convs stay f32, as
     their pooled input is f32; a weight-standardised conv keeps its f32
     weight and bias (standardised in f32 at every call, then cast, as the
     JAX package does: bf16 weights standardised would differ)."""
@@ -260,5 +296,8 @@ def cast_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     for m in model.modules():
         if (isinstance(m, nn.Conv2d) and not isinstance(m, WSConv2d)
                 and id(m) not in skip):
+            m.to(dtype)
+        elif isinstance(m, (nn.Linear, nn.MultiheadAttention,
+                            nn.LayerNorm)):
             m.to(dtype)
     return model

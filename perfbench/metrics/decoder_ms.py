@@ -1,0 +1,13 @@
+"""decoder_ms: milliseconds a unit of work (map or step) spends in the
+decoder from conv2 to conv3, the program's span "AdaBins decoder"
+(utils.profiling.stage, read through StageTimes); the spans' sum over
+the window's units. Nothing where the cell has no such span."""
+
+SPAN = "decoder"
+
+
+def read(obs):
+    total, n = obs.spans.ms_sum(SPAN)
+    if not n or not obs.units:
+        return None
+    return total / obs.units
